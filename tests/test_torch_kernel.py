@@ -1,0 +1,111 @@
+"""The CUDA kernel of the PyTorch port against its plain PyTorch version, on
+the card.
+
+This file imports neither JAX nor the JAX package, so it also runs on a
+machine that has only PyTorch and a CUDA toolkit:
+
+    python -m pytest --noconftest -q tests/test_torch_kernel.py
+
+Without a CUDA device every test here skips (the kernel has no CPU mode);
+``chip_smoke.py`` makes the same comparison at the main path's sizes.
+
+Tolerances: fp64 rtol 1e-11 -- FMA contraction and a different summation
+order over a few hundred steps; fp32 rtol 1e-4 -- float32 rounding.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import psa_torch as T  # noqa: E402
+from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_solver as cs  # noqa: E402
+
+RTOL = {torch.float64: 1e-11, torch.float32: 1e-4}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernel runs only on a CUDA device")
+    return torch.device("cuda")
+
+
+def _inputs(B, rdt, device, seed=5):
+    rng = np.random.default_rng(seed)
+    A0 = np.broadcast_to(np.sqrt([0.5, 0.5, 1e-7, 1e-7]).astype(np.complex128), (B, 4)).copy()
+    g = np.full(B, 0.0115)
+    a = np.full(B, 1.15e-4)
+    db = rng.uniform(-0.05, 0.05, B)
+    A0[7], g[7] = [1e4, 1e4, 1.0, 0.0], 1e3          # a lane that blows up
+    cdt = torch.complex128 if rdt == torch.float64 else torch.complex64
+    return (torch.as_tensor(A0, dtype=cdt, device=device),
+            *(torch.as_tensor(v, dtype=rdt, device=device) for v in (g, a, db)))
+
+
+@pytest.mark.parametrize("rdt", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("method", ["rk4", "ab4", "abm4"])
+@pytest.mark.parametrize("n_steps", [250, 253])
+def test_kernel_matches_plain_version(card, rdt, method, n_steps):
+    t = _inputs(130, rdt, card)
+    kw = dict(dz_m=0.2, n_steps=n_steps, save_every=10, integrator=method)
+    launches = cs.LAUNCHES
+    rk = cs.solve_batch_cuda(*t, **kw)
+    rp = cs.solve_batch_torch(*t, **kw)
+    torch.cuda.synchronize()
+    assert cs.LAUNCHES == launches + 1
+    assert torch.equal(rk.ok, rp.ok) and not bool(rk.ok[7]) and bool(rk.ok[8:].all())
+    assert torch.isfinite(rk.P_max).all() and torch.isfinite(rk.A_end).all()
+    torch.testing.assert_close(rk.P_max, rp.P_max, rtol=RTOL[rdt], atol=0)
+    torch.testing.assert_close(rk.A_end, rp.A_end, rtol=RTOL[rdt], atol=0)
+
+
+def test_kernel_edge_shapes(card):
+    """One lane, no steps, and fewer steps than one save interval."""
+    for B, n_steps in ((1, 0), (1, 7), (3, 12)):
+        t = _inputs(max(B, 8), torch.float64, card)
+        t = tuple(x[-B:] for x in t)
+        kw = dict(dz_m=0.2, n_steps=n_steps, save_every=10)
+        rk, rp = cs.solve_batch_cuda(*t, **kw), cs.solve_batch_torch(*t, **kw)
+        torch.testing.assert_close(rk.P_max, rp.P_max, rtol=1e-11, atol=0)
+        torch.testing.assert_close(rk.A_end, rp.A_end, rtol=1e-11, atol=0)
+
+
+@pytest.mark.parametrize("rdt", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_kernel_check_nan_off(card, rdt):
+    """With check_nan=False no lane freezes: ok stays set everywhere, the
+    blown-up lane is not finite, and the others match the plain version."""
+    t = _inputs(130, rdt, card)
+    kw = dict(dz_m=0.2, n_steps=250, save_every=10, check_nan=False)
+    rk, rp = cs.solve_batch_cuda(*t, **kw), cs.solve_batch_torch(*t, **kw)
+    assert bool(rk.ok.all()) and bool(rp.ok.all())
+    assert not bool(torch.isfinite(rk.A_end[7]).all())
+    rest = torch.arange(130, device=card) != 7
+    torch.testing.assert_close(rk.P_max[rest], rp.P_max[rest], rtol=RTOL[rdt], atol=0)
+    torch.testing.assert_close(rk.A_end[rest], rp.A_end[rest], rtol=RTOL[rdt], atol=0)
+
+
+def test_kernel_refuses_mismatched_dtypes(card):
+    A0, g, a, db = _inputs(8, torch.float64, card)
+    with pytest.raises(ValueError, match="gamma"):
+        cs.solve_batch_cuda(A0, g.float(), a, db, dz_m=0.2, n_steps=10, save_every=10)
+    with pytest.raises(ValueError, match="complex"):
+        cs.solve_batch_cuda(A0.real, g, a, db, dz_m=0.2, n_steps=10, save_every=10)
+
+
+def test_gain_spectrum_auto_runs_the_kernel(card):
+    lam3 = np.linspace(1540e-9, 1650e-9, 64)
+    disp = T.dispersion_params_from_D_S(1.5525e-6, 0.2, 0.02, D_units="ps/nm/km",
+                                        S_units="ps/nm^2/km")
+    kw = dict(cfg=T.custom_simulation_config(z_max=100.0, dz=0.2),
+              lambda_p1_m=1550e-9, lambda_p2_m=1555e-9, lambda_signal_m=lam3,
+              gamma=0.0115, alpha=1.15e-4, p_in=[0.5, 0.5, 1e-7, 1e-7], dispersion=disp,
+              device=card)
+    cs.LAUNCHES = 0
+    auto = T.gain_spectrum(**kw)
+    assert cs.LAUNCHES == 1
+    plain = T.gain_spectrum(**kw, engine="torch")
+    assert cs.LAUNCHES == 1
+    np.testing.assert_allclose(auto.gain, plain.gain, rtol=1e-11)
+    lab = T.gain_spectrum(**{**kw, "frame": "lab"})
+    assert cs.LAUNCHES == 1 and np.isfinite(lab.gain).all()
