@@ -90,7 +90,8 @@ def main():
                           capture_output=True, text=True, check=True).stdout.splitlines()[0]
     out = {"root": str(Path(psa.__file__).resolve().parent), "card": card,
            "torch": torch.__version__, "reps": args.reps}
-    _build.load_library()
+    for name in _build.build():
+        _build.load_library(name)
     out["ptxas"] = [line.strip() for line in _build.build_log().splitlines()
                     if "registers" in line or "spill" in line or "Compiling entry" in line]
 

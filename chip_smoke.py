@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one CUDA card and check it.
+"""Drive the PyTorch port's main paths once on one CUDA card and check them.
 
 Run from the root of a checkout, with no arguments:
 
@@ -9,21 +9,39 @@ Phases (any failure raises, and the script exits non-zero):
 
 1. device: a CUDA device must be present; its name and power limit are
    printed, TF32 is switched off;
-2. build: the CUDA kernels are compiled from ``csrc/`` (first use);
-3. kernel vs plain version on the card, at the main path's shapes: the
-   bench configuration's 10^4 lanes (a ragged last block) with one lane made
-   to blow up, 2,500 steps, and one run with a trailing partial save
-   interval: fp64 rk4/ab4/abm4 within rtol 1e-11, fp32 rk4 within rtol 1e-4,
-   equal ``ok`` flags, the bad lane frozen and finite;
-4. the main path at full size: ``gain_spectrum`` over 10^4 points at
-   ``precision='df32'`` and ``'x32'`` through the kernel (launch counter),
-   checked against the plain fp64 version on the CPU and the reference
-   goldens;
-5. times (median of 5 warm reps) of the kernel and of the plain version;
-6. one ``run_single_simulation`` on the card against the 45.292 dB anchor.
+2. build: the CUDA kernels are compiled from ``csrc/`` (first use, one
+   ``nvcc`` per source, all at once); registers and spills are printed;
+3. fixed-step kernel vs plain version on the card, at the main path's
+   shapes: the bench configuration's 10^4 lanes with one lane made to blow
+   up, 2,500 steps, and runs with a trailing partial save interval: fp64
+   rk4/ab4/abm4 within rtol 1e-11, fp32 rk4 within rtol 1e-4, equal ``ok``
+   flags, the bad lane frozen and finite;
+4. adaptive (rk45) kernel vs plain version on the card, 10^4 lanes, a bad
+   lane: fp64 at rtol 1e-10/atol 1e-13 and fp32 at rtol 1e-6/atol 1e-10,
+   2,500 steps; then fp32 over 100 m with a trailing partial span (497
+   steps) and with ``save_every=7`` (500 steps), as the plain version's time
+   follows its step count, not its lanes: equal ``ok``, the bad lane frozen
+   and finite, step counters equal on >= 99% of lanes, fp64 within 1e-11 on
+   the lanes whose counters agree and 10 x rtol on all, fp32 within 1e-4;
+5. the rk4 main path: ``gain_spectrum`` over 10^4 points at ``df32`` and
+   ``x32`` through the kernel (launch counts), against the plain fp64
+   version on the CPU and the reference goldens;
+6. the rk45 main path: ``gain_spectrum(integrator='rk45')`` over 10^4
+   points at ``df32`` and ``x32`` through the rk45 kernel, its 32-point
+   subset against the plain fp64 rk45 version on the CPU at rtol 1e-11;
+7. the other sweeps, each once on the card against the plain version of
+   the same call: ``gain_map_power_wavelength`` (16 x 640 cells, df32),
+   ``mismatch_scan`` and ``psa_phase_sweep`` (rk45, x32),
+   ``solve_batch_trajectories`` (plain torch, against the CPU);
+8. the default device: ``gain_spectrum`` with ``device`` left out launches
+   the kernel;
+9. times (median of 5 warm reps) of the kernels and of ``gain_spectrum``
+   end to end; the plain versions are timed once each, in phases 3 and 4;
+10. one ``run_single_simulation`` on the card against the 45.292 dB anchor.
 
-The line before the last is a JSON object describing each kernel; the last
-line is ``{"ok": true, "device": {...}}``.
+Each main path is driven with the launch counts cleared just before it and
+read just after.  The line before the last is a JSON object describing each
+kernel; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -39,6 +57,27 @@ ROOT = Path(__file__).resolve().parent
 N_POINTS = 10_000
 N_STEADY = 250_000
 REPS = 5
+PKG = "psa_simulation_ode_rk_mvp_dispersion_tpu_torch"
+JAX_PKG = "psa_simulation_ode_rk_mvp_dispersion_tpu"
+
+# Peak rates of one H100 SXM (NVIDIA data sheet, outside the tensor cores)
+# and its memory rate, for the bounds in the kernels line.
+PEAK_FLOPS = {torch.float64: 34e12, torch.float32: 67e12}
+PEAK_BYTES = 3.35e12
+# Arithmetic per lane, counted from the sources (a fused multiply-add counts
+# as two): one RHS evaluation is 111 flop.  An RK4 step is 4 RHS + 88 for
+# the stage sums, then the update: 8 adds (fp64) or 32 (fp32, compensated);
+# every save adds 16 (|y|^2 and the running max).  A DP45 attempt is 6 RHS
+# (the first stage is the last accepted step's seventh, FSAL) + 340 for the
+# stage sums (20 terms) + 102 for the error estimate (6 terms) + 69 for the
+# error norm + 13 for the controller (pow counted once); each lane adds one
+# RHS for its first attempt.
+RHS_FLOP = 111
+RK4_STEP_FLOP = {torch.float64: 4 * RHS_FLOP + 88 + 8, torch.float32: 4 * RHS_FLOP + 88 + 32}
+DP45_ATTEMPT_FLOP = 6 * RHS_FLOP + 340 + 102 + 69 + 13
+SAVE_FLOP = 16
+
+RK45_TOL = {torch.float64: (1e-10, 1e-13), torch.float32: (1e-6, 1e-10)}
 
 
 def log(msg):
@@ -65,8 +104,17 @@ def bench_common(psa):
     )
 
 
-def cfg_for(psa, precision):
-    return psa.custom_simulation_config(z_max=500.0, dz=0.2, save_every=10, precision=precision)
+def cfg_for(psa, precision, **kw):
+    return psa.custom_simulation_config(z_max=500.0, dz=0.2, save_every=10, precision=precision,
+                                        **kw)
+
+
+def cfg45_for(psa, precision, rtol=None, atol=None):
+    """The bench's adaptive lane (bench.py:323-348): rk45 over the same
+    grid; fp64 tiers at rtol 1e-10/atol 1e-13, x32 at 1e-6/1e-10."""
+    rdt = torch.float32 if precision == "x32" else torch.float64
+    r, a = RK45_TOL[rdt]
+    return cfg_for(psa, precision, integrator="rk45", rtol=rtol or r, atol=atol or a)
 
 
 def lanes(psa, common, n, rdt, device):
@@ -103,6 +151,133 @@ def lin(gain_db):
     return 10.0 ** (np.asarray(gain_db) / 10.0)
 
 
+def rel_err(k, p):
+    """Elementwise |k - p| / |p| (0 where both are 0)."""
+    return (k - p).abs() / p.abs().clamp_min(torch.finfo(p.real.dtype).tiny)
+
+
+def max_rel(a, b):
+    """max |a - b| / |b| over host arrays (0 where both are 0)."""
+    a, b = np.asarray(a), np.asarray(b)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), np.finfo(float).tiny)))
+
+
+def suffix(rdt):
+    return "f64" if rdt == torch.float64 else "f32"
+
+
+def with_bad_lane(t, bad):
+    A0, g, a, db = t
+    A0[bad] = torch.tensor([1e4, 1e4, 1.0, 0.0], dtype=A0.dtype)
+    g[bad] = 1e3                                   # this lane must blow up
+    return A0, g, a, db
+
+
+def check_fixed_kernel(psa, cs, common, dev, max_err, plain_ms):
+    """Phase 3: fwm4_rk.cu against its plain version at 10^4 lanes.  The
+    plain version's run of rk4 over 2,500 steps, after a run of the same
+    ops over 2,497 steps, is its time."""
+    B, bad = N_POINTS, N_POINTS // 2
+    cases = [(torch.float64, "rk4", 2497)]
+    cases += [(torch.float64, m, 2500) for m in ("rk4", "ab4", "abm4")]
+    cases += [(torch.float32, "rk4", 2497), (torch.float32, "rk4", 2500)]
+    for rdt, method, n_steps in cases:
+        t = with_bad_lane(lanes(psa, common, B, rdt, dev), bad)
+        kw = dict(dz_m=0.2, n_steps=n_steps, save_every=10, integrator=method)
+        rk = cs.solve_batch_cuda(*t, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rp = cs.solve_batch_torch(*t, **kw)
+        torch.cuda.synchronize()
+        if (method, n_steps) == ("rk4", 2500):
+            plain_ms[f"fwm4_rk_{suffix(rdt)}"] = 1e3 * (time.perf_counter() - t0)
+        rtol = 1e-11 if rdt == torch.float64 else 1e-4
+        if not torch.equal(rk.ok, rp.ok):
+            raise AssertionError(f"{method} {rdt} n={n_steps}: ok flags differ")
+        if bool(rk.ok[bad]) or int(rk.ok.sum()) != B - 1:
+            raise AssertionError(f"{method} {rdt}: expected exactly lane {bad} to fail")
+        for name, k, p in (("P_max", rk.P_max, rp.P_max), ("A_end", rk.A_end, rp.A_end)):
+            if not bool(torch.isfinite(k).all()):
+                raise AssertionError(f"{method} {rdt} {name}: non-finite kernel output")
+            rel = float(rel_err(k, p).max())
+            key = f"fwm4_rk_{suffix(rdt)}"
+            max_err[key] = max(max_err.get(key, 0.0), float((k - p).abs().max()))
+            log(f"kernel vs plain {str(rdt)[6:]} {method} B={B} n_steps={n_steps} {name}: "
+                f"max rel err {rel:.3e} (bar {rtol:g})")
+            if not rel <= rtol:
+                raise AssertionError(f"{method} {rdt} {name}: {rel:.3e} > {rtol:g}")
+
+
+def check_rk45_kernel(psa, ca, common, dev, max_err, plain_ms, steps):
+    """Phase 4: fwm4_rk45.cu against its plain version at 10^4 lanes.  The
+    plain version's single run in the first case of each dtype is its time."""
+    B, bad = N_POINTS, N_POINTS // 2
+    cases = [(torch.float64, 2500, 10), (torch.float32, 2500, 10), (torch.float32, 497, 10),
+             (torch.float32, 500, 7)]
+    for rdt, n_steps, save_every in cases:
+        rtol, atol = RK45_TOL[rdt]
+        t = with_bad_lane(lanes(psa, common, B, rdt, dev), bad)
+        kw = dict(dz_m=0.2, n_steps=n_steps, save_every=save_every, rtol=rtol, atol=atol)
+        rk = ca.solve_batch_rk45_cuda(*t, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rp = ca.solve_batch_rk45_torch(*t, **kw)
+        torch.cuda.synchronize()
+        key = f"fwm4_rk45_{suffix(rdt)}"
+        label = f"rk45 kernel vs plain {str(rdt)[6:]} B={B} n_steps={n_steps} save_every={save_every}"
+        if key not in plain_ms:
+            plain_ms[key] = 1e3 * (time.perf_counter() - t0)
+            attempts = (rk.n_accepted + rk.n_rejected).double()
+            steps[key] = (float(attempts.mean()), int(attempts.max()))
+        if not torch.equal(rk.ok, rp.ok):
+            raise AssertionError(f"{label}: ok flags differ")
+        if bool(rk.ok[bad]) or int(rk.ok.sum()) != B - 1:
+            raise AssertionError(f"{label}: expected exactly lane {bad} to fail")
+        same = (rk.n_accepted == rp.n_accepted) & (rk.n_rejected == rp.n_rejected)
+        share = float(same.double().mean())
+        if share < 0.99:
+            raise AssertionError(f"{label}: step counters agree on {share:.4f} < 0.99 of lanes")
+        for name, k, p in (("P_max", rk.P_max, rp.P_max), ("A_end", rk.A_end, rp.A_end)):
+            if not bool(torch.isfinite(k).all()):
+                raise AssertionError(f"{label} {name}: non-finite kernel output")
+            rel = rel_err(k, p)
+            rel_all = float(rel.max())
+            rel_same = float(rel[same].max())
+            max_err[key] = max(max_err.get(key, 0.0), float((k - p).abs().max()))
+            if rdt == torch.float64:
+                bars = ((rel_same, 1e-11, "lanes with equal counters"),
+                        (rel_all, 10 * rtol, "all lanes"))
+            else:
+                bars = ((rel_all, 1e-4, "all lanes"),)
+            log(f"{label} {name}: max rel err {rel_all:.3e} (all lanes), {rel_same:.3e} "
+                f"(lanes with equal counters); counters equal on {share:.4f}; bit-identical "
+                f"{bool(torch.equal(k, p))}")
+            for val, bar, where in bars:
+                if not val <= bar:
+                    raise AssertionError(f"{label} {name}: {val:.3e} > {bar:g} on {where}")
+
+
+def run_main_path(psa, _build, name, fn):
+    """Drive one main path with the launch counts cleared just before and
+    read just after; return (result, counts)."""
+    _build.LAUNCHES.clear()
+    res = fn()
+    torch.cuda.synchronize()
+    counts = dict(_build.LAUNCHES)
+    if counts.get(name, 0) < 1:
+        raise AssertionError(f"the path did not launch {name}: {counts}")
+    return res, counts
+
+
+def check_spectrum(res, precision):
+    ok_frac = float(res.ok.mean())
+    if res.gain.shape != (N_POINTS,) or ok_frac < 0.99:
+        raise AssertionError(f"{precision}: bad result (shape {res.gain.shape}, ok {ok_frac})")
+    if not np.isfinite(res.gain[res.ok]).all():
+        raise AssertionError(f"{precision}: non-finite gain on ok points")
+    return ok_frac
+
+
 def main():
     # --- 1. device -----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -110,8 +285,10 @@ def main():
                  "a CUDA card and never runs on the CPU")
     import psa_torch as psa
     from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import _build
+    from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_adaptive as ca
     from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_solver as cs
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -126,64 +303,38 @@ def main():
 
     # --- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    lib = _build.build()
-    _build.load_library()
-    log(f"build: {lib.name} ready in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {_build.find_nvcc()})")
+    libs = _build.build()
+    for name in libs:
+        _build.load_library(name)
+    log(f"build: {', '.join(p.name for p in libs.values())} ready in "
+        f"{time.perf_counter() - t0:.1f} s (nvcc {_build.find_nvcc()})")
     for line in _build.build_log().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
 
     common = bench_common(psa)
+    max_err, plain_ms, steps, launches = {}, {}, {}, {}
 
-    # --- 3. kernel vs plain version on the card --------------------------------
-    B, bad = N_POINTS, N_POINTS // 2
-    max_err = {torch.float64: 0.0, torch.float32: 0.0}
-    cases = [(torch.float64, m, 2500) for m in ("rk4", "ab4", "abm4")]
-    cases += [(torch.float64, "rk4", 2497), (torch.float32, "rk4", 2500),
-              (torch.float32, "rk4", 2497)]
-    for rdt, method, n_steps in cases:
-        A0, g, a, db = lanes(psa, common, B, rdt, dev)
-        A0[bad] = torch.tensor([1e4, 1e4, 1.0, 0.0], dtype=A0.dtype)
-        g[bad] = 1e3                                   # this lane must blow up
-        kw = dict(dz_m=0.2, n_steps=n_steps, save_every=10, integrator=method)
-        rk = cs.solve_batch_cuda(A0, g, a, db, **kw)
-        rp = cs.solve_batch_torch(A0, g, a, db, **kw)
-        torch.cuda.synchronize()
-        rtol = 1e-11 if rdt == torch.float64 else 1e-4
-        if not torch.equal(rk.ok, rp.ok):
-            raise AssertionError(f"{method} {rdt} n={n_steps}: ok flags differ")
-        if bool(rk.ok[bad]) or int(rk.ok.sum()) != B - 1:
-            raise AssertionError(f"{method} {rdt}: expected exactly lane {bad} to fail")
-        for name, k, p in (("P_max", rk.P_max, rp.P_max), ("A_end", rk.A_end, rp.A_end)):
-            if not bool(torch.isfinite(k).all()):
-                raise AssertionError(f"{method} {rdt} {name}: non-finite kernel output")
-            diff = (k - p).abs()
-            rel = float((diff / p.abs().clamp_min(torch.finfo(p.real.dtype).tiny)).max())
-            max_err[rdt] = max(max_err[rdt], float(diff.max()))
-            log(f"kernel vs plain {str(rdt)[6:]} {method} B={B} n_steps={n_steps} {name}: "
-                f"max rel err {rel:.3e} (bar {rtol:g})")
-            if not rel <= rtol:
-                raise AssertionError(f"{method} {rdt} {name}: {rel:.3e} > {rtol:g}")
+    # --- 3. fixed-step kernel vs plain version ---------------------------------
+    check_fixed_kernel(psa, cs, common, dev, max_err, plain_ms)
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 3 done")
 
-    # --- 4. the main path at full size ------------------------------------------
+    # --- 4. rk45 kernel vs plain version -----------------------------------------
+    check_rk45_kernel(psa, ca, common, dev, max_err, plain_ms, steps)
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 4 done")
+
+    # --- 5. the rk4 main path at full size ----------------------------------------
     lam3 = np.linspace(1540e-9, 1650e-9, N_POINTS)
-    launches = {}
     for precision, rdt in (("df32", torch.float64), ("x32", torch.float32)):
-        cs.LAUNCHES = 0
-        res = psa.gain_spectrum(cfg=cfg_for(psa, precision), lambda_signal_m=lam3,
-                                device="cuda", engine="auto", **common)
-        launches[rdt] = cs.LAUNCHES
-        ok_frac = float(res.ok.mean())
-        log(f"main path {precision}: {N_POINTS} points, {launches[rdt]} kernel launch(es), "
+        name = f"fwm4_rk_{suffix(rdt)}"
+        res, counts = run_main_path(psa, _build, name, lambda: psa.gain_spectrum(
+            cfg=cfg_for(psa, precision), lambda_signal_m=lam3, device="cuda", engine="auto",
+            **common))
+        launches[name] = counts[name]
+        ok_frac = check_spectrum(res, precision)
+        log(f"main path rk4 {precision}: {N_POINTS} points, launches {counts}, "
             f"ok {ok_frac:.4f}, peak gain {np.nanmax(res.gain):.4f} dB, "
             f"{res.points_per_s:.1f} pts/s (first call)")
-        if launches[rdt] < 1:
-            raise AssertionError(f"{precision}: the main path did not launch the kernel")
-        if res.gain.shape != (N_POINTS,) or ok_frac < 0.99:
-            raise AssertionError(f"{precision}: bad result (shape {res.gain.shape}, ok {ok_frac})")
-        if not np.isfinite(res.gain[res.ok]).all():
-            raise AssertionError(f"{precision}: non-finite gain on ok points")
 
     sub = np.linspace(1541e-9, 1649e-9, 32)
     ref = psa.gain_spectrum(cfg=cfg_for(psa, "x64"), lambda_signal_m=sub, device="cpu",
@@ -213,33 +364,153 @@ def main():
         "in linear gain (bar 2e-9)")
     if not gerr <= 2e-9:
         raise AssertionError(f"golden bench config error {gerr:.3e} > 2e-9")
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 5 done")
 
-    # --- 5. times ----------------------------------------------------------------
+    # --- 6. the rk45 main path at full size ---------------------------------------
+    for precision, rdt in (("df32", torch.float64), ("x32", torch.float32)):
+        name = f"fwm4_rk45_{suffix(rdt)}"
+        res, counts = run_main_path(psa, _build, name, lambda: psa.gain_spectrum(
+            cfg=cfg45_for(psa, precision), lambda_signal_m=lam3, device="cuda", engine="auto",
+            **common))
+        launches[name] = counts[name]
+        ok_frac = check_spectrum(res, precision)
+        log(f"main path rk45 {precision}: {N_POINTS} points, launches {counts}, "
+            f"ok {ok_frac:.4f}, peak gain {np.nanmax(res.gain):.4f} dB, "
+            f"{res.points_per_s:.1f} pts/s (first call)")
+    t0 = time.perf_counter()
+    ref45 = psa.gain_spectrum(cfg=cfg45_for(psa, "x64", rtol=1e-11, atol=1e-14),
+                              lambda_signal_m=sub, device="cpu", engine="torch", **common)
+    log(f"plain fp64 rk45 reference on the CPU, 32 points at rtol 1e-11: "
+        f"{time.perf_counter() - t0:.1f} s")
+    for precision, bar in (("df32", 1e-7), ("x32", 5e-4)):
+        fast = psa.gain_spectrum(cfg=cfg45_for(psa, precision), lambda_signal_m=sub,
+                                 device="cuda", **common)
+        err = float(np.nanmax(np.abs(lin(fast.gain) / lin(ref45.gain) - 1.0)))
+        log(f"32-point subset rk45 {precision} (card, kernel) vs plain fp64 rk45 (CPU, "
+            f"rtol 1e-11): max rel err {err:.3e} in linear gain (bar {bar:g})")
+        if not (err <= bar and fast.ok.all()):
+            raise AssertionError(f"rk45 {precision} subset error {err:.3e} > {bar:g}")
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 6 done")
+
+    # --- 7. the other sweeps ---------------------------------------------------------
+    gm_kw = dict(cfg=cfg_for(psa, "df32"), lambda_signal_m=np.linspace(1540e-9, 1650e-9, 640),
+                 pump_powers_W=np.linspace(0.1, 0.8, 16), p_seed=(1e-7, 1e-7),
+                 **{k: common[k] for k in ("lambda_p1_m", "lambda_p2_m", "gamma", "alpha",
+                                           "dispersion", "phase_matching_cfg", "length_unit",
+                                           "frame")})
+    gm, counts = run_main_path(psa, _build, "fwm4_rk_f64", lambda: psa.gain_map_power_wavelength(
+        **gm_kw, device="cuda"))
+    gm_plain = psa.gain_map_power_wavelength(**gm_kw, device="cuda", engine="torch")
+    gm_err = max_rel(lin(gm.gain)[gm.ok], lin(gm_plain.gain)[gm.ok])
+    log(f"gain_map_power_wavelength df32, {gm.gain.shape[0]} x {gm.gain.shape[1]} = "
+        f"{gm.gain.size} cells: launches {counts}, "
+        f"ok {gm.ok.mean():.4f}; kernel vs plain on the card {gm_err:.3e} (bar 1e-11)")
+    if not (gm_err <= 1e-11 and np.array_equal(gm.ok, gm_plain.ok) and gm.ok.mean() >= 0.99):
+        raise AssertionError(f"gain map: error {gm_err:.3e}, ok {gm.ok.mean()}")
+
+    ms_kw = dict(cfg=psa.custom_simulation_config(z_max=0.5, dz=1e-3, save_every=10,
+                                                  precision="x32", integrator="rk45",
+                                                  rtol=1e-6, atol=1e-10),
+                 gamma=10.0, alpha=0.0, p_in=[0.5, 0.5, 1e-4, 0.0],
+                 delta_beta_values=np.linspace(-30.0, 10.0, 256), gain_mode="end",
+                 gain_unit="linear", length_unit="km")
+    (sig, idl), counts = run_main_path(psa, _build, "fwm4_rk45_f32", lambda: psa.mismatch_scan(
+        **ms_kw, device="cuda"))
+    sig_p, idl_p = psa.mismatch_scan(**ms_kw, device="cuda", engine="torch")
+    ms_err = max(max_rel(sig.gain, sig_p.gain), max_rel(idl.gain, idl_p.gain))
+    log(f"mismatch_scan rk45 x32, 256 points: launches {counts}, ok {sig.ok.mean():.4f}; "
+        f"kernel vs plain on the card {ms_err:.3e} (bar 1e-4)")
+    if not (ms_err <= 1e-4 and sig.ok.all()):
+        raise AssertionError(f"mismatch_scan: error {ms_err:.3e}")
+
+    ps_kw = dict(cfg=ms_kw["cfg"], gamma=10.0, alpha=0.0, p_in=[0.3, 0.3, 1e-3, 1e-3],
+                 signal_phases=np.linspace(0.0, 2 * np.pi, 256), delta_beta=0.0,
+                 gain_unit="linear", length_unit="km")
+    ps, counts = run_main_path(psa, _build, "fwm4_rk45_f32", lambda: psa.psa_phase_sweep(
+        **ps_kw, device="cuda"))
+    ps_p = psa.psa_phase_sweep(**ps_kw, device="cuda", engine="torch")
+    ps_err = max_rel(ps.gain, ps_p.gain)
+    log(f"psa_phase_sweep rk45 x32, 256 phases: launches {counts}, gain max/min "
+        f"{ps.gain.max() / ps.gain.min():.3f}; kernel vs plain on the card {ps_err:.3e} "
+        "(bar 1e-4)")
+    if not (ps_err <= 1e-4 and ps.ok.all() and ps.gain.max() / ps.gain.min() > 1.5):
+        raise AssertionError(f"psa_phase_sweep: error {ps_err:.3e}")
+
+    B_t = 8
+    tr_co = psa.RHSCoeffs(np.full(B_t, 0.0115), np.full(B_t, 1.15e-4), np.linspace(-0.5, 0.5, B_t))
+    tr_A0 = np.broadcast_to(np.sqrt(common["p_in"]).astype(np.complex128), (B_t, 4))
+    for integ, bar in (("rk4", 1e-11), ("rk45", 1e-8)):
+        tr_cfg = psa.custom_simulation_config(z_max=50.0, dz=0.2, save_every=25, integrator=integ,
+                                              rtol=1e-10, atol=1e-13)
+        z, A, ok = psa.solve_batch_trajectories(tr_cfg, tr_co, tr_A0, device="cuda")
+        z_c, A_c, ok_c = psa.solve_batch_trajectories(tr_cfg, tr_co, tr_A0, device="cpu")
+        tr_err = max_rel(A, A_c)
+        log(f"solve_batch_trajectories {integ}, B={B_t}, {A.shape[1]} rows: card vs CPU "
+            f"{tr_err:.3e} (bar {bar:g}; plain torch on both)")
+        if not (tr_err <= bar and ok.all() and np.array_equal(z, z_c)):
+            raise AssertionError(f"trajectories {integ}: error {tr_err:.3e}")
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 7 done")
+
+    # --- 8. the default device -----------------------------------------------------
+    res, counts = run_main_path(psa, _build, "fwm4_rk_f64", lambda: psa.gain_spectrum(
+        cfg=cfg_for(psa, "df32"), lambda_signal_m=lam3, **common))
+    log(f"gain_spectrum with device left out: launches {counts}, ok {res.ok.mean():.4f}")
+    check_spectrum(res, "df32 (default device)")
+
+    # --- 9. times ----------------------------------------------------------------
     kw = dict(dz_m=0.2, n_steps=2500, save_every=10, integrator="rk4")
-    ms, plain_ms = {}, {}
+    ms, bound_ms, bound_by, bytes_of = {}, {}, {}, {}
+
+    def bound(name, rdt, flops, nbytes):
+        t_ops, t_bytes = flops / PEAK_FLOPS[rdt], nbytes / PEAK_BYTES
+        bound_ms[name] = 1e3 * max(t_ops, t_bytes)
+        bound_by[name] = "operations" if t_ops >= t_bytes else "bytes"
+        bytes_of[name] = nbytes
+
     for rdt in (torch.float64, torch.float32):
+        name = f"fwm4_rk_{suffix(rdt)}"
         t = lanes(psa, common, N_POINTS, rdt, dev)
-        ms[rdt] = 1e3 * timed(lambda: cs.solve_batch_cuda(*t, **kw))
-        plain_ms[rdt] = 1e3 * timed(lambda: cs.solve_batch_torch(*t, **kw))
+        ms[name] = 1e3 * timed(lambda: cs.solve_batch_cuda(*t, **kw))
+        # inputs: A0 (8 reals), gamma, alpha, dbeta; outputs: P_max (4),
+        # A_end (8), ok (1 byte)
+        bound(name, rdt, N_POINTS * (2500 * RK4_STEP_FLOP[rdt] + 250 * SAVE_FLOP),
+              N_POINTS * ((3 + 8 + 4 + 8) * rdt.itemsize + 1))
     t = lanes(psa, common, N_STEADY, torch.float64, dev)
     ms_steady = 1e3 * timed(lambda: cs.solve_batch_cuda(*t, **kw))
-    e2e = {}
-    for precision in ("df32", "x32"):
-        e2e[precision] = timed(lambda: psa.gain_spectrum(
-            cfg=cfg_for(psa, precision), lambda_signal_m=lam3, device="cuda", **common))
-    log(f"times on {card} (median of {REPS} warm reps, 2,500 rk4 steps per point):")
     for rdt in (torch.float64, torch.float32):
-        name = str(rdt)[6:]
-        log(f"  kernel {name} {N_POINTS} points: {ms[rdt]:.3f} ms = "
-            f"{N_POINTS / ms[rdt] * 1e3:.1f} pts/s; plain torch on the card: "
-            f"{plain_ms[rdt]:.1f} ms = {N_POINTS / plain_ms[rdt] * 1e3:.1f} pts/s")
-    log(f"  kernel float64 {N_STEADY} points: {ms_steady:.3f} ms = "
+        name = f"fwm4_rk45_{suffix(rdt)}"
+        rtol, atol = RK45_TOL[rdt]
+        t = lanes(psa, common, N_POINTS, rdt, dev)
+        kw45 = dict(dz_m=0.2, n_steps=2500, save_every=10, rtol=rtol, atol=atol)
+        r = ca.solve_batch_rk45_cuda(*t, **kw45)
+        attempts = (r.n_accepted + r.n_rejected).double()
+        ms[name] = 1e3 * timed(lambda: ca.solve_batch_rk45_cuda(*t, **kw45))
+        # this run's attempted steps; outputs add the two int32 counters
+        bound(name, rdt, float(attempts.sum()) * DP45_ATTEMPT_FLOP
+              + N_POINTS * (RHS_FLOP + 250 * SAVE_FLOP),
+              N_POINTS * ((3 + 8 + 4 + 8) * rdt.itemsize + 1 + 8))
+        steps[name + "_timed"] = (float(attempts.mean()), int(attempts.max()))
+    e2e = {}
+    for label, cfg in (("rk4 df32", cfg_for(psa, "df32")), ("rk4 x32", cfg_for(psa, "x32")),
+                       ("rk45 df32", cfg45_for(psa, "df32")), ("rk45 x32", cfg45_for(psa, "x32"))):
+        e2e[label] = timed(lambda: psa.gain_spectrum(
+            cfg=cfg, lambda_signal_m=lam3, device="cuda", **common))
+    log(f"times on {card} (median of {REPS} warm reps, host clock with synchronize):")
+    for name in ms:
+        extra = f"; plain version on the card (one run, phase 3/4) {plain_ms[name]:.1f} ms"
+        if name.startswith("fwm4_rk45"):
+            mean, mx = steps[name + "_timed"]
+            extra = f"; attempted steps per lane mean {mean:.1f}, max {mx}" + extra
+        log(f"  {name} {N_POINTS} points: {ms[name]:.3f} ms = {N_POINTS / ms[name] * 1e3:.1f} "
+            f"pts/s; bound {bound_ms[name]:.3f} ms ({bound_by[name]}; {bytes_of[name]} bytes)"
+            f"{extra}")
+    log(f"  fwm4_rk_f64 {N_STEADY} points: {ms_steady:.3f} ms = "
         f"{N_STEADY / ms_steady * 1e3:.1f} pts/s")
-    for precision, sec in e2e.items():
-        log(f"  gain_spectrum end to end, {precision}, {N_POINTS} points: {sec * 1e3:.3f} ms = "
+    for label, sec in e2e.items():
+        log(f"  gain_spectrum end to end, {label}, {N_POINTS} points: {sec * 1e3:.3f} ms = "
             f"{N_POINTS / sec:.1f} pts/s")
 
-    # --- 6. single run on the card ---------------------------------------------
+    # --- 10. single run on the card ------------------------------------------------
     omega = psa.plan_from_wavelengths(1550e-9, 1560e-9, 1555e-9)
     sp = psa.infer_symmetry_from_omegas(*omega)
     adisp = psa.dispersion_params_from_D_S(
@@ -259,17 +530,21 @@ def main():
         f"in {time.perf_counter() - t0:.1f} s (anchor 45.292 +- 1e-3)")
     if A.shape != (1001, 4) or not np.isfinite(A).all() or abs(gain_db - 45.292) > 1e-3:
         raise AssertionError(f"single run: shape {A.shape}, gain {gain_db} dB")
+    log(f"[{time.perf_counter() - t_start:.0f} s] all phases done")
 
-    source = "psa_simulation_ode_rk_mvp_dispersion_tpu_torch/csrc/fwm4_rk.cu"
+    sources = {"fwm4_rk": f"{PKG}/csrc/fwm4_rk.cu", "fwm4_rk45": f"{PKG}/csrc/fwm4_rk45.cu"}
     replaces = {
-        torch.float64: "psa_simulation_ode_rk_mvp_dispersion_tpu/ops/pallas_df32.py:442",
-        torch.float32: "psa_simulation_ode_rk_mvp_dispersion_tpu/ops/pallas_solver.py:300",
+        "fwm4_rk_f64": f"{JAX_PKG}/ops/pallas_df32.py:442",
+        "fwm4_rk_f32": f"{JAX_PKG}/ops/pallas_solver.py:300",
+        "fwm4_rk45_f64": f"{JAX_PKG}/ops/pallas_adaptive.py:67",
+        "fwm4_rk45_f32": f"{JAX_PKG}/ops/pallas_adaptive.py:67",
     }
     print(json.dumps({"kernels": [
-        {"name": f"fwm4_rk_{'f64' if rdt == torch.float64 else 'f32'}", "route": "cuda",
-         "source": source, "replaces": replaces[rdt], "launches": launches[rdt],
-         "max_abs_err": max_err[rdt], "ms": ms[rdt], "plain_ms": plain_ms[rdt]}
-        for rdt in (torch.float64, torch.float32)
+        {"name": name, "route": "cuda", "source": sources[name.rsplit("_", 1)[0]],
+         "replaces": replaces[name], "launches": launches[name], "max_abs_err": max_err[name],
+         "ms": ms[name], "plain_ms": plain_ms[name], "bound_ms": bound_ms[name],
+         "bound_by": bound_by[name], "library_ms": None}
+        for name in ("fwm4_rk_f64", "fwm4_rk_f32", "fwm4_rk45_f64", "fwm4_rk45_f32")
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

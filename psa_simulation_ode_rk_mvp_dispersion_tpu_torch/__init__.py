@@ -3,29 +3,48 @@ of the four-wave-mixing / phase-sensitive-amplifier framework.
 
 The JAX package ``psa_simulation_ode_rk_mvp_dispersion_tpu`` is the
 reference; this package keeps its module paths and public names, so each
-function's counterpart is found by name.  This slice covers the main path:
-parameter math, the 4-wave RHS, fixed-step integrators, the single-run
-runner and the gain-spectrum sweep, whose rotating-frame solve runs on a
-CUDA device through a hand-written kernel (``ops/cuda_solver.py``,
-``csrc/fwm4_rk.cu``).
+function's counterpart is found by name.  The port covers the 4-wave main
+path: parameter math, the RHS, the fixed-step (rk4/ab4/abm4) and adaptive
+(rk45) integrators, the single-run runner, the sweeps (gain spectrum,
+mismatch scan, PSA phase sweep, power x wavelength gain map, batched
+trajectories) and result persistence (``io_fwm``).  The rotating-frame
+sweeps run on a CUDA device through hand-written kernels:
+``csrc/fwm4_rk.cu`` (``ops/cuda_solver.py``) and ``csrc/fwm4_rk45.cu``
+(``ops/cuda_adaptive.py``).
 
 Precision tiers: ``x64`` and ``df32`` run in float64/complex128, ``x32`` in
-float32/complex64.  Public entry points take ``device=``; ``None`` means
-``torch.get_default_device()``.
+float32/complex64.  Public entry points take ``device=``; ``None`` means the
+CUDA card, and without one they raise (pass ``device='cpu'`` for the CPU).
 
 Import alias: ``import psa_torch`` (see repo-root ``psa_torch.py``).
 """
 
 from __future__ import annotations
 
-from . import constants, interop
+from . import constants, interop, io_fwm
 from .config import (
     SimulationConfig,
     custom_simulation_config,
     default_simulation_config,
     validate_config,
 )
-from .ops import analytic, cuda_solver, dispersion, frequency_plan, integrators, phase_matching, rhs
+from .ops import (
+    adaptive,
+    analytic,
+    cuda_adaptive,
+    cuda_solver,
+    dispersion,
+    frequency_plan,
+    integrators,
+    phase_matching,
+    rhs,
+)
+from .ops.adaptive import (
+    integrate_adaptive_grid,
+    integrate_adaptive_reduce,
+    rk45_step,
+    run_adaptive_trajectory,
+)
 from .ops.analytic import pia_signal_gain, psa_gain_extrema
 from .ops.dispersion import (
     DispersionParams,
@@ -93,11 +112,29 @@ from .models.fwm4 import (
 from .parallel import sweep as sweeps
 from .parallel.sweep import (
     BatchSolveResult,
+    GainMapResult,
     SweepResult,
     dbeta_spectrum,
     gain_and_dbeta_spectrum,
+    gain_map_power_wavelength,
     gain_spectrum,
+    mismatch_scan,
+    psa_phase_sweep,
     solve_batch,
+    solve_batch_trajectories,
+)
+from .io_fwm import (
+    load_gain_map_npz,
+    load_metadata_json,
+    load_result_npz,
+    load_sweep_npz,
+    make_run_metadata,
+    save_gain_map_npz,
+    save_metadata_json,
+    save_result_npz,
+    save_run_bundle,
+    save_summary_csv,
+    save_sweep_npz,
 )
 
 __version__ = "0.1.0"

@@ -23,6 +23,7 @@ from .ops.dispersion import DispersionParams
 from .ops.frequency_plan import SymmetricPlan
 from .ops.phase_matching import PhaseMatchingConfig, PhaseMatchingMethod
 from .ops.rhs import RHSCoeffs
+from .utils.checks import resolve_device
 
 # Counterparts by class name.  The classes in _TENSOR_CLASSES hold tensors;
 # the others are host-side containers that keep numpy arrays and floats.
@@ -56,10 +57,11 @@ def from_reference(obj, *, device=None, dtype: torch.dtype = torch.float64):
     """The counterpart of a JAX-package parameter object.
 
     Array leaves of ``RHSCoeffs``, ``DispersionParams`` and ``SymmetricPlan``
-    become ``dtype`` tensors on ``device`` (``None``: the default device);
-    host containers keep numpy copies.  ``DispersionParams`` and
+    become ``dtype`` tensors on ``device`` (``None``: the CUDA card); host
+    containers keep numpy copies.  ``DispersionParams`` and
     ``SymmetricPlan`` are float64 by definition and ignore ``dtype``.
     """
+    device = resolve_device(device)
     if isinstance(obj, Enum):
         return _ENUMS[type(obj).__name__](obj.value)
     if not dataclasses.is_dataclass(obj) or isinstance(obj, type):

@@ -14,8 +14,9 @@ The rich containers are host-side frozen dataclasses validated eagerly, as in
 the reference.  :func:`lower_params` distills them once into the small
 :class:`~..ops.rhs.RHSCoeffs` tensors the RHS consumes, outside the step
 loop.  A single run is one trajectory integrated with plain torch on the
-requested device (``ops/integrators.py``); the JAX package runs it through
-``lax.scan`` with no kernel either.
+requested device (``ops/integrators.py``, or ``ops/adaptive.py`` for rk45);
+the JAX package runs it through ``lax.scan``/``lax.while_loop`` with no
+kernel either.  ``device=None`` means the CUDA card.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import torch
 from ..config import SimulationConfig, validate_config, reject_non_ode
 from ..ops.dispersion import DispersionParams
 from ..ops.frequency_plan import SymmetricPlan
+from ..ops.adaptive import run_adaptive_trajectory
 from ..ops.integrators import integrate_fixed_grid
 from ..ops.phase_matching import (
     PhaseMatchingConfig,
@@ -37,15 +39,9 @@ from ..ops.phase_matching import (
     compute_phase_mismatch,
 )
 from ..ops.rhs import RHSCoeffs, rhs_yaman, rhs_yaman_autonomous, rotating_to_lab
-from ..utils.checks import to_scalar_float, validate_nonneg, validate_positive
+from ..utils.checks import resolve_device, to_scalar_float, validate_nonneg, validate_positive
 from ..utils.precision import complex_dtype, real_dtype, validate_precision
 from ..utils.units import length_scale_to_m
-
-RK45_NOT_PORTED = (
-    "integrator='rk45' is not ported to the PyTorch package yet: it lands "
-    "with the adaptive integrator and its kernel K3 (ROADMAP Queue 1, "
-    "item 8). Use 'rk4', 'ab4' or 'abm4'."
-)
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -303,7 +299,7 @@ def lower_params(params: ModelParams, *, precision: str = "x64", device=None) ->
     """Extract (gamma, alpha, delta_beta) with the reference's priority rules
     (``yaman_model.py:59-116``): cached delta_beta, else legacy per-wave betas
     (dbeta = b3+b4-b1-b2).  Runs ONCE per solve, not once per RHS eval.
-    ``device=None`` means ``torch.get_default_device()``.
+    ``device=None`` means the CUDA card.
     """
     fiber = params.fiber
     gamma = float(fiber.gamma_W_m)
@@ -323,6 +319,7 @@ def lower_params(params: ModelParams, *, precision: str = "x64", device=None) ->
         )
 
     rdt = real_dtype(validate_precision(precision))
+    device = resolve_device(device)
     return RHSCoeffs(*(torch.tensor(v, dtype=rdt, device=device)
                        for v in (gamma, alpha, dbeta)))
 
@@ -395,13 +392,13 @@ def run_single_simulation(
     ``cfg.precision`` selects the dtype tier; ``frame='rotating'`` integrates
     the autonomous system and converts saved states back to the lab frame;
     ``z0``/``A_init`` resume from a saved (z, A) row over
-    [z0, z0 + z_max] (z0 in ``length_unit``).  The trajectory is integrated
-    on ``device`` (``None``: ``torch.get_default_device()``).
+    [z0, z0 + z_max] (z0 in ``length_unit``).  ``cfg.integrator='rk45'``
+    integrates adaptively with ``cfg.rtol``/``atol``/``max_steps`` and
+    returns the same decimated grid.  The trajectory is integrated on
+    ``device`` (``None``: the CUDA card).
     """
     validate_config(cfg)
     reject_non_ode(cfg, "the 4-wave runner")
-    if cfg.integrator.lower() == "rk45":
-        raise NotImplementedError(RK45_NOT_PORTED)
     if frame not in VALID_FRAMES:
         raise ValueError(f"frame must be one of {VALID_FRAMES}, got {frame!r}")
 
@@ -468,6 +465,7 @@ def run_single_simulation(
     params.cache.set_phase_mismatch(float(res.delta_beta), symmetric=res.symmetric)
 
     precision = validate_precision(cfg.precision)
+    device = resolve_device(device)
     coeffs = lower_params(params, precision=precision, device=device)
 
     n_steps = int(round(params.fiber.length_m / params.grid.dz_m))
@@ -477,6 +475,12 @@ def run_single_simulation(
         db0 = float(params.cache.delta_beta_1_m)
         A0 = A0.copy()
         A0[:2] *= np.exp(-0.5j * db0 * z0_m)
+
+    if cfg.integrator.lower() == "rk45":
+        return run_adaptive_trajectory(
+            cfg, params, coeffs, A0, frame=frame, length_unit=length_unit,
+            return_length_unit=return_length_unit, z0_m=z0_m, device=device,
+        )
 
     out = integrate_fixed_grid(
         rhs_yaman if frame == "lab" else rhs_yaman_autonomous,
@@ -522,7 +526,8 @@ def run_single_simulation(
 # ---------------------------------------------------------------------------
 
 def example_zero_signal(*, device=None) -> Tuple[np.ndarray, np.ndarray]:
-    """Two pumps, zero signal/idler at input, dbeta forced to 0 (PROVIDED)."""
+    """Two pumps, zero signal/idler at input, dbeta forced to 0 (PROVIDED);
+    on ``device`` (``None``: the CUDA card)."""
     from ..config import default_simulation_config
     from ..constants import c as c0
 
@@ -545,7 +550,8 @@ def example_zero_signal(*, device=None) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def custom_seeded_signal(*, device=None) -> Tuple[np.ndarray, np.ndarray]:
-    """Seeded signal/idler with dbeta specified explicitly (PROVIDED)."""
+    """Seeded signal/idler with dbeta specified explicitly (PROVIDED); on
+    ``device`` (``None``: the CUDA card)."""
     from ..config import custom_simulation_config
     from ..constants import c as c0
 

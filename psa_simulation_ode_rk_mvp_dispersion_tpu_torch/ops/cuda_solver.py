@@ -9,7 +9,8 @@ and ABM4.
 
 - :func:`solve_batch_cuda` checks its inputs, lays them out as (rows, B)
   structure-of-arrays buffers, launches the kernel on the current stream
-  and counts the launch in :data:`LAUNCHES`.  It takes CUDA tensors only.
+  and counts the launch in ``ops/_build.LAUNCHES``.  It takes CUDA tensors
+  only.
 - :func:`solve_batch_torch` is the plain version: the same rotating-frame
   integration through ``ops/integrators.integrate_reduce``, batched over
   ``(B, 4)`` complex tensors.  The CPU path and the comparisons on the card
@@ -26,12 +27,9 @@ import dataclasses
 
 import torch
 
+from . import _build
 from .integrators import integrate_reduce
 from .rhs import RHSCoeffs, rhs_yaman_autonomous, rotating_to_lab
-
-# Kernel launches made by solve_batch_cuda in this process.  A run resets it
-# and reads it back to show that its path went through the kernel.
-LAUNCHES = 0
 
 METHODS = ("rk4", "ab4", "abm4")
 _DTYPE_SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
@@ -47,7 +45,10 @@ class KernelBatchResult:
     ok: torch.Tensor      # (B,) bool: no non-finite state in any step
 
 
-def _check_inputs(A0, gamma, alpha, delta_beta, n_steps, save_every, integrator):
+def check_lanes(A0, gamma, alpha, delta_beta, n_steps, save_every):
+    """Validate a batch for the kernels: ``(B, 4)`` complex64/128 ``A0`` and
+    ``(B,)`` coefficients of the matching real dtype on its device.
+    Returns ``(B, real dtype)``."""
     if A0.ndim != 2 or A0.shape[1] != 4 or A0.shape[0] < 1:
         raise ValueError(f"A0 must have shape (B, 4) with B >= 1, got {tuple(A0.shape)}")
     B = A0.shape[0]
@@ -61,6 +62,11 @@ def _check_inputs(A0, gamma, alpha, delta_beta, n_steps, save_every, integrator)
                 f"{tuple(v.shape)} {v.dtype} on {v.device}")
     if n_steps < 0 or save_every < 1:
         raise ValueError("need n_steps >= 0 and save_every >= 1")
+    return B, rdt
+
+
+def _check_inputs(A0, gamma, alpha, delta_beta, n_steps, save_every, integrator):
+    B, rdt = check_lanes(A0, gamma, alpha, delta_beta, n_steps, save_every)
     if integrator not in METHODS:
         raise ValueError(f"integrator must be one of {METHODS}, got {integrator!r}")
     return B, rdt
@@ -108,9 +114,7 @@ def solve_batch_torch(A0, gamma, alpha, delta_beta, *, dz_m: float, n_steps: int
 
 
 def _launcher(rdt: torch.dtype, integrator: str):
-    from ._build import load_library
-
-    fn = getattr(load_library(), f"fwm4_{integrator}_{_DTYPE_SUFFIX[rdt]}")
+    fn = getattr(_build.load_library("fwm4_rk"), f"fwm4_{integrator}_{_DTYPE_SUFFIX[rdt]}")
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_double, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -127,7 +131,6 @@ def solve_batch_cuda(A0, gamma, alpha, delta_beta, *, dz_m: float, n_steps: int,
     ``check_nan`` false no lane is frozen and ``ok`` stays set.  Returns
     without synchronizing; the outputs are ordinary tensors on the stream.
     """
-    global LAUNCHES
     B, rdt = _check_inputs(A0, gamma, alpha, delta_beta, n_steps, save_every, integrator)
     if A0.device.type != "cuda":
         raise ValueError(f"solve_batch_cuda needs CUDA tensors, got a tensor on {A0.device}")
@@ -146,7 +149,7 @@ def solve_batch_cuda(A0, gamma, alpha, delta_beta, *, dz_m: float, n_steps: int,
     if err != 0:
         raise RuntimeError(f"fwm4_{integrator}_{_DTYPE_SUFFIX[rdt]} launch failed: "
                            f"cudaError {err}")
-    LAUNCHES += 1
+    _build.LAUNCHES[f"fwm4_rk_{_DTYPE_SUFFIX[rdt]}"] += 1
     A_rot = torch.complex(y_last[:4].T, y_last[4:].T)
     return KernelBatchResult(
         P_max=pmax.T,

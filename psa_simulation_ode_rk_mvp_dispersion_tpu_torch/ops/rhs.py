@@ -106,37 +106,42 @@ def rhs_yaman_autonomous(z, b: torch.Tensor, p: RHSCoeffs) -> torch.Tensor:
         dB2/dz = -a/2 B2 + i g[(F2 - db/(2g)) B2 + 2 B1* B3 B4]
         dB3/dz = -a/2 B3 + i g[ F3 B3 + 2 B4* B1 B2]
         dB4/dz = -a/2 B4 + i g[ F4 B4 + 2 B3* B1 B2]
+
+    Computed in real arithmetic, every product and sum in the order of the
+    CUDA kernels' ``rhs`` (``csrc/fwm4_rk.cu``, ``csrc/fwm4_rk45.cu``), so
+    that a kernel and this plain version round alike.
     """
     check_last_dim(b, 4, name="b")
     nb = b.ndim - 1
     rdt = b.real.dtype
     g = _expand(p.gamma, nb, b).to(rdt)
-    al = _expand(p.alpha, nb, b)
-    db = _expand(p.delta_beta, nb, b)
+    neg_half_al = -0.5 * _expand(p.alpha, nb, b).to(rdt)
+    neg_half_db = -0.5 * _expand(p.delta_beta, nb, b).to(rdt)
+    two_g = 2.0 * g
 
-    F = kerr_factors(b)
-    kerr = _imag_times(g, F * b)
-    loss = (-0.5 * al.to(rdt)) * b
+    re, im = b.real, b.imag
+    P = re * re + im * im
+    tot = ((P[..., 0:1] + P[..., 1:2]) + P[..., 2:3]) + P[..., 3:4]
+    gF = g * (2.0 * tot - P)
+    d_re = neg_half_al * re - gF * im
+    d_im = neg_half_al * im + gF * re
 
-    b1, b2, b3, b4 = b[..., 0:1], b[..., 1:2], b[..., 2:3], b[..., 3:4]
-    s34 = b3 * b4
-    s12 = b1 * b2
-    fwm = _imag_times(2.0 * g, torch.cat(
-        [b2.conj() * s34, b1.conj() * s34, b4.conj() * s12, b3.conj() * s12],
-        dim=-1,
-    ))
-    # Pump-only detuning term -i db/2 * B_{1,2}
-    neg_half_db = (-0.5) * db.to(rdt)
-    detune = torch.cat(
-        [
-            _imag_times(neg_half_db, b1),
-            _imag_times(neg_half_db, b2),
-            torch.zeros_like(b3),
-            torch.zeros_like(b4),
-        ],
-        dim=-1,
-    )
-    return loss + kerr + fwm + detune
+    r1, r2, r3, r4 = re[..., 0:1], re[..., 1:2], re[..., 2:3], re[..., 3:4]
+    i1, i2, i3, i4 = im[..., 0:1], im[..., 1:2], im[..., 2:3], im[..., 3:4]
+    s34_re, s34_im = r3 * r4 - i3 * i4, r3 * i4 + i3 * r4
+    s12_re, s12_im = r1 * r2 - i1 * i2, r1 * i2 + i1 * r2
+    # FWM drive, conj(B_k) * s for the partner k of each wave
+    t_re = torch.cat([r2 * s34_re + i2 * s34_im, r1 * s34_re + i1 * s34_im,
+                      r4 * s12_re + i4 * s12_im, r3 * s12_re + i3 * s12_im], dim=-1)
+    t_im = torch.cat([r2 * s34_im - i2 * s34_re, r1 * s34_im - i1 * s34_re,
+                      r4 * s12_im - i4 * s12_re, r3 * s12_im - i3 * s12_re], dim=-1)
+    d_re = d_re - two_g * t_im
+    d_im = d_im + two_g * t_re
+    # pump-only detuning -i db/2 * B_{1,2} (x - 0 leaves the idler and signal exact)
+    zero = torch.zeros_like(re[..., 2:4])
+    d_re = d_re - torch.cat([neg_half_db * i1, neg_half_db * i2, zero], dim=-1)
+    d_im = d_im + torch.cat([neg_half_db * r1, neg_half_db * r2, zero], dim=-1)
+    return torch.complex(d_re, d_im)
 
 
 def rotating_to_lab(z, b: torch.Tensor, p: RHSCoeffs) -> torch.Tensor:

@@ -13,13 +13,29 @@ import numpy as np
 import torch
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``device`` as given, and for
+    ``None`` the CUDA card.  Without a card, ``None`` raises instead of
+    falling back to the CPU; the CPU is used only when asked for."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available and no device was given: the port runs on "
+            "the CUDA card by default; pass device='cpu' to run on the CPU")
+    return torch.device("cuda")
+
+
 def as_f64(x: Any, device=None) -> torch.Tensor:
     """A float64 tensor of ``x``.  A tensor keeps its device; anything else
     (Python or numpy scalars and arrays) lands on ``device``, where ``None``
-    means ``torch.get_default_device()``."""
+    means the host: parameter objects (plans, dispersion, scalars) are built
+    there, as the JAX package builds them with numpy, and the entry points
+    pass their resolved device for every value that feeds a solve."""
     if isinstance(x, torch.Tensor):
         return x.to(dtype=torch.float64)
-    return torch.as_tensor(np.asarray(x, dtype=np.float64), device=device)
+    return torch.as_tensor(np.asarray(x, dtype=np.float64),
+                           device="cpu" if device is None else device)
 
 
 def to_scalar_float(x: Any, *, name: str) -> float:

@@ -1,0 +1,91 @@
+"""The port's entry points run on the CUDA card unless the caller asks for
+the CPU: with no card and no ``device``, each raises instead of falling back
+to the CPU.  ``torch.cuda.is_available`` is patched to return False, so the
+tests behave the same on a machine with a card."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import psa_torch as T  # noqa: E402
+import psa_tpu as J  # noqa: E402
+from psa_simulation_ode_rk_mvp_dispersion_tpu_torch import interop  # noqa: E402
+from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.utils.checks import resolve_device  # noqa: E402
+
+_PM = dict(phase_matching_cfg=T.PhaseMatchingConfig(method="provided", provided_delta_beta=0.0))
+_DISP = T.dispersion_params_from_D_S(1.5525e-6, 0.2, 0.02, D_units="ps/nm/km",
+                                     S_units="ps/nm^2/km")
+_CFG = T.custom_simulation_config(z_max=1.0, dz=0.1)
+_SPECTRUM = dict(cfg=_CFG, lambda_p1_m=1550e-9, lambda_p2_m=1555e-9,
+                 lambda_signal_m=[1560e-9, 1565e-9], gamma=0.0115, alpha=0.0,
+                 p_in=[0.5, 0.5, 1e-7, 1e-7], dispersion=_DISP)
+_COEFFS = T.RHSCoeffs(np.full(2, 0.01), np.zeros(2), np.zeros(2))
+_A0 = np.full((2, 4), 0.1, dtype=np.complex128)
+
+ENTRY_POINTS = {
+    "solve_batch": lambda **d: T.solve_batch(_CFG, _COEFFS, _A0, **d),
+    "solve_batch_rk45": lambda **d: T.solve_batch(
+        T.custom_simulation_config(z_max=1.0, dz=0.1, integrator="rk45"), _COEFFS, _A0, **d),
+    "solve_batch_trajectories": lambda **d: T.solve_batch_trajectories(_CFG, _COEFFS, _A0, **d),
+    "gain_spectrum": lambda **d: T.gain_spectrum(**_SPECTRUM, **d),
+    "gain_and_dbeta_spectrum": lambda **d: T.gain_and_dbeta_spectrum(**_SPECTRUM, **d),
+    "dbeta_spectrum": lambda **d: T.dbeta_spectrum(
+        lambda_p1_m=1550e-9, lambda_p2_m=1555e-9, lambda_signal_m=[1560e-9],
+        dispersion=_DISP, **d),
+    "mismatch_scan": lambda **d: T.mismatch_scan(
+        cfg=_CFG, gamma=10.0, alpha=0.0, p_in=[0.1, 0.1, 1e-4, 0.0],
+        delta_beta_values=[0.0, 1.0], length_unit="m", **d),
+    "psa_phase_sweep": lambda **d: T.psa_phase_sweep(
+        cfg=_CFG, gamma=10.0, alpha=0.0, p_in=[0.1, 0.1, 1e-4, 1e-4],
+        signal_phases=[0.0, 1.0], **d),
+    "gain_map_power_wavelength": lambda **d: T.gain_map_power_wavelength(
+        cfg=_CFG, lambda_p1_m=1550e-9, lambda_p2_m=1555e-9, lambda_signal_m=[1560e-9],
+        pump_powers_W=[0.1, 0.2], gamma=0.0115, alpha=0.0, dispersion=_DISP, **d),
+    "run_single_simulation": lambda **d: T.run_single_simulation(
+        _CFG, gamma=0.01, alpha=0.0, omega=np.full(4, 1.2e15), p_in=[0.1, 0.1, 1e-6, 0.0],
+        **_PM, **d),
+    "example_zero_signal": lambda **d: T.example_zero_signal(**d),
+    "lower_params": lambda **d: T.lower_params(_MODEL_PARAMS, **d),
+    "run_adaptive_trajectory": lambda **d: T.run_adaptive_trajectory(
+        T.custom_simulation_config(z_max=1.0, dz=0.1, integrator="rk45"), _MODEL_PARAMS,
+        T.RHSCoeffs(0.01, 0.0, 0.0), np.full(4, 0.1, dtype=np.complex128), frame="rotating",
+        length_unit="m", return_length_unit=None, **d),
+    "from_reference": lambda **d: interop.from_reference(
+        J.RHSCoeffs(gamma=np.ones(2), alpha=np.zeros(2), delta_beta=np.zeros(2)), **d),
+}
+
+_MODEL_PARAMS = T.make_model_params(
+    waves=T.WavesParams(omega=np.full(4, 1.2e15)),
+    fiber=T.FiberParams(length_m=1.0, gamma_W_m=0.01, beta_legacy_1_m=np.zeros(4)),
+    grid=T.SimulationGrid(dz_m=0.1),
+)
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_point_without_device_raises_when_there_is_no_card(no_card, name):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ENTRY_POINTS[name]()
+
+
+@pytest.mark.parametrize("name", ["solve_batch", "gain_spectrum", "lower_params",
+                                  "run_adaptive_trajectory", "from_reference", "dbeta_spectrum"])
+def test_entry_point_runs_on_the_cpu_when_asked(no_card, name):
+    assert ENTRY_POINTS[name](device="cpu") is not None
+
+
+def test_resolver(no_card):
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert resolve_device(torch.device("cpu")) == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device(None)
+
+
+def test_resolver_picks_the_card_when_there_is_one(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device(None) == torch.device("cuda")

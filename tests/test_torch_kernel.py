@@ -1,5 +1,5 @@
-"""The CUDA kernel of the PyTorch port against its plain PyTorch version, on
-the card.
+"""The CUDA kernels of the PyTorch port against their plain PyTorch versions,
+on the card.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch and a CUDA toolkit:
@@ -10,7 +10,9 @@ Without a CUDA device every test here skips (the kernel has no CPU mode);
 ``chip_smoke.py`` makes the same comparison at the main path's sizes.
 
 Tolerances: fp64 rtol 1e-11 -- FMA contraction and a different summation
-order over a few hundred steps; fp32 rtol 1e-4 -- float32 rounding.
+order over a few hundred steps; fp32 rtol 1e-4 -- float32 rounding.  The
+adaptive kernel rounds as its plain version does, so its counters must be
+equal and its results agree far inside the same bars.
 """
 
 import numpy as np
@@ -19,6 +21,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import psa_torch as T  # noqa: E402
+from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import _build  # noqa: E402
+from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_adaptive as ca  # noqa: E402
 from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_solver as cs  # noqa: E402
 
 RTOL = {torch.float64: 1e-11, torch.float32: 1e-4}
@@ -49,11 +53,12 @@ def _inputs(B, rdt, device, seed=5):
 def test_kernel_matches_plain_version(card, rdt, method, n_steps):
     t = _inputs(130, rdt, card)
     kw = dict(dz_m=0.2, n_steps=n_steps, save_every=10, integrator=method)
-    launches = cs.LAUNCHES
+    name = f"fwm4_rk_{'f64' if rdt == torch.float64 else 'f32'}"
+    launches = _build.LAUNCHES[name]
     rk = cs.solve_batch_cuda(*t, **kw)
     rp = cs.solve_batch_torch(*t, **kw)
     torch.cuda.synchronize()
-    assert cs.LAUNCHES == launches + 1
+    assert _build.LAUNCHES[name] == launches + 1
     assert torch.equal(rk.ok, rp.ok) and not bool(rk.ok[7]) and bool(rk.ok[8:].all())
     assert torch.isfinite(rk.P_max).all() and torch.isfinite(rk.A_end).all()
     torch.testing.assert_close(rk.P_max, rp.P_max, rtol=RTOL[rdt], atol=0)
@@ -101,11 +106,102 @@ def test_gain_spectrum_auto_runs_the_kernel(card):
               lambda_p1_m=1550e-9, lambda_p2_m=1555e-9, lambda_signal_m=lam3,
               gamma=0.0115, alpha=1.15e-4, p_in=[0.5, 0.5, 1e-7, 1e-7], dispersion=disp,
               device=card)
-    cs.LAUNCHES = 0
+    _build.LAUNCHES.clear()
     auto = T.gain_spectrum(**kw)
-    assert cs.LAUNCHES == 1
+    assert _build.LAUNCHES == {"fwm4_rk_f64": 1}
     plain = T.gain_spectrum(**kw, engine="torch")
-    assert cs.LAUNCHES == 1
+    assert _build.LAUNCHES == {"fwm4_rk_f64": 1}
     np.testing.assert_allclose(auto.gain, plain.gain, rtol=1e-11)
     lab = T.gain_spectrum(**{**kw, "frame": "lab"})
-    assert cs.LAUNCHES == 1 and np.isfinite(lab.gain).all()
+    assert _build.LAUNCHES == {"fwm4_rk_f64": 1} and np.isfinite(lab.gain).all()
+
+
+# ---------------------------------------------------------------------------
+# K3: the adaptive (rk45) kernel, csrc/fwm4_rk45.cu
+# ---------------------------------------------------------------------------
+
+RK45_TOL = {torch.float64: (1e-10, 1e-13), torch.float32: (1e-6, 1e-10)}
+
+
+def _rk45_inputs(B, rdt, device):
+    t = _inputs(B, rdt, device)
+    # a spread of mismatch, so that lanes take different step counts
+    db = torch.linspace(-1.5, 1.5, B, dtype=rdt, device=device)
+    return t[0], t[1], t[2], db
+
+
+def _rk45_pair(t, **kw):
+    rk = ca.solve_batch_rk45_cuda(*t, **kw)
+    rp = ca.solve_batch_rk45_torch(*t, **kw)
+    torch.cuda.synchronize()
+    return rk, rp
+
+
+@pytest.mark.parametrize("rdt", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("n_steps,save_every", [(250, 10), (253, 10), (250, 7)])
+def test_rk45_kernel_matches_plain_version(card, rdt, n_steps, save_every):
+    """The kernel and its plain version take the same steps (the plain
+    version repeats the kernel's operations and the kernel is built without
+    FMA contraction): equal counters and ok flags, and results within
+    1e-11 (fp64) or 1e-4 (fp32) relative."""
+    rtol, atol = RK45_TOL[rdt]
+    t = _rk45_inputs(130, rdt, card)
+    kw = dict(dz_m=0.2, n_steps=n_steps, save_every=save_every, rtol=rtol, atol=atol)
+    name = f"fwm4_rk45_{'f64' if rdt == torch.float64 else 'f32'}"
+    launches = _build.LAUNCHES[name]
+    rk, rp = _rk45_pair(t, **kw)
+    assert _build.LAUNCHES[name] == launches + 1
+    assert torch.equal(rk.ok, rp.ok) and not bool(rk.ok[7]) and bool(rk.ok[8:].all())
+    assert torch.equal(rk.n_accepted, rp.n_accepted)
+    assert torch.equal(rk.n_rejected, rp.n_rejected)
+    assert bool((rk.n_accepted[8:] > 0).all())
+    assert torch.isfinite(rk.P_max).all() and torch.isfinite(rk.A_end).all()
+    bar = 1e-11 if rdt == torch.float64 else 1e-4
+    torch.testing.assert_close(rk.P_max, rp.P_max, rtol=bar, atol=0)
+    torch.testing.assert_close(rk.A_end, rp.A_end, rtol=bar, atol=0)
+
+
+def test_rk45_kernel_edge_shapes(card):
+    """One lane; no steps; fewer steps than one save interval (the saved
+    outputs are the initial values, the span still feeds ok and the
+    counters)."""
+    for B, n_steps in ((1, 0), (1, 7), (3, 12), (130, 5)):
+        t = tuple(x[-B:] for x in _rk45_inputs(max(B, 8), torch.float64, card))
+        kw = dict(dz_m=0.2, n_steps=n_steps, save_every=10, rtol=1e-10, atol=1e-13)
+        rk, rp = _rk45_pair(t, **kw)
+        assert torch.equal(rk.ok, rp.ok) and torch.equal(rk.n_accepted, rp.n_accepted)
+        torch.testing.assert_close(rk.P_max, rp.P_max, rtol=1e-11, atol=0)
+        torch.testing.assert_close(rk.A_end, rp.A_end, rtol=1e-11, atol=0)
+        if n_steps < 10:
+            torch.testing.assert_close(rk.A_end, t[0], rtol=0, atol=0)
+        if n_steps == 0:
+            assert bool(rk.ok.all()) and int(rk.n_accepted.sum()) == 0
+
+
+def test_rk45_kernel_max_steps_exhaustion(card):
+    """A lane that cannot finish a segment within max_steps attempts fails,
+    in the kernel as in the plain version."""
+    t = _rk45_inputs(64, torch.float64, card)
+    kw = dict(dz_m=0.2, n_steps=50, save_every=10, rtol=1e-10, atol=1e-13, max_steps=2)
+    rk, rp = _rk45_pair(t, **kw)
+    assert not bool(rk.ok.any()) and torch.equal(rk.ok, rp.ok)
+    assert torch.equal(rk.n_accepted, rp.n_accepted)
+
+
+def test_gain_spectrum_rk45_runs_the_kernel(card):
+    lam3 = np.linspace(1540e-9, 1650e-9, 64)
+    disp = T.dispersion_params_from_D_S(1.5525e-6, 0.2, 0.02, D_units="ps/nm/km",
+                                        S_units="ps/nm^2/km")
+    for precision, name in (("df32", "fwm4_rk45_f64"), ("x32", "fwm4_rk45_f32")):
+        cfg = T.custom_simulation_config(z_max=100.0, dz=0.2, integrator="rk45",
+                                         precision=precision, rtol=1e-9, atol=1e-12)
+        kw = dict(cfg=cfg, lambda_p1_m=1550e-9, lambda_p2_m=1555e-9, lambda_signal_m=lam3,
+                  gamma=0.0115, alpha=1.15e-4, p_in=[0.5, 0.5, 1e-7, 1e-7], dispersion=disp,
+                  device=card)
+        _build.LAUNCHES.clear()
+        auto = T.gain_spectrum(**kw)
+        assert _build.LAUNCHES == {name: 1}
+        plain = T.gain_spectrum(**kw, engine="torch")
+        assert _build.LAUNCHES == {name: 1}
+        np.testing.assert_allclose(auto.gain, plain.gain,
+                                   rtol=1e-11 if precision == "df32" else 1e-5)

@@ -272,9 +272,9 @@ def test_interop_round_trip():
         _jax_model_params(),
     ]
     for obj in objs:
-        port = interop.from_reference(obj)
+        port = interop.from_reference(obj, device="cpu")
         _assert_same(port, obj)
-    coeffs = interop.from_reference(objs[1], dtype=torch.float32)
+    coeffs = interop.from_reference(objs[1], dtype=torch.float32, device="cpu")
     assert coeffs.gamma.dtype == torch.float32
     with pytest.raises(TypeError):
-        interop.from_reference(np.zeros(3))
+        interop.from_reference(np.zeros(3), device="cpu")

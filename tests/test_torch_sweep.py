@@ -70,7 +70,8 @@ def test_gain_and_dbeta_spectrum_matches_jax(frame, integrator):
     np.testing.assert_allclose(rt.gain, rj.gain, rtol=1e-12, atol=0)
     np.testing.assert_allclose(rt.dbeta, rj.dbeta, rtol=1e-12, atol=0)
     x_t, db_t = T.dbeta_spectrum(**{k: kw_t[k] for k in (
-        "lambda_p1_m", "lambda_p2_m", "lambda_signal_m", "dispersion", "phase_matching_cfg")})
+        "lambda_p1_m", "lambda_p2_m", "lambda_signal_m", "dispersion", "phase_matching_cfg")},
+        device="cpu")
     np.testing.assert_allclose(db_t, rj.dbeta, rtol=1e-12, atol=0)
 
 
@@ -78,14 +79,14 @@ def test_bench_config_gain_spectrum_golden():
     """The main path's configuration (bench.py:190-220), 16 points, lab
     frame, against the executed reference (tests/test_sweep.py:259-284)."""
     kw, g = _spectrum_kwargs(T, "golden_bench_config.npz", frame="lab")
-    res = T.gain_spectrum(**kw)
+    res = T.gain_spectrum(**kw, device="cpu")
     assert res.dbeta is None and res.ok.all()
     np.testing.assert_allclose(res.gain, np.asarray(g["gain_db"]), rtol=1e-9, atol=1e-8)
 
 
 def test_gain_and_dbeta_spectrum_golden():
     kw, g = _spectrum_kwargs(T, "golden_spectrum.npz", frame="lab", n=16)
-    res = T.gain_and_dbeta_spectrum(**kw)
+    res = T.gain_and_dbeta_spectrum(**kw, device="cpu")
     np.testing.assert_allclose(res.x, np.asarray(g["lam3"]) * 1e9, rtol=1e-12)
     np.testing.assert_allclose(res.gain, np.asarray(g["gain_db"]), rtol=1e-9, atol=1e-8)
     np.testing.assert_allclose(res.dbeta, np.asarray(g["dbeta"]), rtol=1e-9)
@@ -93,6 +94,7 @@ def test_gain_and_dbeta_spectrum_golden():
 
 def test_x32_tier_tracks_x64():
     kw, _ = _spectrum_kwargs(T, "golden_bench_config.npz", frame="rotating", n=6, z_max=200.0)
+    kw["device"] = "cpu"
     ref = T.gain_spectrum(**kw)
     kw["cfg"] = T.custom_simulation_config(z_max=200.0, dz=0.2, precision="x32")
     fast = T.gain_spectrum(**kw)
@@ -160,7 +162,7 @@ def test_anchor_trajectory_golden():
                                          ("custom_seeded_signal", "golden_seeded.npz")])
 def test_example_runs_golden(name, golden):
     g = np.load(GOLDEN_DIR / golden)
-    z, A = getattr(T, name)()
+    z, A = getattr(T, name)(device="cpu")
     np.testing.assert_allclose(z, g["z"], rtol=1e-12)
     assert _max_rel_err(A, g["A"]) < 1e-9
 
@@ -177,7 +179,8 @@ def test_run_single_matches_jax_and_resumes(frame, integrator):
     np.testing.assert_allclose(A_t, A_j, rtol=1e-12, atol=0)
     # resume from the last saved row: continues with lab-frame phase continuity
     cfg2 = T.custom_simulation_config(z_max=14.0, dz=0.2, save_every=7, integrator=integrator)
-    z2, A2 = T.run_single_simulation(cfg2, **kw_t, frame=frame, z0=z_t[-1], A_init=A_t[-1])
+    z2, A2 = T.run_single_simulation(cfg2, **kw_t, frame=frame, z0=z_t[-1], A_init=A_t[-1],
+                                     device="cpu")
     z2j, A2j = J.run_single_simulation(
         J.custom_simulation_config(z_max=14.0, dz=0.2, save_every=7, integrator=integrator),
         **kw_j, frame=frame, z0=z_j[-1], A_init=A_j[-1])
@@ -190,14 +193,14 @@ def test_run_single_errors():
     cfg = T.custom_simulation_config(z_max=10.0, dz=0.5)
     with pytest.raises(FloatingPointError, match="step"):
         T.run_single_simulation(cfg, gamma=1e3, alpha=0.0, omega=np.full(4, 1.2e15),
-                                p_in=[1e8, 1e8, 1.0, 0.0], phase_matching_cfg=pm)
+                                p_in=[1e8, 1e8, 1.0, 0.0], phase_matching_cfg=pm, device="cpu")
     with pytest.raises(ValueError):
         T.run_single_simulation(cfg, gamma=1.0, alpha=0.0, omega=np.full(3, 1.2e15),
-                                p_in=[0.1, 0.1, 0, 0], phase_matching_cfg=pm)
+                                p_in=[0.1, 0.1, 0, 0], phase_matching_cfg=pm, device="cpu")
     with pytest.raises(ValueError):
         T.run_single_simulation(cfg, gamma=1.0, alpha=0.0, omega=np.full(4, 1.2e15),
                                 p_in=[0.1, 0.1, 0, 0], phase_matching_cfg=pm,
-                                length_unit="miles")
+                                length_unit="miles", device="cpu")
     with pytest.raises(ValueError):
         T.run_single_simulation(cfg, gamma=1.0, alpha=0.0, omega=np.full(4, 1.2e15),
-                                p_in=[0.1, 0.1, 0, 0])
+                                p_in=[0.1, 0.1, 0, 0], device="cpu")
