@@ -37,7 +37,33 @@ Phases (any failure raises, and the script exits non-zero):
    the kernel;
 9. times (median of 5 warm reps) of the kernels and of ``gain_spectrum``
    end to end; the plain versions are timed once each, in phases 3 and 4;
-10. one ``run_single_simulation`` on the card against the 45.292 dB anchor.
+10. one ``run_single_simulation`` on the card against the 45.292 dB anchor;
+11. comb kernel K4 (``csrc/comb_rk.cu``) vs its plain version on the card at
+    the ``bench_comb.py`` configuration (N = 64 lines, 4,096 combs over a
+    gamma grid, 1,000 steps over 500 m, ``save_every=100``) with one comb
+    made to blow up and a run with a trailing partial interval (1,005
+    steps): fp64 rk4/ab4/abm4 within 1e-11 and fp32 rk4 within 1e-4 of each
+    comb's largest value (normwise: a weak line carries the DFT sums'
+    rounding relative to the pumps), equal ``ok``, the bad comb frozen and
+    finite;
+12. comb kernel K5 (``csrc/comb_rk45.cu``) vs its plain version, same
+    configuration, fp64 at rtol 1e-9/atol 1e-12 and fp32 at 1e-6/1e-10
+    (``bench_comb.py:305-306``), with a bad comb: fp64 step counters equal
+    on >= 99% of combs, results within 1e-9 there and 10 x rtol on all;
+    fp32 equal ``ok`` and ``P_max`` and ``A_end`` within 1e-3 (its counters
+    mostly differ: the DFT sums' order moves the float32 error estimate),
+    beside the reading of the plain version with gamma 0.1% off;
+13. the comb main path: ``nwave.solve_comb_batch`` at the full bench size at
+    ``df32`` (``device`` left out), ``x32``, rk45 ``x64`` and rk45 ``x32``,
+    one K4 or K5 launch each, every comb ``ok``; the 8-comb subset of
+    ``bench_comb.py:338-366`` against the plain fp64 version on the CPU in
+    relative power on lines above 1e-6 W (bars 1e-9, 1e-4, 1e-7, 2e-2);
+    one ``run_comb_simulation`` on the card against the CPU;
+14. times (median of 5 warm reps) of the four comb kernel entries and of
+    ``solve_comb_batch`` end to end; the plain versions once each, in
+    phases 11 and 12.  Each comb kernel's bound counts the cubic sum as two
+    FFTs, the least work it needs; the dense-DFT count the kernels perform
+    is printed beside it as the dense bound.
 
 Each main path is driven with the launch counts cleared just before it and
 read just after.  The line before the last is a JSON object describing each
@@ -78,6 +104,41 @@ DP45_ATTEMPT_FLOP = 6 * RHS_FLOP + 340 + 102 + 69 + 13
 SAVE_FLOP = 16
 
 RK45_TOL = {torch.float64: (1e-10, 1e-13), torch.float32: (1e-6, 1e-10)}
+
+# The comb configuration of bench_comb.py:37-41, 94-120.
+COMB_N, COMB_B, COMB_STEPS, COMB_SAVE, COMB_Z = 64, 4096, 1000, 100, 500.0
+COMB_TOL = {torch.float64: (1e-9, 1e-12), torch.float32: (1e-6, 1e-10)}
+# The comb kernels' bound counts the least work the function needs: the
+# cubic sum through two length-L FFTs (the port's 'fft' coupling), at the
+# peak of each type outside the tensor cores (PEAK_FLOPS).  The kernels sum
+# dense DFTs instead (8*N*L multiply-adds per RHS); that count, at the 67
+# TFLOP/s a tensor-core design could reach in both types (FP64 tensor cores;
+# FP32 without TF32, which drifts, BENCH_COMB.md), is printed beside it as
+# the dense bound, the target of such a design.
+COMB_DENSE_PEAK_FLOPS = 67e12
+
+
+def comb_rhs_flop(n, L, dense=False):
+    """One comb RHS: the cubic sum (two radix-2 FFTs of 5*L*log2(L) flop,
+    or the kernels' dense DFTs, 16*N*L), 5 per bin for F|F|^2, 7 per
+    component for the linear terms and the sum."""
+    transforms = 16 * n * L if dense else 10 * L * (L.bit_length() - 1)
+    return transforms + 5 * L + 14 * n
+
+
+def comb_step_flop(n, L, method, rdt, dense=False):
+    """One fixed step: its RHS evaluations, the stage sums and the update
+    (compensated in float32) per component of the 2N-value state."""
+    update = 4 if rdt == torch.float32 else 1
+    per_component = {"rk4": 12, "ab4": 7, "abm4": 16}[method] + update
+    n_rhs = {"rk4": 4, "ab4": 1, "abm4": 2}[method]
+    return n_rhs * comb_rhs_flop(n, L, dense) + 2 * n * per_component
+
+
+def comb_attempt_flop(n, L, dense=False):
+    """One DP45 attempt: 6 RHS, 26 stage and error terms of 2 flop per
+    component, and ~16 flop per line for the error norm."""
+    return 6 * comb_rhs_flop(n, L, dense) + 2 * n * 52 + 16 * n
 
 
 def log(msg):
@@ -257,6 +318,140 @@ def check_rk45_kernel(psa, ca, common, dev, max_err, plain_ms, steps):
                     raise AssertionError(f"{label} {name}: {val:.3e} > {bar:g} on {where}")
 
 
+def comb_setup(psa):
+    """bench_comb.py's comb: two 0.5 W pumps at c +- 8, a 1e-9 W noise floor
+    (seed 0), beta2 = -1e-27 s^2/m and beta3 = 1.2e-41 s^3/m at 193.1 THz,
+    50 GHz spacing, over a gamma grid of 4,096 values in [5e-3, 15e-3].
+    Returns host ``(A0 (B, N), coeffs)``."""
+    nw = psa.nwave
+    omega_c = 2.0 * np.pi * 193.1e12
+    grid = nw.CombGrid.centered(omega_c, 2.0 * np.pi * 50e9, COMB_N)
+    disp = psa.DispersionParams.from_betas(omega_c, beta2=-1.0e-27, beta3=1.2e-41)
+    beta = nw.comb_beta_lin(grid, disp)
+    c = COMB_N // 2
+    A0 = nw.seed_comb(grid, pump_lines={c - 8: 0.5, c + 8: 0.5}, noise_floor_W=1e-9, seed=0)
+    coeffs = nw.NWaveCoeffs(gamma=np.linspace(5e-3, 15e-3, COMB_B),
+                            alpha=np.full(COMB_B, 5e-5), beta_lin=beta)
+    return np.broadcast_to(A0, (COMB_B, COMB_N)).copy(), coeffs
+
+
+def comb_lanes(psa, rdt, dev, bad=None):
+    """The kernel inputs of comb_setup as tensors; comb ``bad`` blows up."""
+    A0, co = comb_setup(psa)
+    g = co.gamma.copy()
+    if bad is not None:
+        A0[bad] *= 1e3
+        g[bad] = 1e3
+    cdt = torch.complex128 if rdt == torch.float64 else torch.complex64
+    full = dict(dtype=rdt, device=dev)
+    return (torch.as_tensor(A0, dtype=cdt, device=dev), torch.as_tensor(g, **full),
+            torch.as_tensor(co.alpha, **full),
+            torch.as_tensor(np.broadcast_to(co.beta_lin, (COMB_B, COMB_N)).copy(), **full))
+
+
+def comb_cfg(psa, precision, integrator="rk4", rtol=None, atol=None):
+    rdt = torch.float32 if precision == "x32" else torch.float64
+    r, a = COMB_TOL[rdt]
+    return psa.custom_simulation_config(
+        z_max=COMB_Z, dz=COMB_Z / COMB_STEPS, save_every=COMB_SAVE, precision=precision,
+        integrator=integrator, rtol=rtol or r, atol=atol or a)
+
+
+def normwise(k, p):
+    """Worst over combs of max_lines |k - p| / max_lines |p|."""
+    return float(((k - p).abs().amax(-1) / p.abs().amax(-1).clamp_min(1e-300)).max())
+
+
+def check_comb_kernel(psa, cc, dev, max_err, plain_ms):
+    """Phase 11: comb_rk.cu against its plain version at the bench size.
+    The plain version's rk4 run at 1,000 steps of each dtype is its time."""
+    bad = COMB_B // 2
+    cases = [(torch.float64, m, COMB_STEPS) for m in ("rk4", "ab4", "abm4")]
+    cases += [(torch.float64, "rk4", COMB_STEPS + 5), (torch.float32, "rk4", COMB_STEPS)]
+    for rdt, method, n_steps in cases:
+        t = comb_lanes(psa, rdt, dev, bad)
+        kw = dict(dz_m=COMB_Z / COMB_STEPS, n_steps=n_steps, save_every=COMB_SAVE,
+                  integrator=method)
+        rk = cc.solve_comb_batch_cuda(*t, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rp = cc.solve_comb_batch_torch(*t, **kw)
+        torch.cuda.synchronize()
+        key = f"comb_rk_{suffix(rdt)}"
+        if (method, n_steps) == ("rk4", COMB_STEPS):
+            plain_ms[key] = 1e3 * (time.perf_counter() - t0)
+        bar = 1e-11 if rdt == torch.float64 else 1e-4
+        label = f"comb kernel vs plain {str(rdt)[6:]} {method} B={COMB_B} n_steps={n_steps}"
+        if not torch.equal(rk.ok, rp.ok):
+            raise AssertionError(f"{label}: ok flags differ")
+        if bool(rk.ok[bad]) or int(rk.ok.sum()) != COMB_B - 1:
+            raise AssertionError(f"{label}: expected exactly comb {bad} to fail")
+        for name, k, p in (("P_max", rk.P_max, rp.P_max), ("A_end", rk.A_end, rp.A_end)):
+            if not bool(torch.isfinite(k).all()):
+                raise AssertionError(f"{label} {name}: non-finite kernel output")
+            err = normwise(k, p)
+            max_err[key] = max(max_err.get(key, 0.0), float((k - p).abs().max()))
+            log(f"{label} {name}: max normwise err {err:.3e} (bar {bar:g})")
+            if not err <= bar:
+                raise AssertionError(f"{label} {name}: {err:.3e} > {bar:g}")
+
+
+def check_comb_rk45_kernel(psa, cca, dev, max_err, plain_ms, steps):
+    """Phase 12: comb_rk45.cu against its plain version at the bench size.
+    The plain version's run at 1,000 steps of each dtype is its time."""
+    bad = COMB_B // 2
+    for rdt, n_steps in ((torch.float64, COMB_STEPS), (torch.float64, COMB_STEPS + 5),
+                         (torch.float32, COMB_STEPS)):
+        rtol, atol = COMB_TOL[rdt]
+        t = comb_lanes(psa, rdt, dev, bad)
+        kw = dict(dz_m=COMB_Z / COMB_STEPS, n_steps=n_steps, save_every=COMB_SAVE, rtol=rtol,
+                  atol=atol)
+        rk = cca.solve_comb_batch_rk45_cuda(*t, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rp = cca.solve_comb_batch_rk45_torch(*t, **kw)
+        torch.cuda.synchronize()
+        key = f"comb_rk45_{suffix(rdt)}"
+        label = f"comb rk45 kernel vs plain {str(rdt)[6:]} B={COMB_B} n_steps={n_steps}"
+        if key not in plain_ms:
+            plain_ms[key] = 1e3 * (time.perf_counter() - t0)
+            attempts = (rk.n_accepted + rk.n_rejected).double()
+            steps[key] = (float(attempts.mean()), int(attempts.max()))
+        if not torch.equal(rk.ok, rp.ok):
+            raise AssertionError(f"{label}: ok flags differ")
+        if bool(rk.ok[bad]) or int(rk.ok.sum()) != COMB_B - 1:
+            raise AssertionError(f"{label}: expected exactly comb {bad} to fail")
+        same = (rk.n_accepted == rp.n_accepted) & (rk.n_rejected == rp.n_rejected)
+        share = float(same.double().mean())
+        if rdt == torch.float64 and share < 0.99:
+            raise AssertionError(f"{label}: step counters agree on {share:.4f} < 0.99 of combs")
+        for name, k, p in (("P_max", rk.P_max, rp.P_max), ("A_end", rk.A_end, rp.A_end)):
+            if not bool(torch.isfinite(k).all()):
+                raise AssertionError(f"{label} {name}: non-finite kernel output")
+            err_all = normwise(k, p)
+            err_same = normwise(k[same], p[same]) if bool(same.any()) else 0.0
+            max_err[key] = max(max_err.get(key, 0.0), float((k - p).abs().max()))
+            if rdt == torch.float64:
+                bars = ((err_same, 1e-9, "combs with equal counters"),
+                        (err_all, 10 * rtol, "all combs"))
+            else:
+                # the card test's bar: the steps differ, so the results
+                # differ by the controller's tolerance, not by rounding
+                bars = ((err_all, 1e-3, "all combs"),)
+            log(f"{label} {name}: max normwise err {err_all:.3e} (all combs), {err_same:.3e} "
+                f"(combs with equal counters); counters equal on {share:.4f}")
+            for val, bar, where in bars:
+                if not val <= bar:
+                    raise AssertionError(f"{label} {name}: {val:.3e} > {bar:g} on {where}")
+        if rdt == torch.float32:
+            # what a wrong kernel would read against the 1e-3 bar: the plain
+            # version with every gamma 0.1% off
+            off = cca.solve_comb_batch_rk45_torch(t[0], t[1] * (1 + 1e-3), *t[2:], **kw)
+            good = rk.ok & off.ok
+            log(f"{label} A_end: the plain version with gamma 0.1% off reads "
+                f"{normwise(rk.A_end[good], off.A_end[good]):.3e} (bar 1e-3)")
+
+
 def run_main_path(psa, _build, name, fn):
     """Drive one main path with the launch counts cleared just before and
     read just after; return (result, counts)."""
@@ -286,6 +481,8 @@ def main():
     import psa_torch as psa
     from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import _build
     from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_adaptive as ca
+    from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_comb as cc
+    from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_comb_adaptive as cca
     from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_solver as cs
 
     t_start = time.perf_counter()
@@ -530,21 +727,151 @@ def main():
         f"in {time.perf_counter() - t0:.1f} s (anchor 45.292 +- 1e-3)")
     if A.shape != (1001, 4) or not np.isfinite(A).all() or abs(gain_db - 45.292) > 1e-3:
         raise AssertionError(f"single run: shape {A.shape}, gain {gain_db} dB")
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 10 done")
+
+    # --- 11. comb kernel K4 vs plain version ---------------------------------------
+    check_comb_kernel(psa, cc, dev, max_err, plain_ms)
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 11 done")
+
+    # --- 12. comb kernel K5 vs plain version ---------------------------------------
+    check_comb_rk45_kernel(psa, cca, dev, max_err, plain_ms, steps)
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 12 done")
+
+    # --- 13. the comb main path ----------------------------------------------------
+    nw = psa.nwave
+    A0c, coc = comb_setup(psa)
+    sub = slice(0, 8)
+    co_sub = nw.NWaveCoeffs(gamma=coc.gamma[sub], alpha=coc.alpha[sub], beta_lin=coc.beta_lin)
+    comb_paths = (("df32", "rk4", "comb_rk_f64", 1e-9), ("x32", "rk4", "comb_rk_f32", 1e-4),
+                  ("x64", "rk45", "comb_rk45_f64", 1e-7), ("x32", "rk45", "comb_rk45_f32", 2e-2))
+    refs = {}
+    for precision, integ, name, bar in comb_paths:
+        cfg = comb_cfg(psa, precision, integ)
+        # the first call leaves the device out: the card is the default
+        dev_kw = {} if name == "comb_rk_f64" else {"device": "cuda"}
+        t0 = time.perf_counter()
+        (P, A, ok), counts = run_main_path(psa, _build, name, lambda: nw.solve_comb_batch(
+            cfg, coc, A0c, engine="auto", **dev_kw))
+        sec = time.perf_counter() - t0
+        if counts != {name: 1}:
+            raise AssertionError(f"comb {precision} {integ}: launches {counts}, not one {name}")
+        launches[name] = counts[name]
+        if A.shape != (COMB_B, COMB_N) or not ok.all() or not np.isfinite(A).all():
+            raise AssertionError(f"comb {precision} {integ}: shape {A.shape}, ok {ok.mean()}")
+        if integ not in refs:
+            ref_cfg = (comb_cfg(psa, "x64", "rk45", rtol=1e-11, atol=1e-14) if integ == "rk45"
+                       else comb_cfg(psa, "x64"))
+            t1 = time.perf_counter()
+            refs[integ] = nw.solve_comb_batch(ref_cfg, co_sub, A0c[sub], coupling="fft",
+                                              engine="torch", device="cpu")[1]
+            log(f"plain fp64 {integ} reference on the CPU, 8 combs, fft coupling"
+                f"{' at rtol 1e-11' if integ == 'rk45' else ''}: {time.perf_counter() - t1:.1f} s")
+        P_ref = np.abs(refs[integ]) ** 2
+        sig = P_ref > 1e-6
+        err = float(np.max(np.abs(np.abs(A[sub][sig]) ** 2 / P_ref[sig] - 1.0)))
+        log(f"main path comb {integ} {precision}: {COMB_B} combs of {COMB_N} lines, launches "
+            f"{counts}, ok 1.0, {sec * 1e3:.1f} ms (first call); 8-comb subset vs plain fp64 "
+            f"(CPU): max rel power err {err:.3e} on {int(sig.sum())} lines above 1e-6 W "
+            f"(bar {bar:g})")
+        if not err <= bar:
+            raise AssertionError(f"comb {precision} {integ} subset error {err:.3e} > {bar:g}")
+
+    c1 = nw.NWaveCoeffs(gamma=1e-2, alpha=5e-5, beta_lin=coc.beta_lin)
+    t0 = time.perf_counter()
+    z, A = nw.run_comb_simulation(comb_cfg(psa, "x64"), c1, A0c[0], device="cuda")
+    sec = time.perf_counter() - t0
+    z_c, A_c = nw.run_comb_simulation(comb_cfg(psa, "x64"), c1, A0c[0], device="cpu")
+    err = float(np.max(np.abs(A - A_c)) / np.max(np.abs(A_c)))
+    log(f"run_comb_simulation on the card (1,000 rk4 steps, fft coupling, plain torch): "
+        f"{A.shape[0]} rows in {sec:.1f} s; vs the CPU {err:.3e} of the largest amplitude "
+        "(bar 1e-11)")
+    if not (A.shape == (COMB_STEPS // COMB_SAVE + 1, COMB_N) and np.array_equal(z, z_c)
+            and err <= 1e-11):
+        raise AssertionError(f"run_comb_simulation: shape {A.shape}, error {err:.3e}")
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 13 done")
+
+    # --- 14. comb times ------------------------------------------------------------
+    L = nw._fft_len(COMB_N)
+    comb_kw = dict(dz_m=COMB_Z / COMB_STEPS, n_steps=COMB_STEPS, save_every=COMB_SAVE)
+    n_saves = COMB_STEPS // COMB_SAVE
+    dense_ms, comb_flop = {}, {}
+
+    def comb_bounds(name, rdt, flop_of, nbytes):
+        """The bound (FFT count) and the dense bound of one comb kernel."""
+        comb_flop[name] = (flop_of(False), flop_of(True))
+        bound(name, rdt, comb_flop[name][0], nbytes)
+        dense_ms[name] = 1e3 * max(comb_flop[name][1] / COMB_DENSE_PEAK_FLOPS,
+                                   nbytes / PEAK_BYTES)
+
+    for rdt in (torch.float64, torch.float32):
+        name = f"comb_rk_{suffix(rdt)}"
+        t = comb_lanes(psa, rdt, dev)
+        ms[name] = 1e3 * timed(lambda: cc.solve_comb_batch_cuda(*t, **comb_kw, integrator="rk4"))
+        # inputs: A0 (2N), gamma, alpha, beta (N), the twiddles; outputs:
+        # P_max (N), A_end (2N), ok (1 byte)
+        comb_bounds(name, rdt, lambda dense: COMB_B * (
+            COMB_STEPS * comb_step_flop(COMB_N, L, "rk4", rdt, dense) + n_saves * 3 * COMB_N),
+            COMB_B * ((6 * COMB_N + 2) * rdt.itemsize + 1) + 2 * L * rdt.itemsize)
+    for rdt in (torch.float64, torch.float32):
+        name = f"comb_rk45_{suffix(rdt)}"
+        rtol, atol = COMB_TOL[rdt]
+        t = comb_lanes(psa, rdt, dev)
+        kw45 = dict(comb_kw, rtol=rtol, atol=atol)
+        r = cca.solve_comb_batch_rk45_cuda(*t, **kw45)
+        attempts = float((r.n_accepted + r.n_rejected).double().sum())
+        ms[name] = 1e3 * timed(lambda: cca.solve_comb_batch_rk45_cuda(*t, **kw45))
+        # this run's attempts; each comb adds its first RHS and the saves;
+        # outputs add the two int32 counters
+        comb_bounds(name, rdt, lambda dense: attempts * comb_attempt_flop(COMB_N, L, dense)
+                    + COMB_B * (comb_rhs_flop(COMB_N, L, dense) + n_saves * 3 * COMB_N),
+                    COMB_B * ((6 * COMB_N + 2) * rdt.itemsize + 9) + 2 * L * rdt.itemsize)
+        steps[name + "_timed"] = (attempts / COMB_B, int((r.n_accepted + r.n_rejected).max()))
+    comb_e2e = {}
+    for precision, integ, name, _bar in comb_paths:
+        cfg = comb_cfg(psa, precision, integ)
+        comb_e2e[f"{integ} {precision}"] = timed(lambda: nw.solve_comb_batch(
+            cfg, coc, A0c, device="cuda"))
+    log(f"comb times on {card} (median of {REPS} warm reps, host clock with synchronize; "
+        f"bound: FFT count at FP64 {PEAK_FLOPS[torch.float64] / 1e12:g} / FP32 "
+        f"{PEAK_FLOPS[torch.float32] / 1e12:g} TFLOP/s; dense bound: dense-DFT count at "
+        f"{COMB_DENSE_PEAK_FLOPS / 1e12:g} TFLOP/s; {PEAK_BYTES / 1e12:g} TB/s):")
+    for name in ("comb_rk_f64", "comb_rk_f32", "comb_rk45_f64", "comb_rk45_f32"):
+        extra = ""
+        if name + "_timed" in steps:
+            mean, mx = steps[name + "_timed"]
+            extra = f"; attempted steps per comb mean {mean:.1f}, max {mx}"
+        log(f"  {name} {COMB_B} combs: {ms[name]:.3f} ms = "
+            f"{COMB_B * COMB_STEPS / ms[name] * 1e3:.1f} comb-steps/s; bound {bound_ms[name]:.3f} "
+            f"ms ({bound_by[name]}; {comb_flop[name][0]:.4g} flop, {bytes_of[name]} bytes; "
+            f"the kernel at {100 * bound_ms[name] / ms[name]:.2f}% of it); dense bound "
+            f"{dense_ms[name]:.3f} ms ({comb_flop[name][1]:.4g} flop; the kernel at "
+            f"{100 * dense_ms[name] / ms[name]:.2f}%)"
+            f"{extra}; plain version on the card "
+            f"(one run, phase 11/12) {plain_ms[name]:.1f} ms")
+    for label, sec in comb_e2e.items():
+        log(f"  solve_comb_batch end to end, {label}, {COMB_B} combs: {sec * 1e3:.3f} ms = "
+            f"{COMB_B / sec:.1f} combs/s")
     log(f"[{time.perf_counter() - t_start:.0f} s] all phases done")
 
-    sources = {"fwm4_rk": f"{PKG}/csrc/fwm4_rk.cu", "fwm4_rk45": f"{PKG}/csrc/fwm4_rk45.cu"}
+    sources = {"fwm4_rk": f"{PKG}/csrc/fwm4_rk.cu", "fwm4_rk45": f"{PKG}/csrc/fwm4_rk45.cu",
+               "comb_rk": f"{PKG}/csrc/comb_rk.cu", "comb_rk45": f"{PKG}/csrc/comb_rk45.cu"}
     replaces = {
         "fwm4_rk_f64": f"{JAX_PKG}/ops/pallas_df32.py:442",
         "fwm4_rk_f32": f"{JAX_PKG}/ops/pallas_solver.py:300",
         "fwm4_rk45_f64": f"{JAX_PKG}/ops/pallas_adaptive.py:67",
         "fwm4_rk45_f32": f"{JAX_PKG}/ops/pallas_adaptive.py:67",
+        "comb_rk_f64": f"{JAX_PKG}/ops/pallas_comb.py:97",
+        "comb_rk_f32": f"{JAX_PKG}/ops/pallas_comb.py:97",
+        "comb_rk45_f64": f"{JAX_PKG}/ops/pallas_comb_adaptive.py:77",
+        "comb_rk45_f32": f"{JAX_PKG}/ops/pallas_comb_adaptive.py:77",
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name.rsplit("_", 1)[0]],
          "replaces": replaces[name], "launches": launches[name], "max_abs_err": max_err[name],
          "ms": ms[name], "plain_ms": plain_ms[name], "bound_ms": bound_ms[name],
          "bound_by": bound_by[name], "library_ms": None}
-        for name in ("fwm4_rk_f64", "fwm4_rk_f32", "fwm4_rk45_f64", "fwm4_rk45_f32")
+        for name in ("fwm4_rk_f64", "fwm4_rk_f32", "fwm4_rk45_f64", "fwm4_rk45_f32",
+                     "comb_rk_f64", "comb_rk_f32", "comb_rk45_f64", "comb_rk45_f32")
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

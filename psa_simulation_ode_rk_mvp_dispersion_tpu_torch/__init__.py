@@ -7,10 +7,12 @@ function's counterpart is found by name.  The port covers the 4-wave main
 path: parameter math, the RHS, the fixed-step (rk4/ab4/abm4) and adaptive
 (rk45) integrators, the single-run runner, the sweeps (gain spectrum,
 mismatch scan, PSA phase sweep, power x wavelength gain map, batched
-trajectories) and result persistence (``io_fwm``).  The rotating-frame
-sweeps run on a CUDA device through hand-written kernels:
-``csrc/fwm4_rk.cu`` (``ops/cuda_solver.py``) and ``csrc/fwm4_rk45.cu``
-(``ops/cuda_adaptive.py``).
+trajectories), result persistence (``io_fwm``) and the N-wave comb
+(``models/nwave``).  The rotating-frame sweeps and the batched comb solve
+run on a CUDA device through hand-written kernels: ``csrc/fwm4_rk.cu``
+(``ops/cuda_solver.py``), ``csrc/fwm4_rk45.cu`` (``ops/cuda_adaptive.py``),
+``csrc/comb_rk.cu`` (``ops/cuda_comb.py``) and ``csrc/comb_rk45.cu``
+(``ops/cuda_comb_adaptive.py``).
 
 Precision tiers: ``x64`` and ``df32`` run in float64/complex128, ``x32`` in
 float32/complex64.  Public entry points take ``device=``; ``None`` means the
@@ -32,6 +34,8 @@ from .ops import (
     adaptive,
     analytic,
     cuda_adaptive,
+    cuda_comb,
+    cuda_comb_adaptive,
     cuda_solver,
     dispersion,
     frequency_plan,
@@ -92,7 +96,16 @@ from .ops.rhs import (
     rhs_yaman_simplified,
     rotating_to_lab,
 )
-from .models import fwm4
+from .models import fwm4, nwave
+from .models.nwave import (
+    CombGrid,
+    NWaveCoeffs,
+    comb_beta_lin,
+    make_comb_coeffs,
+    rhs_nwave,
+    run_comb_simulation,
+    seed_comb,
+)
 from .models.fwm4 import (
     CacheParams,
     FiberParams,

@@ -2,9 +2,9 @@
 
 :func:`from_reference` turns the JAX package's ``SimulationConfig``,
 ``RHSCoeffs``, ``DispersionParams``, ``SymmetricPlan``,
-``PhaseMatchingConfig`` and ``ModelParams`` (with its parts) into their
-counterparts here, reading every field by name through
-``dataclasses.fields`` and every array leaf through ``np.asarray``.  It never
+``PhaseMatchingConfig``, ``ModelParams`` (with its parts), ``NWaveCoeffs``
+and ``CombGrid`` into their counterparts here, reading every field by name
+through ``dataclasses.fields`` and every array leaf through ``np.asarray``.  It never
 imports JAX: it only reads the objects it is given, so both packages can
 compute from bit-identical float64 inputs.
 """
@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from .config import SimulationConfig
-from .models import fwm4
+from .models import fwm4, nwave
 from .ops.dispersion import DispersionParams
 from .ops.frequency_plan import SymmetricPlan
 from .ops.phase_matching import PhaseMatchingConfig, PhaseMatchingMethod
@@ -33,10 +33,10 @@ _CLASSES = {
         SimulationConfig, RHSCoeffs, DispersionParams, SymmetricPlan,
         PhaseMatchingConfig, fwm4.WavesParams, fwm4.FiberParams,
         fwm4.SimulationGrid, fwm4.PhaseMatchingParams, fwm4.CacheParams,
-        fwm4.ModelParams,
+        fwm4.ModelParams, nwave.NWaveCoeffs, nwave.CombGrid,
     )
 }
-_TENSOR_CLASSES = (RHSCoeffs, DispersionParams, SymmetricPlan)
+_TENSOR_CLASSES = (RHSCoeffs, DispersionParams, SymmetricPlan, nwave.NWaveCoeffs)
 _ENUMS = {PhaseMatchingMethod.__name__: PhaseMatchingMethod}
 
 
@@ -56,10 +56,11 @@ def _leaf(v, *, as_tensor: bool, device, dtype):
 def from_reference(obj, *, device=None, dtype: torch.dtype = torch.float64):
     """The counterpart of a JAX-package parameter object.
 
-    Array leaves of ``RHSCoeffs``, ``DispersionParams`` and ``SymmetricPlan``
-    become ``dtype`` tensors on ``device`` (``None``: the CUDA card); host
-    containers keep numpy copies.  ``DispersionParams`` and
-    ``SymmetricPlan`` are float64 by definition and ignore ``dtype``.
+    Array leaves of ``RHSCoeffs``, ``DispersionParams``, ``SymmetricPlan``
+    and ``NWaveCoeffs`` become ``dtype`` tensors on ``device`` (``None``:
+    the CUDA card); host containers (``CombGrid`` among them) keep numpy
+    copies and floats.  ``DispersionParams`` and ``SymmetricPlan`` are
+    float64 by definition and ignore ``dtype``.
     """
     device = resolve_device(device)
     if isinstance(obj, Enum):

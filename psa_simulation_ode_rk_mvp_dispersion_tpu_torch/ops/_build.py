@@ -5,12 +5,13 @@ Each ``csrc/<name>.cu`` is compiled by its own ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface (no PyTorch headers, so a build takes
 seconds); the compilers of all sources run at the same time.  The libraries
 land in ``build/psa_torch_kernels/`` at the root of the checkout, named by a
-hash of the source and flags, so an unchanged source is built once.  A
+hash of the source, the ``csrc/*.cuh`` headers and the flags, so an
+unchanged source is built once.  A
 missing ``nvcc`` or a failed build raises :class:`KernelBuildError` with the
 compiler's output; there is no stand-in.
 
 :data:`LAUNCHES` counts kernel launches by kernel name (``fwm4_rk_f64``,
-``fwm4_rk45_f32``, ...).  Each wrapper adds one where it launches its kernel
+``fwm4_rk45_f32``, ``comb_rk_f64``, ``comb_rk45_f32``, ...).  Each wrapper adds one where it launches its kernel
 and nowhere else; a run clears it and reads it back to show that its path
 went through the kernels.
 """
@@ -35,12 +36,12 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",  # registers, shared memory and spills, kept in the build log
 )
 
-# Per-source additions.  fwm4_rk45: no FMA contraction, so that the kernel
-# rounds exactly as its plain version (one torch operation per product and
+# Per-source additions.  The rk45 kernels: no FMA contraction, so that the
+# kernel rounds as its plain version (one torch operation per product and
 # sum) and the two take the same adaptive steps; with contraction the fp32
-# kernel takes other steps on about a sixth of the lanes (chip_fma_ab.py
-# builds both and compares them).
-SOURCE_FLAGS = {"fwm4_rk45": ("-fmad=false",)}
+# 4-wave kernel takes other steps on about a sixth of the lanes
+# (chip_fma_ab.py builds both and compares them).
+SOURCE_FLAGS = {"fwm4_rk45": ("-fmad=false",), "comb_rk45": ("-fmad=false",)}
 
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
 
@@ -73,6 +74,8 @@ def _library_path(src: Path) -> Path:
     digest = hashlib.sha256(" ".join(_flags(src)).encode())
     digest.update(src.name.encode())
     digest.update(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):   # headers a source may include
+        digest.update(header.read_bytes())
     return BUILD_DIR / f"lib{src.stem}_{digest.hexdigest()[:16]}.so"
 
 

@@ -78,11 +78,24 @@ def save_grid(dz_m: float, n_steps: int, save_every: int):
     return z_grid, z_final
 
 
+def kernel_segments(dz_m: float, n_steps: int, save_every: int):
+    """The save grid as the rk45 kernels take it: ``(n_chunks, seg_len,
+    tail_len, dt0)``, every saved segment as long as the first, and ``dt0``
+    the plain version's first step (0.1 x the first span, saved or
+    trailing)."""
+    z_grid, z_final = save_grid(dz_m, n_steps, save_every)
+    n_chunks = len(z_grid) - 1
+    seg_len = float(z_grid[1] - z_grid[0]) if n_chunks else 0.0
+    tail_len = 0.0 if z_final is None else z_final - float(z_grid[-1])
+    return n_chunks, seg_len, tail_len, 0.1 * (seg_len if n_chunks else tail_len)
+
+
 def rk45_reduce(rhs, A0, coeffs: RHSCoeffs, *, dz_m: float, n_steps: int, save_every: int,
                 rtol: float, atol: float, max_steps: int):
-    """Integrate a ``(B, 4)`` batch adaptively with plain torch
-    (:func:`ops.adaptive.integrate_adaptive_reduce`) over the save grid of
-    ``(dz_m, n_steps, save_every)`` and keep the running max power:
+    """Integrate a ``(B, n)`` batch (4 waves, or N comb lines) adaptively
+    with plain torch (:func:`ops.adaptive.integrate_adaptive_reduce`) over
+    the save grid of ``(dz_m, n_steps, save_every)`` and keep the running
+    max power:
     ``(P_max, y_last, ok, n_accepted, n_rejected)``.  ``rhs(z, y, coeffs)``
     is called at global ``z`` (the lab frame uses it)."""
     z_grid, z_final = save_grid(dz_m, n_steps, save_every)
@@ -133,11 +146,7 @@ def solve_batch_rk45_cuda(A0, gamma, alpha, delta_beta, *, dz_m: float, n_steps:
                            max_steps)
     if A0.device.type != "cuda":
         raise ValueError(f"solve_batch_rk45_cuda needs CUDA tensors, got a tensor on {A0.device}")
-    z_grid, z_final = save_grid(dz_m, n_steps, save_every)
-    n_chunks = len(z_grid) - 1
-    seg_len = float(z_grid[1] - z_grid[0]) if n_chunks else 0.0
-    tail_len = 0.0 if z_final is None else z_final - float(z_grid[-1])
-    dt0 = 0.1 * (seg_len if n_chunks else tail_len)   # integrate_adaptive_reduce's rule
+    n_chunks, seg_len, tail_len, dt0 = kernel_segments(dz_m, n_steps, save_every)
     coef = torch.stack([gamma, alpha, delta_beta])                # (3, B)
     y0 = torch.cat([A0.real.T, A0.imag.T]).contiguous()           # (8, B)
     dev = A0.device

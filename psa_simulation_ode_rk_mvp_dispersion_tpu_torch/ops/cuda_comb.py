@@ -1,0 +1,154 @@
+"""The batched N-wave comb solve on the card: the CUDA kernel, its wrapper,
+and the plain PyTorch version of the same function.
+
+Counterpart of the JAX package's ``ops/pallas_comb.py`` (kernel K4) and of
+its scan path ``models/nwave._comb_batch_solver``.  The TPU kernel becomes
+the hand-written CUDA template ``csrc/comb_rk.cu``: float64 serves
+``x64``/``df32``, float32 serves ``x32``, each with RK4, AB4 and ABM4.
+
+- :func:`solve_comb_batch_cuda` checks its inputs, lays them out as one row
+  per instance (``[Re A | Im A]``), launches one thread block per comb on the
+  current stream and counts the launch in ``ops/_build.LAUNCHES``.  It takes
+  CUDA tensors only, and raises for a comb whose block does not fit in the
+  card's shared memory.
+- :func:`solve_comb_batch_torch` is the plain version:
+  ``ops/integrators.integrate_reduce`` over the ``(B, N)`` complex state with
+  the dense-DFT coupling (``models/nwave.make_rhs_nwave('dft')``), whose
+  matrices come from the same float64 roots as the kernel's twiddle table.
+  The CPU path and the comparisons on the card use it.
+
+Both return ``P_max`` over the saved samples (row 0 included), the state at
+the last saved point, ``z = (n_steps // save_every) * save_every * dz``, and
+``ok``.  The DFT sums run in another order in ``torch.matmul`` than in the
+kernel, so the two agree to rounding, not bit for bit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from . import _build
+from .cuda_solver import _COMPLEX_OF, _DTYPE_SUFFIX, reduce_pmax_last
+from ..models.nwave import NWaveCoeffs, _fft_len, dft_roots, make_rhs_nwave
+
+METHODS = ("rk4", "ab4", "abm4")
+
+
+@dataclasses.dataclass(frozen=True)
+class CombBatchResult:
+    """Per-comb summaries, tensors on the solve's device."""
+
+    P_max: torch.Tensor   # (B, N) real: max line power over the saved samples [W]
+    A_end: torch.Tensor   # (B, N) complex: state at the last saved z
+    ok: torch.Tensor      # (B,) bool: no non-finite state in any step
+
+
+def check_comb_lanes(A0, gamma, alpha, beta_lin, n_steps, save_every):
+    """Validate a comb batch for the kernels: ``(B, N)`` complex64/128
+    ``A0``, ``(B,)`` ``gamma``/``alpha`` and ``(B, N)`` ``beta_lin`` of the
+    matching real dtype on its device, all contiguous.  Returns ``(B, N,
+    real dtype)``."""
+    if A0.ndim != 2 or A0.shape[0] < 1 or A0.shape[1] < 1:
+        raise ValueError(f"A0 must have shape (B, N) with B, N >= 1, got {tuple(A0.shape)}")
+    B, N = A0.shape
+    rdt = A0.real.dtype
+    if rdt not in _COMPLEX_OF or A0.dtype != _COMPLEX_OF[rdt]:
+        raise ValueError(f"A0 must be complex64 or complex128, got {A0.dtype}")
+    for name, v, shape in (("gamma", gamma, (B,)), ("alpha", alpha, (B,)),
+                           ("beta_lin", beta_lin, (B, N))):
+        if tuple(v.shape) != shape or v.dtype != rdt or v.device != A0.device:
+            raise ValueError(
+                f"{name} must be a {shape} {rdt} tensor on {A0.device}, got "
+                f"{tuple(v.shape)} {v.dtype} on {v.device}")
+        if not v.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if n_steps < 0 or save_every < 1:
+        raise ValueError("need n_steps >= 0 and save_every >= 1")
+    return B, N, rdt
+
+
+def solve_comb_batch_torch(A0, gamma, alpha, beta_lin, *, dz_m: float, n_steps: int,
+                           save_every: int, integrator: str = "rk4", check_nan: bool = True,
+                           coupling: str = "dft") -> CombBatchResult:
+    """Plain PyTorch version of :func:`solve_comb_batch_cuda`: the same
+    integration, NaN freeze and save-grid reductions, on whatever device the
+    tensors are.  ``coupling`` picks the evaluation of the cubic sum
+    (``'dft'``, the kernel's, by default)."""
+    check_comb_lanes(A0, gamma, alpha, beta_lin, n_steps, save_every)
+    if integrator not in METHODS:
+        raise ValueError(f"integrator must be one of {METHODS}, got {integrator!r}")
+    pmax, y_last, ok = reduce_pmax_last(
+        make_rhs_nwave(coupling), A0, NWaveCoeffs(gamma, alpha, beta_lin), dz_m=dz_m,
+        n_steps=n_steps, save_every=save_every, integrator=integrator, check_nan=check_nan)
+    return CombBatchResult(P_max=pmax, A_end=y_last, ok=ok)
+
+
+@functools.lru_cache(maxsize=16)
+def twiddles(L: int, dtype: torch.dtype, device: str) -> torch.Tensor:
+    """The comb kernels' ``(L, 2)`` table of ``(cos, sin)(2 pi k / L)``, from
+    :func:`models.nwave.dft_roots` rounded to ``dtype``."""
+    c, s = dft_roots(L)
+    return torch.as_tensor(np.stack([c, s], axis=1), device=device).to(dtype).contiguous()
+
+
+def check_shared_memory(lib: ctypes.CDLL, prefix: str, n: int, L: int, rdt: torch.dtype,
+                        device: torch.device) -> None:
+    """Raise if one block of the ``prefix`` kernel, at ``n`` lines, needs
+    more shared memory than the card ``device`` gives a block."""
+    need_fn = getattr(lib, f"{prefix}_shared_bytes")
+    need_fn.argtypes, need_fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    need = need_fn(n, L, torch.finfo(rdt).bits // 8)
+    limit = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+    if need > limit:
+        raise ValueError(
+            f"a comb of N={n} lines needs {need} bytes of shared memory per block in "
+            f"{prefix}; this card allows {limit}: use engine='torch' for it")
+
+
+def _launcher(rdt: torch.dtype, integrator: str):
+    fn = getattr(_build.load_library("comb_rk"), f"comb_{integrator}_{_DTYPE_SUFFIX[rdt]}")
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_double, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def solve_comb_batch_cuda(A0, gamma, alpha, beta_lin, *, dz_m: float, n_steps: int,
+                          save_every: int, integrator: str = "rk4",
+                          check_nan: bool = True) -> CombBatchResult:
+    """Solve B combs with the CUDA kernel, one thread block per comb.
+
+    ``A0`` is a ``(B, N)`` complex128 (fp64 kernel) or complex64 (fp32
+    kernel) CUDA tensor; ``gamma``/``alpha`` ``(B,)`` and ``beta_lin``
+    ``(B, N)`` tensors of the matching real dtype on the same device.  With
+    ``check_nan`` false no lane is frozen and ``ok`` stays set.  Returns
+    without synchronizing; the outputs are ordinary tensors on the stream.
+    """
+    B, N, rdt = check_comb_lanes(A0, gamma, alpha, beta_lin, n_steps, save_every)
+    if integrator not in METHODS:
+        raise ValueError(f"integrator must be one of {METHODS}, got {integrator!r}")
+    if A0.device.type != "cuda":
+        raise ValueError(f"solve_comb_batch_cuda needs CUDA tensors, got a tensor on {A0.device}")
+    L = _fft_len(N)
+    dev = A0.device
+    check_shared_memory(_build.load_library("comb_rk"), "comb_rk", N, L, rdt, dev)
+    tw = twiddles(L, rdt, str(dev))
+    y0 = torch.cat([A0.real, A0.imag], dim=1).contiguous()        # (B, 2N)
+    pmax = torch.empty((B, N), dtype=rdt, device=dev)
+    y_last = torch.empty((B, 2 * N), dtype=rdt, device=dev)
+    ok = torch.empty((B,), dtype=torch.uint8, device=dev)
+    name = f"comb_{integrator}_{_DTYPE_SUFFIX[rdt]}"
+    err = _launcher(rdt, integrator)(
+        gamma.data_ptr(), alpha.data_ptr(), beta_lin.data_ptr(), tw.data_ptr(), y0.data_ptr(),
+        pmax.data_ptr(), y_last.data_ptr(), ok.data_ptr(), B, N, L, int(n_steps),
+        int(save_every), int(bool(check_nan)), float(dz_m),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    _build.LAUNCHES[f"comb_rk_{_DTYPE_SUFFIX[rdt]}"] += 1
+    return CombBatchResult(P_max=pmax, A_end=torch.complex(y_last[:, :N], y_last[:, N:]),
+                           ok=ok.bool())

@@ -79,8 +79,9 @@ def _to_lab(y_last, delta_beta, *, dz_m, n_steps, save_every):
 
 def reduce_pmax_last(rhs, A0, coeffs: RHSCoeffs, *, dz_m: float, n_steps: int,
                      save_every: int, integrator: str = "rk4", check_nan: bool = True):
-    """Integrate a ``(B, 4)`` batch with plain torch and keep the running max
-    power and the last state over the save grid: ``(P_max, y_last, ok)``."""
+    """Integrate a ``(B, n)`` batch (4 waves, or N comb lines) with plain
+    torch and keep the running max power and the last state over the save
+    grid: ``(P_max, y_last, ok)``."""
     def fold(acc, y):
         pmax, _last = acc
         return torch.maximum(pmax, y.real * y.real + y.imag * y.imag), y

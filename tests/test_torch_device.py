@@ -22,6 +22,8 @@ _SPECTRUM = dict(cfg=_CFG, lambda_p1_m=1550e-9, lambda_p2_m=1555e-9,
                  p_in=[0.5, 0.5, 1e-7, 1e-7], dispersion=_DISP)
 _COEFFS = T.RHSCoeffs(np.full(2, 0.01), np.zeros(2), np.zeros(2))
 _A0 = np.full((2, 4), 0.1, dtype=np.complex128)
+_COMB = T.NWaveCoeffs(gamma=0.01, alpha=0.0, beta_lin=np.zeros(5))
+_COMB_A0 = np.full((2, 5), 0.1, dtype=np.complex128)
 
 ENTRY_POINTS = {
     "solve_batch": lambda **d: T.solve_batch(_CFG, _COEFFS, _A0, **d),
@@ -51,6 +53,12 @@ ENTRY_POINTS = {
         T.custom_simulation_config(z_max=1.0, dz=0.1, integrator="rk45"), _MODEL_PARAMS,
         T.RHSCoeffs(0.01, 0.0, 0.0), np.full(4, 0.1, dtype=np.complex128), frame="rotating",
         length_unit="m", return_length_unit=None, **d),
+    "solve_comb_batch": lambda **d: T.nwave.solve_comb_batch(_CFG, _COMB, _COMB_A0, **d),
+    "solve_comb_batch_rk45": lambda **d: T.nwave.solve_comb_batch(
+        T.custom_simulation_config(z_max=1.0, dz=0.1, integrator="rk45"), _COMB, _COMB_A0, **d),
+    "run_comb_simulation": lambda **d: T.run_comb_simulation(_CFG, _COMB, _COMB_A0[0], **d),
+    "solve_comb_batch_trajectories": lambda **d: T.nwave.solve_comb_batch_trajectories(
+        _CFG, _COMB, _COMB_A0, **d),
     "from_reference": lambda **d: interop.from_reference(
         J.RHSCoeffs(gamma=np.ones(2), alpha=np.zeros(2), delta_beta=np.zeros(2)), **d),
 }
@@ -74,7 +82,8 @@ def test_entry_point_without_device_raises_when_there_is_no_card(no_card, name):
 
 
 @pytest.mark.parametrize("name", ["solve_batch", "gain_spectrum", "lower_params",
-                                  "run_adaptive_trajectory", "from_reference", "dbeta_spectrum"])
+                                  "run_adaptive_trajectory", "from_reference", "dbeta_spectrum",
+                                  "solve_comb_batch", "run_comb_simulation"])
 def test_entry_point_runs_on_the_cpu_when_asked(no_card, name):
     assert ENTRY_POINTS[name](device="cpu") is not None
 

@@ -205,3 +205,138 @@ def test_gain_spectrum_rk45_runs_the_kernel(card):
         assert _build.LAUNCHES == {name: 1}
         np.testing.assert_allclose(auto.gain, plain.gain,
                                    rtol=1e-11 if precision == "df32" else 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# K4 and K5: the comb kernels, csrc/comb_rk.cu and csrc/comb_rk45.cu
+# ---------------------------------------------------------------------------
+
+from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.models import nwave as tn  # noqa: E402
+from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_comb as cc  # noqa: E402
+from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_comb_adaptive as cca  # noqa: E402
+
+COMB_TOL = {torch.float64: 1e-11, torch.float32: 1e-4}
+
+
+def _normwise(a, b):
+    """Worst over combs of max_lines |a - b| / max_lines |b|: a weak line
+    carries the DFT sums' rounding relative to the pumps."""
+    return float(((a - b).abs().amax(-1) / b.abs().amax(-1)).max())
+
+
+def _comb_inputs(N, B, rdt, device, bad=None):
+    """bench_comb.py's comb at N lines (pumps at c +- N/4) over a gamma grid;
+    comb ``bad`` blows up."""
+    oc = 2 * np.pi * 193.1e12
+    grid = tn.CombGrid.centered(oc, 2 * np.pi * 50e9, N)
+    beta = tn.comb_beta_lin(grid, T.DispersionParams.from_betas(oc, beta2=-1e-27, beta3=1.2e-41))
+    A0 = np.broadcast_to(tn.seed_comb(grid, pump_lines={N // 4: 0.5, 3 * N // 4: 0.5},
+                                      noise_floor_W=1e-9), (B, N)).copy()
+    g = np.linspace(5e-3, 15e-3, B)
+    if bad is not None:
+        A0[bad] *= 1e3
+        g[bad] = 1e3
+    cdt = torch.complex128 if rdt == torch.float64 else torch.complex64
+    return (torch.as_tensor(A0, dtype=cdt, device=device),
+            *(torch.as_tensor(v, dtype=rdt, device=device).contiguous()
+              for v in (g, np.full(B, 5e-5), np.broadcast_to(beta, (B, N)))))
+
+
+@pytest.mark.parametrize("rdt", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("method", ["rk4", "ab4", "abm4"])
+@pytest.mark.parametrize("N,n_steps", [(16, 100), (33, 105)])
+def test_comb_kernel_matches_plain_version(card, rdt, method, N, n_steps):
+    t = _comb_inputs(N, 37, rdt, card, bad=7)
+    kw = dict(dz_m=5.0, n_steps=n_steps, save_every=10, integrator=method)
+    name = f"comb_rk_{'f64' if rdt == torch.float64 else 'f32'}"
+    launches = _build.LAUNCHES[name]
+    rk = cc.solve_comb_batch_cuda(*t, **kw)
+    rp = cc.solve_comb_batch_torch(*t, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[name] == launches + 1
+    assert torch.equal(rk.ok, rp.ok) and not bool(rk.ok[7]) and int(rk.ok.sum()) == 36
+    assert torch.isfinite(rk.P_max).all() and torch.isfinite(rk.A_end).all()
+    assert _normwise(rk.A_end, rp.A_end) <= COMB_TOL[rdt]
+    assert _normwise(rk.P_max, rp.P_max) <= COMB_TOL[rdt]
+
+
+def test_comb_kernel_edge_shapes(card):
+    """One line, one comb, no steps, fewer steps than one save interval."""
+    for N, B, n_steps in ((1, 1, 0), (1, 2, 7), (3, 1, 12), (64, 3, 5)):
+        t = _comb_inputs(max(N, 4), B, torch.float64, card)
+        t = (t[0][:, :N].contiguous(), t[1], t[2], t[3][:, :N].contiguous())
+        for method in ("rk4", "abm4"):
+            kw = dict(dz_m=5.0, n_steps=n_steps, save_every=10, integrator=method)
+            rk, rp = cc.solve_comb_batch_cuda(*t, **kw), cc.solve_comb_batch_torch(*t, **kw)
+            assert torch.equal(rk.ok, rp.ok)
+            assert _normwise(rk.A_end, rp.A_end) <= 1e-12
+            if n_steps < 10:
+                assert torch.equal(rk.A_end, t[0])
+
+
+def test_comb_kernel_check_nan_off(card):
+    t = _comb_inputs(16, 8, torch.float64, card, bad=2)
+    kw = dict(dz_m=5.0, n_steps=60, save_every=10, check_nan=False)
+    rk, rp = cc.solve_comb_batch_cuda(*t, **kw), cc.solve_comb_batch_torch(*t, **kw)
+    assert bool(rk.ok.all()) and bool(rp.ok.all()) and not bool(torch.isfinite(rk.A_end[2]).all())
+    rest = torch.arange(8, device=card) != 2
+    assert _normwise(rk.A_end[rest], rp.A_end[rest]) <= 1e-11
+
+
+@pytest.mark.parametrize("rdt", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("n_steps", [100, 105])
+def test_comb_rk45_kernel_matches_plain_version(card, rdt, n_steps):
+    """fp64: the same steps on (nearly) every comb, results within 1e-9
+    there and 10 x rtol on all; fp32: the DFT sums' rounding order moves the
+    error estimate, so the steps differ and the results are held to 1e-3,
+    inside the 2e-2 class of the JAX kernel's test."""
+    rtol, atol = (1e-9, 1e-12) if rdt == torch.float64 else (1e-6, 1e-10)
+    t = _comb_inputs(16, 37, rdt, card, bad=7)
+    kw = dict(dz_m=5.0, n_steps=n_steps, save_every=10, rtol=rtol, atol=atol)
+    name = f"comb_rk45_{'f64' if rdt == torch.float64 else 'f32'}"
+    launches = _build.LAUNCHES[name]
+    rk = cca.solve_comb_batch_rk45_cuda(*t, **kw)
+    rp = cca.solve_comb_batch_rk45_torch(*t, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[name] == launches + 1
+    assert torch.equal(rk.ok, rp.ok) and not bool(rk.ok[7]) and int(rk.ok.sum()) == 36
+    assert torch.isfinite(rk.P_max).all() and torch.isfinite(rk.A_end).all()
+    if rdt == torch.float64:
+        same = (rk.n_accepted == rp.n_accepted) & (rk.n_rejected == rp.n_rejected)
+        assert float(same.double().mean()) >= 0.9
+        assert _normwise(rk.A_end[same], rp.A_end[same]) <= 1e-9
+    bar = 10 * rtol if rdt == torch.float64 else 1e-3
+    assert _normwise(rk.A_end, rp.A_end) <= bar
+    assert _normwise(rk.P_max, rp.P_max) <= bar
+
+
+def test_comb_kernel_refuses_a_comb_too_wide_for_shared_memory(card):
+    """N = 2049 lines (L = 8192) needs more than a block's 227 KB in fp64:
+    the wrapper raises with the number, launching nothing."""
+    t = _comb_inputs(2049, 1, torch.float64, card)
+    launches = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        cc.solve_comb_batch_cuda(*t, dz_m=5.0, n_steps=10, save_every=10)
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        cca.solve_comb_batch_rk45_cuda(*t, dz_m=5.0, n_steps=10, save_every=10, rtol=1e-8,
+                                       atol=1e-12)
+    assert dict(_build.LAUNCHES) == launches
+
+
+def test_solve_comb_batch_auto_runs_the_kernels(card):
+    t = _comb_inputs(16, 8, torch.float64, card)
+    coeffs = tn.NWaveCoeffs(gamma=t[1].cpu().numpy(), alpha=5e-5, beta_lin=t[3][0].cpu().numpy())
+    A0 = t[0].cpu().numpy()
+    for integrator, precision, name in (("rk4", "df32", "comb_rk_f64"),
+                                        ("abm4", "x32", "comb_rk_f32"),
+                                        ("rk45", "x64", "comb_rk45_f64")):
+        cfg = T.custom_simulation_config(z_max=300.0, dz=5.0, save_every=10,
+                                         integrator=integrator, precision=precision,
+                                         rtol=1e-9, atol=1e-12)
+        _build.LAUNCHES.clear()
+        P, A, ok = tn.solve_comb_batch(cfg, coeffs, A0)
+        assert _build.LAUNCHES == {name: 1} and ok.all() and P.shape == (8, 16)
+        P2, A2, ok2 = tn.solve_comb_batch(cfg, coeffs, A0, engine="torch", device=card)
+        assert _build.LAUNCHES == {name: 1}
+        bar = 1e-4 if precision == "x32" else 1e-9
+        assert np.max(np.abs(A - A2).max(-1) / np.abs(A2).max(-1)) <= bar
