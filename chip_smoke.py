@@ -63,7 +63,36 @@ Phases (any failure raises, and the script exits non-zero):
     ``solve_comb_batch`` end to end; the plain versions once each, in
     phases 11 and 12.  Each comb kernel's bound counts the cubic sum as two
     FFTs, the least work it needs; the dense-DFT count the kernels perform
-    is printed beside it as the dense bound.
+    is printed beside it as the dense bound;
+15. GNLSE kernel K6 (``csrc/gnlse_ssfm.cu``) vs its plain version on the
+    card at the ``bench_gnlse.py`` configuration (2,048 sech envelopes of
+    1,024 samples, 1,000 steps over 10 m, ``save_every=100``) with one
+    envelope made to blow up and a run with a trailing partial chunk (1,005
+    steps): fp64 Kerr and Raman/steepening (``nl``) within 1e-11 of each
+    envelope's largest amplitude; fp32 Kerr and ``nl`` against the fp64
+    plain version within 1.5e-4 (the peak 3e-4), printed beside the fp32
+    plain version's own error and the plain version with gamma 0.1% off;
+    equal ``ok``, the bad envelope frozen at its input;
+16. GNLSE kernel K8 (``csrc/ssfm_rk45.cu``) vs its plain version on 512
+    envelopes, one of them 1e12 times too strong, fp64 at rtol 1e-9/atol
+    1e-12 and fp32 at 1e-5/1e-9, 1,000 and 1,005 steps: fp64 step counters
+    equal on >= 99% of envelopes and results within 1e-9 there; fp32 equal
+    ``ok`` and results within 1e-4, beside the plain version with gamma
+    0.1% off;
+17. the GNLSE main path: ``gnlse.solve_gnlse_batch`` at the full size at
+    ``df32`` Kerr (``device`` left out), ``x32`` Kerr, ``df32`` ``nl``,
+    ``x32`` ``nl``, rk45 ``x64`` and rk45 ``x32``, one K6 or K8 launch
+    each, every envelope ``ok``; an 8-envelope subset against the plain
+    fp64 version on the CPU in relative power on the core (above 1% of the
+    peak) and the tails (above 1e-6), as ``bench_gnlse.py:393-397``
+    measures them (bars: df32 1e-9, x32 4.5e-3 / 2.6e-2, rk45 x64 1e-7 and
+    x32 5e-4 on the core); one ``run_gnlse_simulation`` on the card against
+    the CPU, and one ``engine='auto'`` rk4ip call, which runs plain torch;
+18. GNLSE times (median of 5 warm reps) of the kernels and of
+    ``solve_gnlse_batch`` end to end, and of the same Strang integration
+    through ``torch.fft`` (cuFFT), K6's library call; the plain versions
+    once each, in phases 15 and 16.  The bounds count the flop of the
+    kernels' sources, transforms included.
 
 Each main path is driven with the launch counts cleared just before it and
 read just after.  The line before the last is a JSON object describing each
@@ -139,6 +168,221 @@ def comb_attempt_flop(n, L, dense=False):
     """One DP45 attempt: 6 RHS, 26 stage and error terms of 2 flop per
     component, and ~16 flop per line for the error norm."""
     return 6 * comb_rhs_flop(n, L, dense) + 2 * n * 52 + 16 * n
+
+
+# The GNLSE configuration of bench_gnlse.py:36-47, 109-123: sech pulses of
+# T0 = 1 ps at 0.5-1.5 x the soliton power, T = 1,024 samples over 40 T0,
+# 2,048 envelopes, beta2 = -2e-26 s^2/m at 1.2e15 rad/s, gamma = 2e-3 /W/m,
+# alpha = 5e-5 /m, 1,000 steps over 10 m, save_every=100; Raman f_R = 0.18
+# with self-steepening at omega_0 for nl; rk45 on 512 envelopes
+# (bench_gnlse.py:311-317).
+GN_T, GN_B, GN_B45, GN_STEPS, GN_SAVE, GN_Z = 1024, 2048, 512, 1000, 100, 10.0
+GN_T0, GN_BETA2, GN_GAMMA, GN_OMEGA0, GN_ALPHA = 1e-12, -2e-26, 2e-3, 1.2e15, 5e-5
+GN_TOL = {torch.float64: (1e-9, 1e-12), torch.float32: (1e-5, 1e-9)}
+
+
+def fft_flop(n, inverse=False):
+    """One transform of csrc/ssfm_common.cuh at width n = m * r (m a power
+    of two, r odd): log2(m) radix-2 passes of n/2 butterflies (a complex
+    product and two complex sums, 10 flop), an r-term complex sum per output
+    when r > 1 (8 flop a term), and the inverse's 1/n (2 flop a sample)."""
+    r = n
+    while r % 2 == 0:
+        r //= 2
+    m = n // r
+    return 5 * n * (m.bit_length() - 1) + (8 * n * r if r > 1 else 0) + (2 * n if inverse else 0)
+
+
+def gnlse_step_flop(n, nl):
+    """The least work of one K6 step, as ``(transform flop, pointwise
+    flop)``: a linear substep (two transforms and a 6-flop factor product a
+    sample) and the nonlinear one: the Kerr rotation (13 a sample, sin and
+    cos one each) or an RK4 on N (four evaluations of a steepening transform
+    pair and a Raman pair, 30 flop a sample, and 24 a sample for the stage
+    sums).  The Raman pair transforms the real power into a real response,
+    which real-input transforms do at half a complex pair's cost; the
+    kernel transforms it as complex."""
+    pair = fft_flop(n) + fft_flop(n, True)
+    if not nl:
+        return pair, 6 * n + 13 * n
+    return pair + 4 * 1.5 * pair, 6 * n + 4 * 30 * n + 24 * n
+
+
+def ssfm_attempt_flop(n):
+    """One K8 attempt, counted from csrc/ssfm_rk45.cu, as ``(transform flop,
+    pointwise flop)``: 4 forward and 5 inverse transforms; the factor build
+    (11 a sample), five factor products (6), three Kerr rotations (13), the
+    three norms (12) and the candidate with its norm (9)."""
+    return 4 * fft_flop(n) + 5 * fft_flop(n, True), (11 + 30 + 39 + 12 + 9) * n
+
+
+def ops_ms(flop, rdt):
+    """The least time of ``flop`` operations, at the peak of the kernel's
+    type.  The fp32 kernels transform in double (csrc/ssfm_common.cuh) for
+    accuracy; their function needs only float32, so the bound counts it."""
+    return 1e3 * flop / PEAK_FLOPS[rdt]
+
+
+def gnlse_setup(psa, precision, nl=False, B=None):
+    """Host ``(A0 (B, T), coeffs, nl terms or None)`` of the bench
+    configuration at ``precision`` (B: the bench's 2,048)."""
+    B = GN_B if B is None else B
+    gn = psa.gnlse
+    grid = gn.TimeGrid.for_pulse(GN_T0, n_samples=GN_T)
+    co = gn.make_gnlse_coeffs(grid, psa.DispersionParams.from_betas(GN_OMEGA0, beta2=GN_BETA2),
+                              gamma_W_m=GN_GAMMA, alpha_1_m=GN_ALPHA, precision=precision)
+    terms = (gn.make_nl_terms(grid, f_raman=0.18, omega0=GN_OMEGA0, precision=precision)
+             if nl else None)
+    P0 = gn.soliton_peak_power(GN_BETA2, GN_GAMMA, GN_T0)
+    A0 = np.sqrt(np.linspace(0.5, 1.5, B) * P0)[:, None] / np.cosh(grid.t()[None, :] / GN_T0)
+    return A0.astype(np.complex128), co, terms
+
+
+def gnlse_lanes(psa, rdt, dev, B=None, nl=False, bad_alpha=None, bad_scale=None):
+    """Kernel inputs ``(A0, gamma, alpha, lin_phase)`` and nl terms on the
+    card; envelope B//2 has the loss ``bad_alpha`` (a gain that overflows
+    within the first chunk) or starts ``bad_scale`` times too strong."""
+    B = GN_B if B is None else B
+    A0, co, terms = gnlse_setup(psa, "x64", nl, B)
+    if bad_scale is not None:
+        A0[B // 2] *= bad_scale
+    t = psa.gnlse.lane_coeffs(co, B, GN_T, rdt, dev)
+    if bad_alpha is not None:
+        t[1][B // 2] = bad_alpha
+    cdt = torch.complex128 if rdt == torch.float64 else torch.complex64
+    nl_t = psa.gnlse._cast_nl(terms, rdt, dev)
+    return (torch.as_tensor(A0, device=dev).to(cdt),) + t, nl_t
+
+
+def power_errors(A, A_ref):
+    """bench_gnlse.py:393-397: the largest relative power error on the core
+    (samples above 1% of the peak) and on the tails (above 1e-6)."""
+    P, P_ref = np.abs(A) ** 2, np.abs(A_ref) ** 2
+    rel = np.abs(P / np.maximum(P_ref, 1e-300) - 1.0)
+    return (float(rel[P_ref > 1e-2 * P_ref.max()].max()),
+            float(rel[P_ref > 1e-6 * P_ref.max()].max()))
+
+
+def check_gnlse_kernel(psa, cg, dev, max_err, plain_ms, nl_ms):
+    """Phase 15: gnlse_ssfm.cu against its plain version at the bench size
+    with a blown-up envelope; the plain version's 1,000-step run of each
+    case is its time.  The fp32 kernel and the fp32 plain version round
+    their transforms differently (the kernel in double with the float64
+    twiddles, cuFFT in float32), so each is held against the fp64 plain
+    version of the same case."""
+    B, bad = GN_B, GN_B // 2
+    cases = [(torch.float64, False, GN_STEPS), (torch.float64, False, GN_STEPS + 5),
+             (torch.float64, True, GN_STEPS), (torch.float32, False, GN_STEPS),
+             (torch.float32, True, GN_STEPS)]
+    ref64 = {}
+    for rdt, nl, n_steps in cases:
+        t, nl_t = gnlse_lanes(psa, rdt, dev, nl=nl, bad_alpha=-4e6)
+        kw = dict(dz_m=GN_Z / GN_STEPS, n_steps=n_steps, save_every=GN_SAVE, nl=nl_t)
+        rk = cg.solve_gnlse_batch_cuda(*t, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rp = cg.solve_gnlse_batch_torch(*t, **kw)
+        torch.cuda.synchronize()
+        key = f"gnlse_ssfm_{suffix(rdt)}"
+        if n_steps == GN_STEPS:
+            (nl_ms if nl else plain_ms)[key + ("_nl_plain" if nl else "")] = \
+                1e3 * (time.perf_counter() - t0)
+            if rdt == torch.float64:
+                ref64[nl] = rp
+        label = (f"gnlse kernel vs plain {str(rdt)[6:]} {'nl' if nl else 'kerr'} B={B} "
+                 f"n_steps={n_steps}")
+        if not torch.equal(rk.ok, rp.ok):
+            raise AssertionError(f"{label}: ok flags differ")
+        if bool(rk.ok[bad]) or int(rk.ok.sum()) != B - 1:
+            raise AssertionError(f"{label}: expected exactly envelope {bad} to fail")
+        if not (bool(torch.isfinite(rk.A_end).all()) and torch.equal(rk.A_end[bad], t[0][bad])):
+            raise AssertionError(f"{label}: the failed envelope is not frozen at its input")
+        good = rk.ok
+        err_A = normwise(rk.A_end[good], rp.A_end[good])
+        err_pk = float(rel_err(rk.peak_max[good], rp.peak_max[good]).max())
+        max_err[key] = max(max_err.get(key, 0.0), float((rk.A_end[good] - rp.A_end[good])
+                                                        .abs().max()))
+        if rdt == torch.float64:
+            log(f"{label}: A_end max normwise err {err_A:.3e}, peak max rel err {err_pk:.3e} "
+                "(bar 1e-11); bad envelope frozen at its input")
+            if not (err_A <= 1e-11 and err_pk <= 1e-11):
+                raise AssertionError(f"{label}: {err_A:.3e} / {err_pk:.3e} > 1e-11")
+            continue
+        # fp32: against the fp64 plain version; the bars are half what a
+        # 0.1% error in gamma reads in A_end and 3e-4 in the peak, which that
+        # error barely moves (PERF.md section 6)
+        ref = ref64[nl]
+        up = (lambda r: (r.A_end[good].to(torch.complex128), r.peak_max[good].double()))
+        (kA, kp), (pA, pp) = up(rk), up(rp)
+        ek_A, ek_pk = normwise(kA, ref.A_end[good]), float(rel_err(kp, ref.peak_max[good]).max())
+        ep_A, ep_pk = normwise(pA, ref.A_end[good]), float(rel_err(pp, ref.peak_max[good]).max())
+        log(f"{label}: kernel vs plain fp64 A_end {ek_A:.3e} (bar 1.5e-4), peak {ek_pk:.3e} "
+            f"(bar 3e-4); plain fp32 (cuFFT) vs plain fp64 A_end {ep_A:.3e}, peak {ep_pk:.3e}; "
+            f"kernel vs plain fp32 A_end {err_A:.3e}, peak {err_pk:.3e}; bad envelope frozen")
+        if not nl:
+            # what a wrong kernel would read: the plain version with every
+            # gamma 0.1% off
+            off = cg.solve_gnlse_batch_torch(t[0], t[1] * (1 + 1e-3), *t[2:], **kw)
+            log(f"{label}: the plain fp32 version with gamma 0.1% off reads A_end "
+                f"{normwise(off.A_end[good], rp.A_end[good]):.3e}, peak "
+                f"{float(rel_err(off.peak_max[good], rp.peak_max[good]).max()):.3e}")
+        if not (ek_A <= 1.5e-4 and ek_pk <= 3e-4):
+            raise AssertionError(f"{label}: {ek_A:.3e} / {ek_pk:.3e} against fp64 over the bars")
+
+
+def check_ssfm_rk45_kernel(psa, csa, dev, max_err, plain_ms, steps):
+    """Phase 16: ssfm_rk45.cu against its plain version on 512 envelopes,
+    one of them 1e12 times too strong (its Kerr phase drives the controller
+    to dt_min at once); the plain version's 1,000-step run is its time."""
+    B, bad = GN_B45, GN_B45 // 2
+    for rdt, n_steps in ((torch.float64, GN_STEPS), (torch.float64, GN_STEPS + 5),
+                         (torch.float32, GN_STEPS)):
+        rtol, atol = GN_TOL[rdt]
+        t, _ = gnlse_lanes(psa, rdt, dev, B=B, bad_scale=1e12)
+        kw = dict(dz_m=GN_Z / GN_STEPS, n_steps=n_steps, save_every=GN_SAVE, rtol=rtol,
+                  atol=atol, max_steps=20_000)
+        rk = csa.solve_gnlse_batch_rk45_cuda(*t, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rp = csa.solve_gnlse_batch_rk45_torch(*t, **kw)
+        torch.cuda.synchronize()
+        key = f"ssfm_rk45_{suffix(rdt)}"
+        label = f"ssfm rk45 kernel vs plain {str(rdt)[6:]} B={B} n_steps={n_steps}"
+        if key not in plain_ms:
+            plain_ms[key] = 1e3 * (time.perf_counter() - t0)
+            attempts = (rk.n_accepted + rk.n_rejected)[rk.ok].double()
+            steps[key] = (float(attempts.mean()), int(attempts.max()))
+        if not torch.equal(rk.ok, rp.ok):
+            raise AssertionError(f"{label}: ok flags differ")
+        if bool(rk.ok[bad]) or int(rk.ok.sum()) != B - 1:
+            raise AssertionError(f"{label}: expected exactly envelope {bad} to fail")
+        if not bool(torch.isfinite(rk.A_end).all()):
+            raise AssertionError(f"{label}: non-finite kernel output")
+        good = rk.ok
+        same = good & (rk.n_accepted == rp.n_accepted) & (rk.n_rejected == rp.n_rejected)
+        share = float(same.double().sum() / good.double().sum())
+        err_all = normwise(rk.A_end[good], rp.A_end[good])
+        err_same = normwise(rk.A_end[same], rp.A_end[same]) if bool(same.any()) else 0.0
+        err_pk = float(rel_err(rk.peak_max[good], rp.peak_max[good]).max())
+        max_err[key] = max(max_err.get(key, 0.0), float((rk.A_end[good] - rp.A_end[good])
+                                                        .abs().max()))
+        log(f"{label}: A_end max normwise err {err_all:.3e} (all envelopes), {err_same:.3e} "
+            f"(equal counters), peak {err_pk:.3e}; counters equal on {share:.4f}")
+        if rdt == torch.float64:
+            bars = ((share, 0.99, "share of equal counters", True),
+                    (err_same, 1e-9, "envelopes with equal counters", False))
+        else:
+            bars = ((err_all, 1e-4, "all envelopes", False), (err_pk, 1e-4, "peak", False))
+        for val, bar, where, at_least in bars:
+            if not (val >= bar if at_least else val <= bar):
+                raise AssertionError(f"{label}: {val:.3e} against {bar:g} on {where}")
+        if rdt == torch.float32:
+            # what a wrong kernel would read against the 1e-4 bar: the plain
+            # version with every gamma 0.1% off
+            off = csa.solve_gnlse_batch_rk45_torch(t[0], t[1] * (1 + 1e-3), *t[2:], **kw)
+            g2 = good & off.ok
+            log(f"{label} A_end: the plain version with gamma 0.1% off reads "
+                f"{normwise(rk.A_end[g2], off.A_end[g2]):.3e} (bar 1e-4)")
 
 
 def log(msg):
@@ -473,6 +717,192 @@ def check_spectrum(res, precision):
     return ok_frac
 
 
+def gnlse_phases(psa, _build, cg, csa, dev, card, t_start, bound, rec):
+    """Phases 15-18, the GNLSE path; ``rec`` holds the records the kernels
+    line is made of and ``bound`` sets a kernel's bound in them.  Returns
+    the library calls' times."""
+    max_err, plain_ms, steps, launches = (rec[k] for k in ("max_err", "plain_ms", "steps",
+                                                           "launches"))
+    ms, bound_ms, bound_by, bytes_of = (rec[k] for k in ("ms", "bound_ms", "bound_by",
+                                                         "bytes_of"))
+    # --- 15. GNLSE kernel K6 vs plain version --------------------------------------
+    nl_ms = {}
+    check_gnlse_kernel(psa, cg, dev, max_err, plain_ms, nl_ms)
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 15 done")
+
+    # --- 16. GNLSE kernel K8 vs plain version --------------------------------------
+    check_ssfm_rk45_kernel(psa, csa, dev, max_err, plain_ms, steps)
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 16 done")
+
+    # --- 17. the GNLSE main path ---------------------------------------------------
+    gn = psa.gnlse
+    gn_sub = np.linspace(0, GN_B - 1, 8).astype(int)
+    gn_sub45 = np.linspace(0, GN_B45 - 1, 8).astype(int)
+    gn_paths = (("df32", "rk4", False, "gnlse_ssfm_f64", 1e-9, 1e-9),
+                ("x32", "rk4", False, "gnlse_ssfm_f32", 4.5e-3, 2.6e-2),
+                ("df32", "rk4", True, "gnlse_ssfm_f64", 1e-9, 1e-9),
+                ("x32", "rk4", True, "gnlse_ssfm_f32", 4.5e-3, 2.6e-2),
+                ("x64", "rk45", False, "ssfm_rk45_f64", 1e-7, None),
+                ("x32", "rk45", False, "ssfm_rk45_f32", 5e-4, None))
+
+    def gn_cfg(precision, integrator):
+        rdt = torch.float32 if precision == "x32" else torch.float64
+        r, a = GN_TOL[rdt]
+        return psa.custom_simulation_config(z_max=GN_Z, dz=GN_Z / GN_STEPS, save_every=GN_SAVE,
+                                            precision=precision, integrator=integrator,
+                                            rtol=r, atol=a)
+
+    gn_refs = {}
+    for precision, integ, nl, name, core_bar, tail_bar in gn_paths:
+        B = GN_B45 if integ == "rk45" else GN_B
+        sub = gn_sub45 if integ == "rk45" else gn_sub
+        A0g, cog, nlg = gnlse_setup(psa, precision, nl, B)
+        # the first call leaves the device out: the card is the default
+        dev_kw = {} if name == "gnlse_ssfm_f64" and not nl else {"device": "cuda"}
+        t0 = time.perf_counter()
+        (pk, A, ok), counts = run_main_path(psa, _build, name, lambda: gn.solve_gnlse_batch(
+            gn_cfg(precision, integ), cog, A0g, nl=nlg, engine="auto", **dev_kw))
+        sec = time.perf_counter() - t0
+        if counts != {name: 1}:
+            raise AssertionError(f"gnlse {precision} {integ}: launches {counts}, not one {name}")
+        launches[name] = launches.get(name, 0) + counts[name]
+        if A.shape != (B, GN_T) or not ok.all() or not np.isfinite(A).all():
+            raise AssertionError(f"gnlse {precision} {integ}: shape {A.shape}, ok {ok.mean()}")
+        key = (integ, nl, B)
+        if key not in gn_refs:
+            A0r, cor, nlr = gnlse_setup(psa, "x64", nl, B)
+            ref_cfg = psa.custom_simulation_config(
+                z_max=GN_Z, dz=GN_Z / GN_STEPS, save_every=GN_SAVE, integrator=integ,
+                rtol=1e-11, atol=1e-14)
+            t1 = time.perf_counter()
+            gn_refs[key] = gn.solve_gnlse_batch(ref_cfg, cor, A0r[sub], nl=nlr,
+                                                engine="torch", device="cpu")[1]
+            log(f"plain fp64 {integ}{' nl' if nl else ''} reference on the CPU, 8 envelopes"
+                f"{' at rtol 1e-11' if integ == 'rk45' else ''}: "
+                f"{time.perf_counter() - t1:.1f} s")
+        core, tails = power_errors(A[sub], gn_refs[key])
+        log(f"main path gnlse {integ} {precision}{' nl' if nl else ''}: {B} envelopes of "
+            f"{GN_T} samples, launches {counts}, ok 1.0, {sec * 1e3:.1f} ms (first call); "
+            f"8-envelope subset vs plain fp64 (CPU): max rel power err {core:.3e} on the core "
+            f"(bar {core_bar:g}), {tails:.3e} on the tails"
+            f"{f' (bar {tail_bar:g})' if tail_bar else ''}")
+        if not (core <= core_bar and (tail_bar is None or tails <= tail_bar)):
+            raise AssertionError(f"gnlse {precision} {integ} subset error {core:.3e} / "
+                                 f"{tails:.3e}")
+
+    A0s, cos_, nls = gnlse_setup(psa, "x64", True, 1)
+    run_cfg = psa.custom_simulation_config(z_max=GN_Z, dz=GN_Z / GN_STEPS, save_every=GN_SAVE)
+    t0 = time.perf_counter()
+    z, A = gn.run_gnlse_simulation(run_cfg, cos_, A0s[0], nl=nls, device="cuda")
+    sec = time.perf_counter() - t0
+    z_c, A_c = gn.run_gnlse_simulation(run_cfg, cos_, A0s[0], nl=nls, device="cpu")
+    err = float(np.max(np.abs(A - A_c)) / np.max(np.abs(A_c)))
+    log(f"run_gnlse_simulation on the card (1,000 Strang steps with Raman and steepening, "
+        f"plain torch): {A.shape[0]} rows in {sec:.1f} s; vs the CPU {err:.3e} of the largest "
+        "amplitude (bar 1e-11)")
+    if not (A.shape == (GN_STEPS // GN_SAVE + 1, GN_T) and np.array_equal(z, z_c)
+            and err <= 1e-11):
+        raise AssertionError(f"run_gnlse_simulation: shape {A.shape}, error {err:.3e}")
+    A0g, cog, _ = gnlse_setup(psa, "x64", False, 64)
+    _build.LAUNCHES.clear()
+    _pk, A_ip, ok_ip = gn.solve_gnlse_batch(gn_cfg("x64", "rk4ip"), cog, A0g, device="cuda")
+    torch.cuda.synchronize()
+    log(f"solve_gnlse_batch rk4ip (engine='auto', 64 envelopes): launches "
+        f"{dict(_build.LAUNCHES)} (plain torch, as the JAX package's 'auto'), ok {ok_ip.mean()}")
+    if _build.LAUNCHES or not ok_ip.all():
+        raise AssertionError(f"rk4ip auto: launches {dict(_build.LAUNCHES)}, ok {ok_ip.mean()}")
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 17 done")
+
+    # --- 18. GNLSE times -----------------------------------------------------------
+    gn_kw = dict(dz_m=GN_Z / GN_STEPS, n_steps=GN_STEPS, save_every=GN_SAVE)
+    n_saves = GN_STEPS // GN_SAVE
+    gn_flop, library_ms = {}, {}
+
+    def gn_bound(name, t_ops, nbytes):
+        t_bytes = 1e3 * nbytes / PEAK_BYTES
+        bound_ms[name] = max(t_ops, t_bytes)
+        bound_by[name] = "operations" if t_ops >= t_bytes else "bytes"
+        bytes_of[name] = nbytes
+
+    for rdt in (torch.float64, torch.float32):
+        name = f"gnlse_ssfm_{suffix(rdt)}"
+        item = rdt.itemsize
+        # inputs: A0, the two shared factor rows, gamma, the float64
+        # twiddles (and conj(H_R), omega); outputs: the peak, A_end, ok
+        nbytes = GN_B * (2 * GN_T * item * 2 + 2 * item + 1) + (2 * 2 * item + 16) * GN_T
+        for nl in (False, True):
+            t, nl_t = gnlse_lanes(psa, rdt, dev, nl=nl)
+            kern_ms = 1e3 * timed(lambda: cg.solve_gnlse_batch_cuda(*t, **gn_kw, nl=nl_t))
+            # a chunk of k steps makes k + 1 linear substeps; each save adds
+            # the finite check and the peak
+            tr, pw = gnlse_step_flop(GN_T, nl)
+            tr = GN_B * (GN_STEPS * tr + n_saves * (fft_flop(GN_T) + fft_flop(GN_T, True)))
+            pw = GN_B * (GN_STEPS * pw + n_saves * 12 * GN_T)
+            if nl:
+                key = name + "_nl"
+                nl_ms[name] = kern_ms
+                gn_flop[key] = tr + pw
+                nl_ms[name + "_bound"] = max(ops_ms(tr + pw, rdt), 1e3 * (
+                    nbytes + 3 * GN_T * item) / PEAK_BYTES)
+            else:
+                ms[name] = kern_ms
+                gn_flop[name] = tr + pw
+                gn_bound(name, ops_ms(tr + pw, rdt), nbytes)
+                # the same Strang integration through torch.fft (cuFFT) on the card
+                library_ms[name] = 1e3 * timed(lambda: cg.solve_gnlse_batch_torch(*t, **gn_kw))
+    for rdt in (torch.float64, torch.float32):
+        name = f"ssfm_rk45_{suffix(rdt)}"
+        rtol, atol = GN_TOL[rdt]
+        t, _ = gnlse_lanes(psa, rdt, dev, B=GN_B45)
+        kw45 = dict(gn_kw, rtol=rtol, atol=atol)
+        r = csa.solve_gnlse_batch_rk45_cuda(*t, **kw45)
+        attempts = (r.n_accepted + r.n_rejected).double()
+        ms[name] = 1e3 * timed(lambda: csa.solve_gnlse_batch_rk45_cuda(*t, **kw45))
+        item = rdt.itemsize
+        # this run's attempts; each envelope adds its saves; inputs: A0,
+        # gamma, alpha, the phase row, the twiddles; outputs add the counters
+        tr, pw = ssfm_attempt_flop(GN_T)
+        n_att = float(attempts.sum())
+        pw = n_att * pw + GN_B45 * n_saves * 6 * GN_T
+        gn_flop[name] = n_att * tr + pw
+        gn_bound(name, ops_ms(gn_flop[name], rdt),
+                 GN_B45 * (2 * GN_T * item * 2 + 3 * item + 9) + (item + 16) * GN_T)
+        steps[name + "_timed"] = (float(attempts.mean()), int(attempts.max()))
+    gn_e2e = {}
+    for precision, integ, nl, name, _c, _t in gn_paths:
+        B = GN_B45 if integ == "rk45" else GN_B
+        A0g, cog, nlg = gnlse_setup(psa, precision, nl, B)
+        cfg = gn_cfg(precision, integ)
+        gn_e2e[f"{integ} {precision}{' nl' if nl else ''}"] = (B, timed(
+            lambda: gn.solve_gnlse_batch(cfg, cog, A0g, nl=nlg, device="cuda")))
+    log(f"GNLSE times on {card} (median of {REPS} warm reps, host clock with synchronize; "
+        f"bound: the least flop, the Raman pairs as real-input transforms, at FP64 "
+        f"{PEAK_FLOPS[torch.float64] / 1e12:g} / FP32 {PEAK_FLOPS[torch.float32] / 1e12:g} "
+        f"TFLOP/s; {PEAK_BYTES / 1e12:g} TB/s):")
+    for name in ("gnlse_ssfm_f64", "gnlse_ssfm_f32"):
+        log(f"  {name} kerr {GN_B} envelopes x {GN_STEPS} steps: {ms[name]:.3f} ms = "
+            f"{GN_B * GN_STEPS / ms[name] * 1e3:.1f} envelope-steps/s; bound {bound_ms[name]:.3f} "
+            f"ms ({bound_by[name]}; {gn_flop[name]:.4g} flop, {bytes_of[name]} bytes; the kernel "
+            f"at {100 * bound_ms[name] / ms[name]:.2f}% of it); torch.fft Strang integration "
+            f"(cuFFT, the library call) {library_ms[name]:.3f} ms; plain version on the card "
+            f"(one run, phase 15) {plain_ms[name]:.1f} ms")
+        log(f"  {name} nl {GN_B} envelopes x {GN_STEPS} steps: {nl_ms[name]:.3f} ms; bound "
+            f"{nl_ms[name + '_bound']:.3f} ms ({gn_flop[name + '_nl']:.4g} flop; the kernel at "
+            f"{100 * nl_ms[name + '_bound'] / nl_ms[name]:.2f}% of it); plain version on the card "
+            f"(one run, phase 15) {nl_ms[name + '_nl_plain']:.1f} ms")
+    for name in ("ssfm_rk45_f64", "ssfm_rk45_f32"):
+        mean, mx = steps[name + "_timed"]
+        log(f"  {name} {GN_B45} envelopes: {ms[name]:.3f} ms; bound {bound_ms[name]:.3f} ms "
+            f"({bound_by[name]}; {gn_flop[name]:.4g} flop, {bytes_of[name]} bytes; the kernel at "
+            f"{100 * bound_ms[name] / ms[name]:.2f}% of it); attempted steps per envelope mean "
+            f"{mean:.1f}, max {mx}; plain version on the card (one run, phase 16) "
+            f"{plain_ms[name]:.1f} ms")
+    for label, (B, sec) in gn_e2e.items():
+        log(f"  solve_gnlse_batch end to end, {label}, {B} envelopes: {sec * 1e3:.3f} ms = "
+            f"{B / sec:.1f} envelopes/s")
+    return library_ms
+
+
 def main():
     # --- 1. device -----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -483,7 +913,9 @@ def main():
     from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_adaptive as ca
     from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_comb as cc
     from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_comb_adaptive as cca
+    from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_gnlse as cg
     from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_solver as cs
+    from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_ssfm_adaptive as csa
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -851,10 +1283,16 @@ def main():
     for label, sec in comb_e2e.items():
         log(f"  solve_comb_batch end to end, {label}, {COMB_B} combs: {sec * 1e3:.3f} ms = "
             f"{COMB_B / sec:.1f} combs/s")
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 14 done")
+
+    library_ms = gnlse_phases(psa, _build, cg, csa, dev, card, t_start, bound, dict(
+        max_err=max_err, plain_ms=plain_ms, steps=steps, launches=launches, ms=ms,
+        bound_ms=bound_ms, bound_by=bound_by, bytes_of=bytes_of))
     log(f"[{time.perf_counter() - t_start:.0f} s] all phases done")
 
     sources = {"fwm4_rk": f"{PKG}/csrc/fwm4_rk.cu", "fwm4_rk45": f"{PKG}/csrc/fwm4_rk45.cu",
-               "comb_rk": f"{PKG}/csrc/comb_rk.cu", "comb_rk45": f"{PKG}/csrc/comb_rk45.cu"}
+               "comb_rk": f"{PKG}/csrc/comb_rk.cu", "comb_rk45": f"{PKG}/csrc/comb_rk45.cu",
+               "gnlse_ssfm": f"{PKG}/csrc/gnlse_ssfm.cu", "ssfm_rk45": f"{PKG}/csrc/ssfm_rk45.cu"}
     replaces = {
         "fwm4_rk_f64": f"{JAX_PKG}/ops/pallas_df32.py:442",
         "fwm4_rk_f32": f"{JAX_PKG}/ops/pallas_solver.py:300",
@@ -864,14 +1302,19 @@ def main():
         "comb_rk_f32": f"{JAX_PKG}/ops/pallas_comb.py:97",
         "comb_rk45_f64": f"{JAX_PKG}/ops/pallas_comb_adaptive.py:77",
         "comb_rk45_f32": f"{JAX_PKG}/ops/pallas_comb_adaptive.py:77",
+        "gnlse_ssfm_f64": f"{JAX_PKG}/ops/pallas_gnlse.py:360",
+        "gnlse_ssfm_f32": f"{JAX_PKG}/ops/pallas_gnlse.py:360",
+        "ssfm_rk45_f64": f"{JAX_PKG}/ops/pallas_ssfm_adaptive.py:101",
+        "ssfm_rk45_f32": f"{JAX_PKG}/ops/pallas_ssfm_adaptive.py:101",
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name.rsplit("_", 1)[0]],
          "replaces": replaces[name], "launches": launches[name], "max_abs_err": max_err[name],
          "ms": ms[name], "plain_ms": plain_ms[name], "bound_ms": bound_ms[name],
-         "bound_by": bound_by[name], "library_ms": None}
+         "bound_by": bound_by[name], "library_ms": library_ms.get(name)}
         for name in ("fwm4_rk_f64", "fwm4_rk_f32", "fwm4_rk45_f64", "fwm4_rk45_f32",
-                     "comb_rk_f64", "comb_rk_f32", "comb_rk45_f64", "comb_rk45_f32")
+                     "comb_rk_f64", "comb_rk_f32", "comb_rk45_f64", "comb_rk45_f32",
+                     "gnlse_ssfm_f64", "gnlse_ssfm_f32", "ssfm_rk45_f64", "ssfm_rk45_f32")
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

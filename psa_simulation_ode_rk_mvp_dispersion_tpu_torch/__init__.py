@@ -7,12 +7,15 @@ function's counterpart is found by name.  The port covers the 4-wave main
 path: parameter math, the RHS, the fixed-step (rk4/ab4/abm4) and adaptive
 (rk45) integrators, the single-run runner, the sweeps (gain spectrum,
 mismatch scan, PSA phase sweep, power x wavelength gain map, batched
-trajectories), result persistence (``io_fwm``) and the N-wave comb
-(``models/nwave``).  The rotating-frame sweeps and the batched comb solve
-run on a CUDA device through hand-written kernels: ``csrc/fwm4_rk.cu``
+trajectories), result persistence (``io_fwm``), the N-wave comb
+(``models/nwave``) and the GNLSE pulse model (``models/gnlse``).  The
+rotating-frame sweeps and the batched comb and pulse solves run on a CUDA
+device through hand-written kernels: ``csrc/fwm4_rk.cu``
 (``ops/cuda_solver.py``), ``csrc/fwm4_rk45.cu`` (``ops/cuda_adaptive.py``),
-``csrc/comb_rk.cu`` (``ops/cuda_comb.py``) and ``csrc/comb_rk45.cu``
-(``ops/cuda_comb_adaptive.py``).
+``csrc/comb_rk.cu`` (``ops/cuda_comb.py``), ``csrc/comb_rk45.cu``
+(``ops/cuda_comb_adaptive.py``), ``csrc/gnlse_ssfm.cu``
+(``ops/cuda_gnlse.py``) and ``csrc/ssfm_rk45.cu``
+(``ops/cuda_ssfm_adaptive.py``).
 
 Precision tiers: ``x64`` and ``df32`` run in float64/complex128, ``x32`` in
 float32/complex64.  Public entry points take ``device=``; ``None`` means the
@@ -36,7 +39,9 @@ from .ops import (
     cuda_adaptive,
     cuda_comb,
     cuda_comb_adaptive,
+    cuda_gnlse,
     cuda_solver,
+    cuda_ssfm_adaptive,
     dispersion,
     frequency_plan,
     integrators,
@@ -96,7 +101,21 @@ from .ops.rhs import (
     rhs_yaman_simplified,
     rotating_to_lab,
 )
-from .models import fwm4, nwave
+from .models import fwm4, gnlse, nwave
+from .models.gnlse import (
+    GNLSECoeffs,
+    NLTerms,
+    TimeGrid,
+    gaussian_pulse,
+    make_gnlse_coeffs,
+    make_nl_terms,
+    raman_response,
+    raman_t_r,
+    run_gnlse_simulation,
+    sech_pulse,
+    solve_gnlse_batch,
+    soliton_peak_power,
+)
 from .models.nwave import (
     CombGrid,
     NWaveCoeffs,

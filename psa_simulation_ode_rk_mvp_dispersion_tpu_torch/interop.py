@@ -2,11 +2,12 @@
 
 :func:`from_reference` turns the JAX package's ``SimulationConfig``,
 ``RHSCoeffs``, ``DispersionParams``, ``SymmetricPlan``,
-``PhaseMatchingConfig``, ``ModelParams`` (with its parts), ``NWaveCoeffs``
-and ``CombGrid`` into their counterparts here, reading every field by name
-through ``dataclasses.fields`` and every array leaf through ``np.asarray``.  It never
-imports JAX: it only reads the objects it is given, so both packages can
-compute from bit-identical float64 inputs.
+``PhaseMatchingConfig``, ``ModelParams`` (with its parts), ``NWaveCoeffs``,
+``CombGrid``, ``TimeGrid``, ``GNLSECoeffs`` and ``NLTerms`` into their
+counterparts here, reading every field by name through ``dataclasses.fields``
+and every array leaf through ``np.asarray``.  It never imports JAX: it only
+reads the objects it is given, so both packages can compute from
+bit-identical float64 inputs.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 
 from .config import SimulationConfig
-from .models import fwm4, nwave
+from .models import fwm4, gnlse, nwave
 from .ops.dispersion import DispersionParams
 from .ops.frequency_plan import SymmetricPlan
 from .ops.phase_matching import PhaseMatchingConfig, PhaseMatchingMethod
@@ -33,10 +34,12 @@ _CLASSES = {
         SimulationConfig, RHSCoeffs, DispersionParams, SymmetricPlan,
         PhaseMatchingConfig, fwm4.WavesParams, fwm4.FiberParams,
         fwm4.SimulationGrid, fwm4.PhaseMatchingParams, fwm4.CacheParams,
-        fwm4.ModelParams, nwave.NWaveCoeffs, nwave.CombGrid,
+        fwm4.ModelParams, nwave.NWaveCoeffs, nwave.CombGrid, gnlse.TimeGrid,
+        gnlse.GNLSECoeffs, gnlse.NLTerms,
     )
 }
-_TENSOR_CLASSES = (RHSCoeffs, DispersionParams, SymmetricPlan, nwave.NWaveCoeffs)
+_TENSOR_CLASSES = (RHSCoeffs, DispersionParams, SymmetricPlan, nwave.NWaveCoeffs,
+                   gnlse.GNLSECoeffs, gnlse.NLTerms)
 _ENUMS = {PhaseMatchingMethod.__name__: PhaseMatchingMethod}
 
 
@@ -56,11 +59,12 @@ def _leaf(v, *, as_tensor: bool, device, dtype):
 def from_reference(obj, *, device=None, dtype: torch.dtype = torch.float64):
     """The counterpart of a JAX-package parameter object.
 
-    Array leaves of ``RHSCoeffs``, ``DispersionParams``, ``SymmetricPlan``
-    and ``NWaveCoeffs`` become ``dtype`` tensors on ``device`` (``None``:
-    the CUDA card); host containers (``CombGrid`` among them) keep numpy
-    copies and floats.  ``DispersionParams`` and ``SymmetricPlan`` are
-    float64 by definition and ignore ``dtype``.
+    Array leaves of ``RHSCoeffs``, ``DispersionParams``, ``SymmetricPlan``,
+    ``NWaveCoeffs``, ``GNLSECoeffs`` and ``NLTerms`` become ``dtype`` tensors
+    on ``device`` (``None``: the CUDA card); host containers (``CombGrid``
+    and ``TimeGrid`` among them) keep numpy copies and floats.
+    ``DispersionParams`` and ``SymmetricPlan`` are float64 by definition and
+    ignore ``dtype``.
     """
     device = resolve_device(device)
     if isinstance(obj, Enum):

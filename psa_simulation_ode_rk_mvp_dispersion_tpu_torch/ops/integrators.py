@@ -61,6 +61,27 @@ def rk4_step(f: RHSFunction, z, y, dz, params):
     return y + _rk4_increment(f, z, y, dz, params)[0]
 
 
+def rk4ip_step(lin, N, y, h, Ny=None):
+    """One 4th-order interaction-picture RK4 step (Hult 2007, J. Lightwave
+    Technol. 25:3770), shared by the split-step families: the fixed-step
+    chunk steppers and the step-doubling adaptive attempts.
+
+    ``lin(a)`` applies the half-step linear propagator ``exp(L h/2)``;
+    ``N(a)`` is the nonlinear operator.  ``Ny`` optionally supplies ``N(y)``,
+    so that a step-doubling attempt shares the first stage between its
+    coarse and fine steps.  The k4 term is added outside the last linear
+    application, the defining subtlety of the scheme.
+    """
+    if Ny is None:
+        Ny = N(y)
+    a = lin(y)
+    k1 = lin(h * Ny)
+    k2 = h * N(a + 0.5 * k1)
+    k3 = h * N(a + 0.5 * k2)
+    k4 = h * N(lin(a + k3))
+    return lin(a + (1.0 / 6.0) * (k1 + 2.0 * (k2 + k3))) + (1.0 / 6.0) * k4
+
+
 class IntegrationState(NamedTuple):
     """State + masked failure tracking, each of the batch shape."""
 

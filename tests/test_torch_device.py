@@ -24,6 +24,8 @@ _COEFFS = T.RHSCoeffs(np.full(2, 0.01), np.zeros(2), np.zeros(2))
 _A0 = np.full((2, 4), 0.1, dtype=np.complex128)
 _COMB = T.NWaveCoeffs(gamma=0.01, alpha=0.0, beta_lin=np.zeros(5))
 _COMB_A0 = np.full((2, 5), 0.1, dtype=np.complex128)
+_PULSE = T.GNLSECoeffs(gamma=0.01, alpha=0.0, lin_phase=np.zeros(128))
+_PULSE_A0 = np.full((2, 128), 0.1, dtype=np.complex128)
 
 ENTRY_POINTS = {
     "solve_batch": lambda **d: T.solve_batch(_CFG, _COEFFS, _A0, **d),
@@ -59,6 +61,12 @@ ENTRY_POINTS = {
     "run_comb_simulation": lambda **d: T.run_comb_simulation(_CFG, _COMB, _COMB_A0[0], **d),
     "solve_comb_batch_trajectories": lambda **d: T.nwave.solve_comb_batch_trajectories(
         _CFG, _COMB, _COMB_A0, **d),
+    "solve_gnlse_batch": lambda **d: T.solve_gnlse_batch(_CFG, _PULSE, _PULSE_A0, **d),
+    "solve_gnlse_batch_rk45": lambda **d: T.solve_gnlse_batch(
+        T.custom_simulation_config(z_max=1.0, dz=0.1, integrator="rk45"), _PULSE, _PULSE_A0, **d),
+    "run_gnlse_simulation": lambda **d: T.run_gnlse_simulation(_CFG, _PULSE, _PULSE_A0[0], **d),
+    "solve_gnlse_batch_trajectories": lambda **d: T.gnlse.solve_gnlse_batch_trajectories(
+        _CFG, _PULSE, _PULSE_A0, **d),
     "from_reference": lambda **d: interop.from_reference(
         J.RHSCoeffs(gamma=np.ones(2), alpha=np.zeros(2), delta_beta=np.zeros(2)), **d),
 }
@@ -83,7 +91,9 @@ def test_entry_point_without_device_raises_when_there_is_no_card(no_card, name):
 
 @pytest.mark.parametrize("name", ["solve_batch", "gain_spectrum", "lower_params",
                                   "run_adaptive_trajectory", "from_reference", "dbeta_spectrum",
-                                  "solve_comb_batch", "run_comb_simulation"])
+                                  "solve_comb_batch", "run_comb_simulation",
+                                  "solve_gnlse_batch", "run_gnlse_simulation",
+                                  "solve_gnlse_batch_trajectories"])
 def test_entry_point_runs_on_the_cpu_when_asked(no_card, name):
     assert ENTRY_POINTS[name](device="cpu") is not None
 
@@ -98,3 +108,24 @@ def test_resolver(no_card):
 def test_resolver_picks_the_card_when_there_is_one(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert resolve_device(None) == torch.device("cuda")
+
+
+def test_from_reference_carries_the_gnlse_parameters():
+    """A JAX ``TimeGrid``, ``GNLSECoeffs`` (spectral alpha) and ``NLTerms``
+    arrive as equal float64 values; the grid stays a host container."""
+    jgrid = J.TimeGrid.for_pulse(1e-12, n_samples=128)
+    om = jgrid.omega()
+    jc = J.make_gnlse_coeffs(jgrid, J.DispersionParams.from_betas(1.2e15, beta2=-2e-26),
+                             gamma_W_m=2e-3, alpha_1_m=5e-5,
+                             alpha_spec_1_m=1e-4 * (om / om.max()) ** 2)
+    jnl = J.make_nl_terms(jgrid, f_raman=0.18, omega0=1.2e15)
+    grid = interop.from_reference(jgrid, device="cpu")
+    assert isinstance(grid, T.TimeGrid) and grid == T.TimeGrid(128, jgrid.t_window_s)
+    for obj, cls in ((jc, T.GNLSECoeffs), (jnl, T.NLTerms)):
+        got = interop.from_reference(obj, device="cpu")
+        assert isinstance(got, cls)
+        for f in ("gamma", "alpha", "lin_phase") if cls is T.GNLSECoeffs else (
+                "f_r", "inv_w0", "omega", "hr_re", "hr_im"):
+            v = getattr(got, f)
+            assert v.dtype == torch.float64
+            assert np.array_equal(v.numpy(), np.asarray(getattr(obj, f)))

@@ -340,3 +340,139 @@ def test_solve_comb_batch_auto_runs_the_kernels(card):
         assert _build.LAUNCHES == {name: 1}
         bar = 1e-4 if precision == "x32" else 1e-9
         assert np.max(np.abs(A - A2).max(-1) / np.abs(A2).max(-1)) <= bar
+
+
+# ---------------------------------------------------------------------------
+# K6 and K8: the split-step kernels, csrc/gnlse_ssfm.cu and csrc/ssfm_rk45.cu
+# ---------------------------------------------------------------------------
+
+from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.models import gnlse as tg  # noqa: E402
+from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_gnlse as cg  # noqa: E402
+from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_ssfm_adaptive as csa  # noqa: E402
+
+SSFM_TOL = {torch.float64: 1e-11, torch.float32: 1e-4}
+NL_CASES = {"kerr": None, "raman_steep": (0.18, 1.2e15), "raman": (0.18, None),
+            "steep": (0.0, 1.2e15)}
+
+
+def _pulse_inputs(B, n, rdt, device, bad=None, bad_scale=None):
+    """bench_gnlse.py's sech envelopes (0.5-1.5 x the soliton power) at
+    width n.  Envelope ``bad`` has a gain so large that its first chunk
+    overflows (it freezes at its input) or, with
+    ``bad_scale``, starts that many times too strong: its Kerr phase makes
+    the adaptive controller reject down to dt_min at once (a runaway gain
+    would crawl on accepted ever-smaller steps until max_steps)."""
+    grid = tg.TimeGrid.for_pulse(1e-12, n_samples=n)
+    co = tg.make_gnlse_coeffs(grid, T.DispersionParams.from_betas(1.2e15, beta2=-2e-26),
+                              gamma_W_m=2e-3)
+    P0 = tg.soliton_peak_power(-2e-26, 2e-3, 1e-12)
+    A0 = np.sqrt(np.linspace(0.5, 1.5, B) * P0)[:, None] / np.cosh(grid.t()[None, :] / 1e-12)
+    a = np.full(B, 5e-5)
+    if bad is not None and bad_scale is not None:
+        A0[bad] *= bad_scale
+    elif bad is not None:
+        a[bad] = -4e6
+    cdt = torch.complex128 if rdt == torch.float64 else torch.complex64
+    return grid, (torch.as_tensor(A0, device=device).to(cdt),
+                  torch.full((B,), 2e-3, dtype=rdt, device=device),
+                  torch.as_tensor(a, device=device).to(rdt), co.lin_phase.to(device, rdt))
+
+
+@pytest.mark.parametrize("rdt", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("case", sorted(NL_CASES))
+@pytest.mark.parametrize("n,n_steps", [(128, 12), (384, 14), (1024, 14), (2048, 13)])
+def test_gnlse_kernel_matches_plain_version(card, rdt, case, n, n_steps):
+    """Every width class (r = 1 and r = 3 groups, the widest block), with a
+    blown-up envelope and, for 13 and 14 steps at save_every=4, a trailing
+    partial chunk."""
+    grid, t = _pulse_inputs(9, n, rdt, card, bad=4)
+    nl = NL_CASES[case]
+    nl = None if nl is None else tg._cast_nl(tg.make_nl_terms(grid, f_raman=nl[0], omega0=nl[1]),
+                                             rdt, card)
+    kw = dict(dz_m=0.02, n_steps=n_steps, save_every=4, nl=nl)
+    name = f"gnlse_ssfm_{'f64' if rdt == torch.float64 else 'f32'}"
+    launches = _build.LAUNCHES[name]
+    rk = cg.solve_gnlse_batch_cuda(*t, **kw)
+    rp = cg.solve_gnlse_batch_torch(*t, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[name] == launches + 1
+    assert torch.equal(rk.ok, rp.ok) and not bool(rk.ok[4]) and int(rk.ok.sum()) == 8
+    assert torch.isfinite(rk.A_end).all()
+    assert torch.equal(rk.A_end[4], t[0][4]) and torch.equal(rp.A_end[4], t[0][4])
+    good = rk.ok
+    assert _normwise(rk.A_end[good], rp.A_end[good]) <= SSFM_TOL[rdt]
+    torch.testing.assert_close(rk.peak_max[good], rp.peak_max[good], rtol=SSFM_TOL[rdt], atol=0)
+
+
+def test_gnlse_kernel_shared_memory_matches_the_sources(card):
+    lib, lib45 = _build.load_library("gnlse_ssfm"), _build.load_library("ssfm_rk45")
+    for n in (128, 1024, 2048):
+        for rdt in (torch.float64, torch.float32):
+            elem = rdt.itemsize
+            assert lib.gnlse_ssfm_shared_bytes(n, elem, 0) == cg.shared_bytes("gnlse_ssfm", n, rdt)
+            assert lib.gnlse_ssfm_shared_bytes(n, elem, 1) == \
+                cg.shared_bytes("gnlse_ssfm", n, rdt, True)
+            assert lib45.ssfm_rk45_shared_bytes(n, elem) == cg.shared_bytes("ssfm_rk45", n, rdt)
+    # the widest fp64 nl block fits a Hopper block's opt-in limit
+    assert cg.width_problem("gnlse_ssfm", 2048, torch.float64, card, nl=True) is None
+
+
+@pytest.mark.parametrize("rdt", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("n,n_steps", [(128, 40), (384, 43), (1024, 42), (2048, 41)])
+def test_ssfm_rk45_kernel_matches_plain_version(card, rdt, n, n_steps):
+    """fp64: the same steps on (nearly) every envelope and results within
+    1e-9 there; fp32: the transforms' rounding moves the float32 error
+    estimate, so the steps may differ and the results are held to 1e-4."""
+    rtol, atol = (1e-9, 1e-12) if rdt == torch.float64 else (1e-5, 1e-9)
+    _grid, t = _pulse_inputs(9, n, rdt, card, bad=4, bad_scale=1e12)
+    kw = dict(dz_m=0.05, n_steps=n_steps, save_every=10, rtol=rtol, atol=atol, max_steps=5000)
+    name = f"ssfm_rk45_{'f64' if rdt == torch.float64 else 'f32'}"
+    launches = _build.LAUNCHES[name]
+    rk = csa.solve_gnlse_batch_rk45_cuda(*t, **kw)
+    rp = csa.solve_gnlse_batch_rk45_torch(*t, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[name] == launches + 1
+    assert torch.equal(rk.ok, rp.ok) and not bool(rk.ok[4]) and int(rk.ok.sum()) == 8
+    assert torch.isfinite(rk.A_end).all() and bool((rk.n_accepted[rk.ok] > 0).all())
+    good = rk.ok
+    if rdt == torch.float64:
+        same = good & (rk.n_accepted == rp.n_accepted) & (rk.n_rejected == rp.n_rejected)
+        assert int(same.sum()) >= 7
+        assert _normwise(rk.A_end[same], rp.A_end[same]) <= 1e-9
+    assert _normwise(rk.A_end[good], rp.A_end[good]) <= (1e-7 if rdt == torch.float64 else 1e-4)
+
+
+def test_ssfm_rk45_kernel_max_steps_exhaustion(card):
+    """An envelope that cannot finish a segment within max_steps attempts
+    fails, in the kernel as in the plain version."""
+    _grid, t = _pulse_inputs(4, 256, torch.float64, card)
+    kw = dict(dz_m=0.05, n_steps=20, save_every=10, rtol=1e-9, atol=1e-12, max_steps=1)
+    rk = csa.solve_gnlse_batch_rk45_cuda(*t, **kw)
+    rp = csa.solve_gnlse_batch_rk45_torch(*t, **kw)
+    assert not bool(rk.ok.any()) and torch.equal(rk.ok, rp.ok)
+    assert torch.equal(rk.n_accepted, rp.n_accepted)
+
+
+def test_solve_gnlse_batch_auto_runs_the_kernels(card):
+    grid, t = _pulse_inputs(8, 256, torch.float64, card)
+    co = tg.GNLSECoeffs(gamma=2e-3, alpha=5e-5, lin_phase=t[3].cpu().numpy())
+    A0 = t[0].cpu().numpy()
+    nl = tg.make_nl_terms(grid, f_raman=0.18, omega0=1.2e15)
+    for integrator, precision, use_nl, name in (("rk4", "df32", False, "gnlse_ssfm_f64"),
+                                                ("rk4", "x32", True, "gnlse_ssfm_f32"),
+                                                ("rk45", "x64", False, "ssfm_rk45_f64"),
+                                                ("rk4ip", "x64", False, None),
+                                                ("rk45", "x64", True, None)):
+        cfg = T.custom_simulation_config(z_max=0.5, dz=0.05, save_every=3, integrator=integrator,
+                                         precision=precision, rtol=1e-9, atol=1e-12)
+        kw = dict(nl=nl if use_nl else None)
+        _build.LAUNCHES.clear()
+        pk, A, ok = tg.solve_gnlse_batch(cfg, co, A0, **kw)
+        assert _build.LAUNCHES == ({name: 1} if name else {}) and ok.all()
+        pk2, A2, ok2 = tg.solve_gnlse_batch(cfg, co, A0, engine="torch", device=card, **kw)
+        assert _build.LAUNCHES == ({name: 1} if name else {})
+        bar = 1e-4 if precision == "x32" else (1e-7 if integrator == "rk45" else 1e-11)
+        assert np.max(np.abs(A - A2).max(-1) / np.abs(A2).max(-1)) <= bar
+        if name is None:
+            with pytest.raises(ValueError):
+                tg.solve_gnlse_batch(cfg, co, A0, engine="cuda", **kw)
