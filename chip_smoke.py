@@ -89,16 +89,47 @@ Phases (any failure raises, and the script exits non-zero):
     x32 5e-4 on the core); one ``run_gnlse_simulation`` on the card against
     the CPU, and one ``engine='auto'`` rk4ip call, which runs plain torch;
 18. GNLSE times (median of 5 warm reps) of the kernels and of
-    ``solve_gnlse_batch`` end to end, and of the same Strang integration
-    through ``torch.fft`` (cuFFT), K6's library call; the plain versions
+    ``solve_gnlse_batch`` end to end, and of the same integrations through
+    ``torch.fft`` (cuFFT), K6's and K8's library calls; the plain versions
     once each, in phases 15 and 16.  The bounds count the flop of the
-    kernels' sources, transforms included.
+    kernels' sources, transforms included;
+19. LLE kernel K7 (the affine instantiation of ``csrc/gnlse_ssfm.cu``) vs
+    its plain version on the card at the ``bench_lle.py`` configuration
+    (4,096 soliton-ansatz cavities of 256 samples, Delta in [3.6, 4.4],
+    F = 2, d2 = -1, 2,000 steps of 0.01, ``save_every=200``) with one
+    cavity whose |psi|^2 overflows the type (x 1e160 in fp64, 1e25 in
+    fp32), a complex-pump run and a run of 2,005 steps: fp64 within 1e-11
+    of each cavity's largest amplitude; fp32 against the fp64 plain version
+    within 3e-4 (the peak 1e-4), printed beside the fp32 plain version's
+    own error and the plain version with F 0.1% off; equal ``ok``, the bad
+    cavity frozen at its input;
+20. LLE kernel K8 (the affine instantiation of ``csrc/ssfm_rk45.cu``) vs
+    its plain version on the first 512 cavities, one of them overflowing,
+    fp64 at rtol 1e-8/atol 1e-11 and fp32 at 1e-5/1e-8, 2,000 steps and,
+    in fp32, 2,005: fp64 step counters equal on >= 99% of cavities and results
+    within 1e-9 there; fp32 equal ``ok`` and results within 5e-4 of the
+    fp64 plain version at the same tolerance, beside the fp32 plain
+    version's own error and the plain version with F 0.1% off;
+21. the LLE main path: ``lle.solve_lle_batch`` at ``df32`` (``device`` left
+    out), ``x32``, rk45 ``x64`` and rk45 ``x32``, and ``lle.detuning_scan``
+    over 4,096 points, one K7 or K8 launch each, every cavity ``ok``; an
+    8-cavity subset against the plain fp64 version on the CPU in relative
+    power (``bench_lle.py:277-284``; bars 1e-9, 1e-4, 1e-7, 5e-4; the rk45
+    reference is the plain fp64 rk4ip45 at rtol 1e-10, see PERF.md);
+    ``run_lle_ramp`` and ``run_lle_simulation`` on the card against the
+    CPU, and one ``engine='auto'`` rk4ip45 call, which runs plain torch;
+22. LLE times (median of 5 warm reps) of the kernels, ``solve_lle_batch``
+    end to end (instance-steps/s, cavities/s), ``detuning_scan``
+    (points/s) and the same Strang integration through ``torch.fft``, K7's
+    library call; K8's is its plain version's run in phase 20.
 
 Each main path is driven with the launch counts cleared just before it and
 read just after.  The line before the last is a JSON object describing each
 kernel; the last line is ``{"ok": true, "device": {...}}``.
 """
 
+import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -179,6 +210,18 @@ def comb_attempt_flop(n, L, dense=False):
 GN_T, GN_B, GN_B45, GN_STEPS, GN_SAVE, GN_Z = 1024, 2048, 512, 1000, 100, 10.0
 GN_T0, GN_BETA2, GN_GAMMA, GN_OMEGA0, GN_ALPHA = 1e-12, -2e-26, 2e-3, 1.2e15, 5e-5
 GN_TOL = {torch.float64: (1e-9, 1e-12), torch.float32: (1e-5, 1e-9)}
+
+# The LLE configuration of bench_lle.py:38-47, 108-121, 180-200, 246-258:
+# T = 256 samples over a window of 20, 4,096 cavities at Delta in
+# [3.6, 4.4], F = 2, d2 = -1, soliton-ansatz seeds, 2,000 Strang steps of
+# dt = 0.01, save_every=200; rk45 on the first 512 at rtol 1e-8/atol 1e-11
+# (x64) and 1e-5/1e-8 (x32); the detuning scan over 4,096 points of
+# [0.5, 4.5] from noisy CW seeds.
+LLE_T, LLE_B, LLE_B45, LLE_STEPS, LLE_SAVE, LLE_DT = 256, 4096, 512, 2000, 200, 0.01
+LLE_PUMP, LLE_D2, LLE_WINDOW = 2.0, -1.0, 20.0
+LLE_TOL = {torch.float64: (1e-8, 1e-11), torch.float32: (1e-5, 1e-8)}
+# a seed whose |psi|^2 overflows the type in the first Kerr substep
+LLE_BAD = {torch.float64: 1e160, torch.float32: 1e25}
 
 
 def fft_flop(n, inverse=False):
@@ -717,10 +760,9 @@ def check_spectrum(res, precision):
     return ok_frac
 
 
-def gnlse_phases(psa, _build, cg, csa, dev, card, t_start, bound, rec):
+def gnlse_phases(psa, _build, cg, csa, dev, card, t_start, rec):
     """Phases 15-18, the GNLSE path; ``rec`` holds the records the kernels
-    line is made of and ``bound`` sets a kernel's bound in them.  Returns
-    the library calls' times."""
+    line is made of."""
     max_err, plain_ms, steps, launches = (rec[k] for k in ("max_err", "plain_ms", "steps",
                                                            "launches"))
     ms, bound_ms, bound_by, bytes_of = (rec[k] for k in ("ms", "bound_ms", "bound_by",
@@ -816,7 +858,7 @@ def gnlse_phases(psa, _build, cg, csa, dev, card, t_start, bound, rec):
     # --- 18. GNLSE times -----------------------------------------------------------
     gn_kw = dict(dz_m=GN_Z / GN_STEPS, n_steps=GN_STEPS, save_every=GN_SAVE)
     n_saves = GN_STEPS // GN_SAVE
-    gn_flop, library_ms = {}, {}
+    gn_flop, library_ms = {}, rec["library_ms"]
 
     def gn_bound(name, t_ops, nbytes):
         t_bytes = 1e3 * nbytes / PEAK_BYTES
@@ -868,6 +910,8 @@ def gnlse_phases(psa, _build, cg, csa, dev, card, t_start, bound, rec):
         gn_bound(name, ops_ms(gn_flop[name], rdt),
                  GN_B45 * (2 * GN_T * item * 2 + 3 * item + 9) + (item + 16) * GN_T)
         steps[name + "_timed"] = (float(attempts.mean()), int(attempts.max()))
+        # the same rk45 integration through torch.fft (cuFFT) on the card
+        library_ms[name] = 1e3 * timed(lambda: csa.solve_gnlse_batch_rk45_torch(*t, **kw45))
     gn_e2e = {}
     for precision, integ, nl, name, _c, _t in gn_paths:
         B = GN_B45 if integ == "rk45" else GN_B
@@ -895,12 +939,377 @@ def gnlse_phases(psa, _build, cg, csa, dev, card, t_start, bound, rec):
         log(f"  {name} {GN_B45} envelopes: {ms[name]:.3f} ms; bound {bound_ms[name]:.3f} ms "
             f"({bound_by[name]}; {gn_flop[name]:.4g} flop, {bytes_of[name]} bytes; the kernel at "
             f"{100 * bound_ms[name] / ms[name]:.2f}% of it); attempted steps per envelope mean "
-            f"{mean:.1f}, max {mx}; plain version on the card (one run, phase 16) "
+            f"{mean:.1f}, max {mx}; torch.fft rk45 integration (cuFFT, the library call) "
+            f"{library_ms[name]:.3f} ms; plain version on the card (one run, phase 16) "
             f"{plain_ms[name]:.1f} ms")
     for label, (B, sec) in gn_e2e.items():
         log(f"  solve_gnlse_batch end to end, {label}, {B} envelopes: {sec * 1e3:.3f} ms = "
             f"{B / sec:.1f} envelopes/s")
-    return library_ms
+
+
+def lle_setup(psa, precision, B=None):
+    """Host ``(psi0 (B, T), coeffs)`` of the bench configuration: the first
+    B (default all) of its 4,096 detunings at ``precision``, soliton-ansatz
+    seeds."""
+    B = LLE_B if B is None else B
+    ll = psa.lle
+    grid = ll.TimeGrid(n_samples=LLE_T, t_window_s=LLE_WINDOW)
+    dets = np.linspace(3.6, 4.4, LLE_B)[:B]
+    co = ll.make_lle_coeffs(grid, detuning=dets, pump=LLE_PUMP, d2=LLE_D2, precision=precision)
+    return lle_seeds(psa)[:B].copy(), co
+
+
+@functools.lru_cache(maxsize=1)
+def lle_seeds(psa):
+    """The bench's 4,096 soliton-ansatz seeds, made once."""
+    grid = psa.lle.TimeGrid(n_samples=LLE_T, t_window_s=LLE_WINDOW)
+    return np.stack([psa.lle.soliton_ansatz(grid, d, LLE_PUMP, LLE_D2)
+                     for d in np.linspace(3.6, 4.4, LLE_B)])
+
+
+def lle_lanes(psa, rdt, dev, B=None, pump_phase=0.0, bad=False):
+    """Kernel inputs ``(psi0, detuning, pump, lin_phase)`` on the card; the
+    pump turned by ``pump_phase``; with ``bad``, cavity B//2 starts
+    LLE_BAD[rdt] times too strong."""
+    B = LLE_B if B is None else B
+    psi0, co = lle_setup(psa, "x64", B)
+    if bad:
+        psi0[B // 2] *= LLE_BAD[rdt]
+    det, F, ph = psa.lle.lane_coeffs(co, B, LLE_T, rdt, dev)
+    cdt = torch.complex128 if rdt == torch.float64 else torch.complex64
+    return (torch.as_tensor(psi0, device=dev).to(cdt), det,
+            (F * complex(np.exp(1j * pump_phase))).contiguous(), ph)
+
+
+def power_error(A, A_ref):
+    """bench_lle.py:277-284: max |P - P_ref| / max P_ref over the subset."""
+    P, P_ref = np.abs(A) ** 2, np.abs(A_ref) ** 2
+    return float(np.max(np.abs(P - P_ref)) / np.max(P_ref))
+
+
+def check_lle_kernel(psa, cl, dev, max_err, plain_ms):
+    """Phase 19: K7 against its plain version at the bench size with a bad
+    cavity; the plain version's 2,000-step fp64 and fp32 runs are its
+    times.  fp32 is held against the fp64 plain version of the same case
+    (the kernel transforms in double, cuFFT in float32)."""
+    B, bad = LLE_B, LLE_B // 2
+    kw = dict(dt=LLE_DT, save_every=LLE_SAVE)
+    ref64 = {}
+    for rdt, n_steps, phase in ((torch.float64, LLE_STEPS, 0.0),
+                                (torch.float64, LLE_STEPS + 5, 0.0),
+                                (torch.float64, LLE_STEPS, 0.3), (torch.float32, LLE_STEPS, 0.0),
+                                (torch.float32, LLE_STEPS, 0.3)):
+        t = lle_lanes(psa, rdt, dev, pump_phase=phase, bad=True)
+        rk = cl.solve_lle_batch_cuda(*t, n_steps=n_steps, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rp = cl.solve_lle_batch_torch(*t, n_steps=n_steps, **kw)
+        torch.cuda.synchronize()
+        key = f"lle_ssfm_{suffix(rdt)}"
+        if key not in plain_ms:
+            plain_ms[key] = 1e3 * (time.perf_counter() - t0)
+        label = (f"lle kernel vs plain {str(rdt)[6:]} B={B} n_steps={n_steps}"
+                 f"{' complex pump' if phase else ''}")
+        if not torch.equal(rk.ok, rp.ok):
+            raise AssertionError(f"{label}: ok flags differ")
+        if bool(rk.ok[bad]) or int(rk.ok.sum()) != B - 1:
+            raise AssertionError(f"{label}: expected exactly cavity {bad} to fail")
+        if not (bool(torch.isfinite(rk.A_end).all()) and torch.equal(rk.A_end[bad], t[0][bad])):
+            raise AssertionError(f"{label}: the failed cavity is not frozen at its input")
+        good = rk.ok
+        err_A = normwise(rk.A_end[good], rp.A_end[good])
+        err_pk = float(rel_err(rk.peak_max[good], rp.peak_max[good]).max())
+        max_err[key] = max(max_err.get(key, 0.0), float((rk.A_end[good] - rp.A_end[good])
+                                                        .abs().max()))
+        if rdt == torch.float64:
+            if n_steps == LLE_STEPS:
+                ref64[phase] = rp
+            log(f"{label}: A_end max normwise err {err_A:.3e}, peak max rel err {err_pk:.3e} "
+                "(bar 1e-11); bad cavity frozen at its input")
+            if not (err_A <= 1e-11 and err_pk <= 1e-11):
+                raise AssertionError(f"{label}: {err_A:.3e} / {err_pk:.3e} > 1e-11")
+            continue
+        # fp32: against the fp64 plain version; the bars (PERF.md section 6,
+        # PR 5) are a tenth of what a 0.1% error in F reads in A_end and
+        # about a seventh of it in the peak
+        ref = ref64[phase]
+        up = (lambda r: (r.A_end[good].to(torch.complex128), r.peak_max[good].double()))
+        (kA, kp), (pA, pp) = up(rk), up(rp)
+        ek_A, ek_pk = normwise(kA, ref.A_end[good]), float(rel_err(kp, ref.peak_max[good]).max())
+        ep_A, ep_pk = normwise(pA, ref.A_end[good]), float(rel_err(pp, ref.peak_max[good]).max())
+        t64 = lle_lanes(psa, torch.float64, dev, pump_phase=phase, bad=True)
+        off = cl.solve_lle_batch_torch(t64[0], t64[1], t64[2] * (1 + 1e-3), t64[3],
+                                       n_steps=n_steps, **kw)
+        log(f"{label}: kernel vs plain fp64 A_end {ek_A:.3e} (bar 3e-4), peak {ek_pk:.3e} "
+            f"(bar 1e-4); plain fp32 (cuFFT) vs plain fp64 A_end {ep_A:.3e}, peak {ep_pk:.3e}; "
+            f"plain fp64 with F 0.1% off A_end {normwise(off.A_end[good], ref.A_end[good]):.3e}, "
+            f"peak {float(rel_err(off.peak_max[good], ref.peak_max[good]).max()):.3e}; "
+            f"kernel vs plain fp32 A_end {err_A:.3e}; bad cavity frozen")
+        if not (ek_A <= 3e-4 and ek_pk <= 1e-4):
+            raise AssertionError(f"{label}: {ek_A:.3e} / {ek_pk:.3e} against fp64 over the bars")
+
+
+def check_lle_rk45_kernel(psa, csa, dev, max_err, plain_ms, steps):
+    """Phase 20: K8's LLE route against its plain version on the rk45
+    lane's 512 cavities, one of them overflowing (rejected to dt_min within
+    a few dozen attempts); the first run of each dtype is the plain
+    version's time.  The trailing span runs in fp32 only: an fp64 plain run
+    takes ~75 s (one loop iteration an attempt, ~30,000 attempts)."""
+    B, bad = LLE_B45, LLE_B45 // 2
+    ref64 = None
+    for rdt, n_steps in ((torch.float64, LLE_STEPS), (torch.float32, LLE_STEPS),
+                         (torch.float32, LLE_STEPS + 5)):
+        rtol, atol = LLE_TOL[rdt]
+        t = lle_lanes(psa, rdt, dev, B=B, bad=True)
+        kw = dict(dt=LLE_DT, n_steps=n_steps, save_every=LLE_SAVE, rtol=rtol, atol=atol,
+                  max_steps=200_000)
+        rk = csa.solve_lle_batch_rk45_cuda(*t, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rp = csa.solve_lle_batch_rk45_torch(*t, **kw)
+        torch.cuda.synchronize()
+        key = f"ssfm_rk45_lle_{suffix(rdt)}"
+        label = f"lle rk45 kernel vs plain {str(rdt)[6:]} B={B} n_steps={n_steps}"
+        if key not in plain_ms:
+            plain_ms[key] = 1e3 * (time.perf_counter() - t0)
+            attempts = (rk.n_accepted + rk.n_rejected)[rk.ok].double()
+            steps[key] = (float(attempts.mean()), int(attempts.max()))
+        if not torch.equal(rk.ok, rp.ok):
+            raise AssertionError(f"{label}: ok flags differ")
+        if bool(rk.ok[bad]) or int(rk.ok.sum()) != B - 1:
+            raise AssertionError(f"{label}: expected exactly cavity {bad} to fail")
+        if not bool(torch.isfinite(rk.A_end).all()):
+            raise AssertionError(f"{label}: non-finite kernel output")
+        good = rk.ok
+        same = good & (rk.n_accepted == rp.n_accepted) & (rk.n_rejected == rp.n_rejected)
+        share = float(same.double().sum() / good.double().sum())
+        err_all = normwise(rk.A_end[good], rp.A_end[good])
+        err_same = normwise(rk.A_end[same], rp.A_end[same]) if bool(same.any()) else 0.0
+        err_pk = float(rel_err(rk.peak_max[good], rp.peak_max[good]).max())
+        max_err[key] = max(max_err.get(key, 0.0), float((rk.A_end[good] - rp.A_end[good])
+                                                        .abs().max()))
+        log(f"{label}: A_end max normwise err {err_all:.3e} (all cavities), {err_same:.3e} "
+            f"(equal counters), peak {err_pk:.3e}; counters equal on {share:.4f}; the bad "
+            f"cavity rejected {int(rk.n_rejected[bad])} times")
+        if rdt == torch.float64:
+            for val, bar, where, at_least in ((share, 0.99, "share of equal counters", True),
+                                              (err_same, 1e-9, "equal counters", False)):
+                if not (val >= bar if at_least else val <= bar):
+                    raise AssertionError(f"{label}: {val:.3e} against {bar:g} on {where}")
+            continue
+        # fp32: against the fp64 plain version at the same tolerance, beside
+        # the fp32 plain version's own error and F 0.1% off (PERF.md, PR 5);
+        # the trailing span leaves the saved state as it is, so one fp64
+        # reference serves both runs
+        if ref64 is None:
+            t64 = lle_lanes(psa, torch.float64, dev, B=B, bad=True)
+            ref64 = csa.solve_lle_batch_rk45_torch(*t64, **kw)
+            off = csa.solve_lle_batch_rk45_torch(t64[0], t64[1], t64[2] * (1 + 1e-3), t64[3],
+                                                 **kw)
+            g2 = good & off.ok
+            off_err = normwise(off.A_end[g2], ref64.A_end[g2])
+        up = (lambda r: (r.A_end[good].to(torch.complex128), r.peak_max[good].double()))
+        (kA, kp), (pA, _pp) = up(rk), up(rp)
+        ek_A = normwise(kA, ref64.A_end[good])
+        ek_pk = float(rel_err(kp, ref64.peak_max[good]).max())
+        log(f"{label}: kernel vs plain fp64 (rtol {rtol:g}) A_end {ek_A:.3e}, peak {ek_pk:.3e} "
+            f"(bars 5e-4); plain fp32 (cuFFT) vs plain fp64 A_end "
+            f"{normwise(pA, ref64.A_end[good]):.3e}; plain fp64 with F 0.1% off A_end "
+            f"{off_err:.3e}")
+        if not (ek_A <= 5e-4 and ek_pk <= 5e-4):
+            raise AssertionError(f"{label}: {ek_A:.3e} / {ek_pk:.3e} against fp64 over 5e-4")
+
+
+def lle_phases(psa, _build, cl, csa, dev, card, t_start, rec):
+    """Phases 19-22, the LLE path; ``rec`` holds the records the kernels
+    line is made of."""
+    max_err, plain_ms, steps, launches = (rec[k] for k in ("max_err", "plain_ms", "steps",
+                                                           "launches"))
+    ms, library_ms = rec["ms"], rec["library_ms"]
+    # --- 19. LLE kernel K7 vs plain version ----------------------------------------
+    check_lle_kernel(psa, cl, dev, max_err, plain_ms)
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 19 done")
+
+    # --- 20. LLE kernel K8 vs plain version ----------------------------------------
+    check_lle_rk45_kernel(psa, csa, dev, max_err, plain_ms, steps)
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 20 done")
+
+    # --- 21. the LLE main path -----------------------------------------------------
+    ll = psa.lle
+    lle_paths = (("df32", "rk4", "lle_ssfm_f64", 1e-9), ("x32", "rk4", "lle_ssfm_f32", 1e-4),
+                 ("x64", "rk45", "ssfm_rk45_lle_f64", 1e-7),
+                 ("x32", "rk45", "ssfm_rk45_lle_f32", 5e-4))
+
+    def lle_cfg(precision, integrator, tol=None, z_max=LLE_STEPS * LLE_DT):
+        r, a = tol or LLE_TOL[torch.float32 if precision == "x32" else torch.float64]
+        return psa.custom_simulation_config(z_max=z_max, dz=LLE_DT, save_every=LLE_SAVE,
+                                            precision=precision, integrator=integrator,
+                                            rtol=r, atol=a)
+
+    lle_refs = {}
+    for precision, integ, name, bar in lle_paths:
+        B = LLE_B45 if integ == "rk45" else LLE_B
+        sub = np.linspace(0, B - 1, 8).astype(int)
+        psi0, co = lle_setup(psa, precision, B)
+        # the first call leaves the device out: the card is the default
+        dev_kw = {} if precision == "df32" else {"device": "cuda"}
+        t0 = time.perf_counter()
+        (pk, A, ok), counts = run_main_path(psa, _build, name, lambda: ll.solve_lle_batch(
+            lle_cfg(precision, integ), co, psi0, engine="auto", **dev_kw))
+        sec = time.perf_counter() - t0
+        if counts != {name: 1}:
+            raise AssertionError(f"lle {precision} {integ}: launches {counts}, not one {name}")
+        launches[name] = launches.get(name, 0) + counts[name]
+        if A.shape != (B, LLE_T) or not ok.all() or not np.isfinite(A).all():
+            raise AssertionError(f"lle {precision} {integ}: shape {A.shape}, ok {ok.mean()}")
+        if integ not in lle_refs:
+            psi_r, co_r = lle_setup(psa, "x64", B)
+            co_r = dataclasses.replace(co_r, detuning=co_r.detuning[sub])
+            # rk45: the fp64 rk4ip45 at rtol 1e-10 (4th order; a rtol 1e-11
+            # rk45 run would take ~320,000 attempts; PERF.md section 6, PR 5)
+            ref_cfg = (lle_cfg("x64", "rk4ip45", tol=(1e-10, 1e-13)) if integ == "rk45"
+                       else lle_cfg("x64", "rk4"))
+            t1 = time.perf_counter()
+            lle_refs[integ] = ll.solve_lle_batch(ref_cfg, co_r, psi_r[sub], engine="torch",
+                                                 device="cpu")[1]
+            log(f"plain fp64 {'rk4ip45 at rtol 1e-10' if integ == 'rk45' else 'Strang'} "
+                f"reference on the CPU, 8 cavities: {time.perf_counter() - t1:.1f} s")
+        err = power_error(A[sub], lle_refs[integ])
+        log(f"main path lle {integ} {precision}: {B} cavities of {LLE_T} samples, launches "
+            f"{counts}, ok 1.0, {sec * 1e3:.1f} ms (first call); 8-cavity subset vs plain fp64 "
+            f"(CPU): max rel power err {err:.3e} (bar {bar:g})")
+        if not err <= bar:
+            raise AssertionError(f"lle {precision} {integ} subset error {err:.3e} > {bar:g}")
+
+    scan_kw = dict(detunings=np.linspace(0.5, 4.5, LLE_B), pump=LLE_PUMP, d2=LLE_D2)
+    grid = ll.TimeGrid(n_samples=LLE_T, t_window_s=LLE_WINDOW)
+    (det, mean_p, pk, psi_last, ok), counts = run_main_path(
+        psa, _build, "lle_ssfm_f64", lambda: ll.detuning_scan(lle_cfg("x64", "rk4"), grid,
+                                                              device="cuda", **scan_kw))
+    launches["lle_ssfm_f64"] += counts["lle_ssfm_f64"]
+    lower = np.array([ll.cw_steady_states(d, LLE_PUMP)[0] for d in det])
+    # MI rolls and chaos form in about half the band (a 64-point scan on
+    # the CPU: 56% of points peak above twice the lower CW branch; the
+    # stable CW points read 1.01)
+    structured = float(np.mean(pk > 2.0 * lower))
+    log(f"detuning_scan x64 over {LLE_B} points of [0.5, 4.5]: launches {counts}, ok "
+        f"{ok.mean():.4f}, share of points whose peak is above twice the lower CW branch "
+        f"{structured:.3f} (bar 0.25)")
+    if counts != {"lle_ssfm_f64": 1} or not (ok.all() and np.isfinite(psi_last).all()
+                                             and psi_last.shape == (LLE_B, LLE_T)
+                                             and structured >= 0.25):
+        raise AssertionError(f"detuning_scan: launches {counts}, ok {ok.mean()}, "
+                             f"structured {structured}")
+
+    # the ramp and the single run: plain torch, a soliton held on the card
+    psi1, co1 = lle_setup(psa, "x64", 1)
+    ramp_kw = dict(detuning_start=3.6, detuning_end=4.4)
+    t0 = time.perf_counter()
+    tr, dr, Pr = ll.run_lle_ramp(lle_cfg("x64", "rk4"), co1, psi1[0], device="cuda", **ramp_kw)
+    sec = time.perf_counter() - t0
+    _tc, _dc, Pc = ll.run_lle_ramp(lle_cfg("x64", "rk4"), co1, psi1[0], device="cpu", **ramp_kw)
+    err_r = float(np.max(np.abs(Pr - Pc)) / np.max(np.abs(Pc)))
+    tz, Az = ll.run_lle_simulation(lle_cfg("x64", "rk4"), co1, psi1[0], device="cuda")
+    _tz, Azc = ll.run_lle_simulation(lle_cfg("x64", "rk4"), co1, psi1[0], device="cpu")
+    err_s = float(np.max(np.abs(Az - Azc)) / np.max(np.abs(Azc)))
+    log(f"run_lle_ramp on the card (2,000 steps, Delta 3.6 -> 4.4, plain torch): {Pr.shape[0]} "
+        f"rows in {sec:.1f} s, vs the CPU {err_r:.3e}; run_lle_simulation vs the CPU "
+        f"{err_s:.3e} of the largest amplitude (bars 1e-11)")
+    if not (Pr.shape == (LLE_STEPS // LLE_SAVE + 1, LLE_T) and err_r <= 1e-11
+            and err_s <= 1e-11 and np.isclose(dr[-1], 4.4)):
+        raise AssertionError(f"ramp / single run: {err_r:.3e} / {err_s:.3e}")
+    psi_ip, co_ip = lle_setup(psa, "x64", 64)
+    _build.LAUNCHES.clear()
+    _pk, A_ip, ok_ip = ll.solve_lle_batch(lle_cfg("x64", "rk4ip45", z_max=200 * LLE_DT), co_ip,
+                                          psi_ip, device="cuda")
+    torch.cuda.synchronize()
+    log(f"solve_lle_batch rk4ip45 (engine='auto', 64 cavities, 200 steps): launches "
+        f"{dict(_build.LAUNCHES)} (plain torch, as the JAX package's 'auto'), ok {ok_ip.mean()}")
+    if _build.LAUNCHES or not ok_ip.all():
+        raise AssertionError(f"rk4ip45 auto: launches {dict(_build.LAUNCHES)}, ok {ok_ip.mean()}")
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 21 done")
+
+    # --- 22. LLE times -------------------------------------------------------------
+    bound_ms, bound_by, bytes_of = (rec[k] for k in ("bound_ms", "bound_by", "bytes_of"))
+    n_saves = LLE_STEPS // LLE_SAVE
+    lle_flop = {}
+
+    def lle_bound(name, rdt, flop, nbytes):
+        t_ops, t_bytes = ops_ms(flop, rdt), 1e3 * nbytes / PEAK_BYTES
+        lle_flop[name] = flop
+        bound_ms[name] = max(t_ops, t_bytes)
+        bound_by[name] = "operations" if t_ops >= t_bytes else "bytes"
+        bytes_of[name] = nbytes
+
+    pair = fft_flop(LLE_T) + fft_flop(LLE_T, True)
+    kw = dict(dt=LLE_DT, n_steps=LLE_STEPS, save_every=LLE_SAVE)
+    for rdt in (torch.float64, torch.float32):
+        name, item = f"lle_ssfm_{suffix(rdt)}", rdt.itemsize
+        t = lle_lanes(psa, rdt, dev)
+        ms[name] = 1e3 * timed(lambda: cl.solve_lle_batch_cuda(*t, **kw))
+        # a step: a transform pair with the factor product (6 a sample) and
+        # the affine write (8), the Kerr rotation (13); a chunk of k steps
+        # makes k + 1 linear substeps, each save the finite check and the
+        # peak; inputs: psi0, the two factor rows, the (B, 4) affine
+        # scalars, the twiddles; outputs: the peak, psi_last, ok
+        lle_bound(name, rdt, LLE_B * (LLE_STEPS * (pair + 27 * LLE_T)
+                                      + n_saves * (pair + 14 * LLE_T + 12 * LLE_T)),
+                  LLE_B * (4 * LLE_T * item + 9 * item + 1) + (4 * item + 16) * LLE_T)
+        # the same Strang integration through torch.fft (cuFFT) on the card
+        library_ms[name] = 1e3 * timed(lambda: cl.solve_lle_batch_torch(*t, **kw))
+    for rdt in (torch.float64, torch.float32):
+        name, item = f"ssfm_rk45_lle_{suffix(rdt)}", rdt.itemsize
+        rtol, atol = LLE_TOL[rdt]
+        t = lle_lanes(psa, rdt, dev, B=LLE_B45)
+        kw45 = dict(kw, rtol=rtol, atol=atol, max_steps=200_000)
+        r = csa.solve_lle_batch_rk45_cuda(*t, **kw45)
+        attempts = (r.n_accepted + r.n_rejected).double()
+        ms[name] = 1e3 * timed(lambda: csa.solve_lle_batch_rk45_cuda(*t, **kw45))
+        # this run's attempts: K8's attempt and five affine writes (8 a
+        # sample); inputs add Delta and F, outputs the counters
+        tr, pw = ssfm_attempt_flop(LLE_T)
+        n_att = float(attempts.sum())
+        lle_bound(name, rdt, n_att * (tr + pw + 40 * LLE_T) + LLE_B45 * n_saves * 6 * LLE_T,
+                  LLE_B45 * (4 * LLE_T * item + 4 * item + 9) + (item + 16) * LLE_T)
+        steps[name + "_timed"] = (float(attempts.mean()), int(attempts.max()))
+        # the library call, the same rk45 integration through torch.fft, is
+        # the plain version itself: its phase-20 run (an fp64 run takes
+        # ~75 s, so it is not repeated)
+        library_ms[name] = plain_ms[name]
+    lle_e2e = {}
+    for precision, integ, _name, _bar in lle_paths:
+        B = LLE_B45 if integ == "rk45" else LLE_B
+        psi0, co = lle_setup(psa, precision, B)
+        cfg = lle_cfg(precision, integ)
+        lle_e2e[f"{integ} {precision}"] = (B, integ, timed(
+            lambda: ll.solve_lle_batch(cfg, co, psi0, device="cuda")))
+    scan_s = timed(lambda: ll.detuning_scan(lle_cfg("x64", "rk4"), grid, device="cuda",
+                                            **scan_kw))
+    log(f"LLE times on {card} (median of {REPS} warm reps, host clock with synchronize; bound: "
+        f"the least flop at FP64 {PEAK_FLOPS[torch.float64] / 1e12:g} / FP32 "
+        f"{PEAK_FLOPS[torch.float32] / 1e12:g} TFLOP/s; {PEAK_BYTES / 1e12:g} TB/s):")
+    for name in ("lle_ssfm_f64", "lle_ssfm_f32"):
+        log(f"  {name} {LLE_B} cavities x {LLE_STEPS} steps: {ms[name]:.3f} ms = "
+            f"{LLE_B * LLE_STEPS / ms[name] * 1e3:.1f} instance-steps/s; bound "
+            f"{bound_ms[name]:.3f} ms ({bound_by[name]}; {lle_flop[name]:.4g} flop, "
+            f"{bytes_of[name]} bytes; the kernel at {100 * bound_ms[name] / ms[name]:.2f}% of "
+            f"it); torch.fft Strang integration (cuFFT, the library call) "
+            f"{library_ms[name]:.3f} ms; plain version on the card (one run, phase 19) "
+            f"{plain_ms[name]:.1f} ms")
+    for name in ("ssfm_rk45_lle_f64", "ssfm_rk45_lle_f32"):
+        mean, mx = steps[name + "_timed"]
+        log(f"  {name} {LLE_B45} cavities: {ms[name]:.3f} ms = "
+            f"{LLE_B45 / ms[name] * 1e3:.1f} cavities/s; bound {bound_ms[name]:.3f} ms "
+            f"({bound_by[name]}; {lle_flop[name]:.4g} flop, {bytes_of[name]} bytes; the kernel at "
+            f"{100 * bound_ms[name] / ms[name]:.2f}% of it); attempted steps per cavity mean "
+            f"{mean:.1f}, max {mx}; plain version on the card, the torch.fft rk45 integration "
+            f"and the library call (one run, phase 20) {plain_ms[name]:.1f} ms")
+    for label, (B, integ, sec) in lle_e2e.items():
+        rate = (f"{B * LLE_STEPS / sec:.1f} instance-steps/s" if integ == "rk4"
+                else f"{B / sec:.1f} cavities/s")
+        log(f"  solve_lle_batch end to end, {label}, {B} cavities: {sec * 1e3:.3f} ms = {rate}")
+    log(f"  detuning_scan end to end, x64, {LLE_B} points (seeds made on the host): "
+        f"{scan_s * 1e3:.3f} ms = {LLE_B / scan_s:.1f} points/s")
 
 
 def main():
@@ -914,6 +1323,7 @@ def main():
     from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_comb as cc
     from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_comb_adaptive as cca
     from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_gnlse as cg
+    from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_lle as cl
     from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_solver as cs
     from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_ssfm_adaptive as csa
 
@@ -1258,11 +1668,15 @@ def main():
                     + COMB_B * (comb_rhs_flop(COMB_N, L, dense) + n_saves * 3 * COMB_N),
                     COMB_B * ((6 * COMB_N + 2) * rdt.itemsize + 9) + 2 * L * rdt.itemsize)
         steps[name + "_timed"] = (attempts / COMB_B, int((r.n_accepted + r.n_rejected).max()))
-    comb_e2e = {}
+    comb_e2e, library_ms = {}, {}
     for precision, integ, name, _bar in comb_paths:
         cfg = comb_cfg(psa, precision, integ)
         comb_e2e[f"{integ} {precision}"] = timed(lambda: nw.solve_comb_batch(
             cfg, coc, A0c, device="cuda"))
+        # the library call: the same integration through torch.fft (the
+        # 'fft' coupling's cuFFT transforms), plain torch on the card
+        library_ms[name] = 1e3 * timed(lambda: nw.solve_comb_batch(
+            cfg, coc, A0c, coupling="fft", engine="torch", device="cuda"))
     log(f"comb times on {card} (median of {REPS} warm reps, host clock with synchronize; "
         f"bound: FFT count at FP64 {PEAK_FLOPS[torch.float64] / 1e12:g} / FP32 "
         f"{PEAK_FLOPS[torch.float32] / 1e12:g} TFLOP/s; dense bound: dense-DFT count at "
@@ -1278,21 +1692,24 @@ def main():
             f"the kernel at {100 * bound_ms[name] / ms[name]:.2f}% of it); dense bound "
             f"{dense_ms[name]:.3f} ms ({comb_flop[name][1]:.4g} flop; the kernel at "
             f"{100 * dense_ms[name] / ms[name]:.2f}%)"
-            f"{extra}; plain version on the card "
+            f"{extra}; solve_comb_batch with the fft coupling in plain torch (the library call) "
+            f"{library_ms[name]:.3f} ms; plain version on the card "
             f"(one run, phase 11/12) {plain_ms[name]:.1f} ms")
     for label, sec in comb_e2e.items():
         log(f"  solve_comb_batch end to end, {label}, {COMB_B} combs: {sec * 1e3:.3f} ms = "
             f"{COMB_B / sec:.1f} combs/s")
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 14 done")
 
-    library_ms = gnlse_phases(psa, _build, cg, csa, dev, card, t_start, bound, dict(
-        max_err=max_err, plain_ms=plain_ms, steps=steps, launches=launches, ms=ms,
-        bound_ms=bound_ms, bound_by=bound_by, bytes_of=bytes_of))
+    rec = dict(max_err=max_err, plain_ms=plain_ms, steps=steps, launches=launches, ms=ms,
+               bound_ms=bound_ms, bound_by=bound_by, bytes_of=bytes_of, library_ms=library_ms)
+    gnlse_phases(psa, _build, cg, csa, dev, card, t_start, rec)
+    lle_phases(psa, _build, cl, csa, dev, card, t_start, rec)
     log(f"[{time.perf_counter() - t_start:.0f} s] all phases done")
 
     sources = {"fwm4_rk": f"{PKG}/csrc/fwm4_rk.cu", "fwm4_rk45": f"{PKG}/csrc/fwm4_rk45.cu",
                "comb_rk": f"{PKG}/csrc/comb_rk.cu", "comb_rk45": f"{PKG}/csrc/comb_rk45.cu",
-               "gnlse_ssfm": f"{PKG}/csrc/gnlse_ssfm.cu", "ssfm_rk45": f"{PKG}/csrc/ssfm_rk45.cu"}
+               "gnlse_ssfm": f"{PKG}/csrc/gnlse_ssfm.cu", "ssfm_rk45": f"{PKG}/csrc/ssfm_rk45.cu",
+               "lle_ssfm": f"{PKG}/csrc/gnlse_ssfm.cu", "ssfm_rk45_lle": f"{PKG}/csrc/ssfm_rk45.cu"}
     replaces = {
         "fwm4_rk_f64": f"{JAX_PKG}/ops/pallas_df32.py:442",
         "fwm4_rk_f32": f"{JAX_PKG}/ops/pallas_solver.py:300",
@@ -1306,6 +1723,10 @@ def main():
         "gnlse_ssfm_f32": f"{JAX_PKG}/ops/pallas_gnlse.py:360",
         "ssfm_rk45_f64": f"{JAX_PKG}/ops/pallas_ssfm_adaptive.py:101",
         "ssfm_rk45_f32": f"{JAX_PKG}/ops/pallas_ssfm_adaptive.py:101",
+        "lle_ssfm_f64": f"{JAX_PKG}/ops/pallas_lle.py:47",
+        "lle_ssfm_f32": f"{JAX_PKG}/ops/pallas_lle.py:47",
+        "ssfm_rk45_lle_f64": f"{JAX_PKG}/ops/pallas_ssfm_adaptive.py:101",
+        "ssfm_rk45_lle_f32": f"{JAX_PKG}/ops/pallas_ssfm_adaptive.py:101",
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name.rsplit("_", 1)[0]],
@@ -1314,7 +1735,8 @@ def main():
          "bound_by": bound_by[name], "library_ms": library_ms.get(name)}
         for name in ("fwm4_rk_f64", "fwm4_rk_f32", "fwm4_rk45_f64", "fwm4_rk45_f32",
                      "comb_rk_f64", "comb_rk_f32", "comb_rk45_f64", "comb_rk45_f32",
-                     "gnlse_ssfm_f64", "gnlse_ssfm_f32", "ssfm_rk45_f64", "ssfm_rk45_f32")
+                     "gnlse_ssfm_f64", "gnlse_ssfm_f32", "ssfm_rk45_f64", "ssfm_rk45_f32",
+                     "lle_ssfm_f64", "lle_ssfm_f32", "ssfm_rk45_lle_f64", "ssfm_rk45_lle_f32")
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

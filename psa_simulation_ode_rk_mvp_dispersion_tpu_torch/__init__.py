@@ -8,14 +8,16 @@ path: parameter math, the RHS, the fixed-step (rk4/ab4/abm4) and adaptive
 (rk45) integrators, the single-run runner, the sweeps (gain spectrum,
 mismatch scan, PSA phase sweep, power x wavelength gain map, batched
 trajectories), result persistence (``io_fwm``), the N-wave comb
-(``models/nwave``) and the GNLSE pulse model (``models/gnlse``).  The
-rotating-frame sweeps and the batched comb and pulse solves run on a CUDA
-device through hand-written kernels: ``csrc/fwm4_rk.cu``
+(``models/nwave``), the GNLSE pulse model (``models/gnlse``) and the
+Lugiato-Lefever cavity (``models/lle``).  The rotating-frame sweeps and the
+batched comb, pulse and cavity solves run on a CUDA device through
+hand-written kernels: ``csrc/fwm4_rk.cu``
 (``ops/cuda_solver.py``), ``csrc/fwm4_rk45.cu`` (``ops/cuda_adaptive.py``),
 ``csrc/comb_rk.cu`` (``ops/cuda_comb.py``), ``csrc/comb_rk45.cu``
 (``ops/cuda_comb_adaptive.py``), ``csrc/gnlse_ssfm.cu``
-(``ops/cuda_gnlse.py``) and ``csrc/ssfm_rk45.cu``
-(``ops/cuda_ssfm_adaptive.py``).
+(``ops/cuda_gnlse.py``; its affine instantiation for the LLE,
+``ops/cuda_lle.py``) and ``csrc/ssfm_rk45.cu``
+(``ops/cuda_ssfm_adaptive.py``, GNLSE and LLE routes).
 
 Precision tiers: ``x64`` and ``df32`` run in float64/complex128, ``x32`` in
 float32/complex64.  Public entry points take ``device=``; ``None`` means the
@@ -40,6 +42,7 @@ from .ops import (
     cuda_comb,
     cuda_comb_adaptive,
     cuda_gnlse,
+    cuda_lle,
     cuda_solver,
     cuda_ssfm_adaptive,
     dispersion,
@@ -101,7 +104,19 @@ from .ops.rhs import (
     rhs_yaman_simplified,
     rotating_to_lab,
 )
-from .models import fwm4, gnlse, nwave
+from .models import fwm4, gnlse, lle, nwave
+from .models.lle import (
+    LLECoeffs,
+    LLENormalization,
+    cw_steady_states,
+    detuning_scan,
+    make_lle_coeffs,
+    normalize_ring_cavity,
+    run_lle_ramp,
+    run_lle_simulation,
+    soliton_ansatz,
+    solve_lle_batch,
+)
 from .models.gnlse import (
     GNLSECoeffs,
     NLTerms,

@@ -4,8 +4,9 @@
 //
 // Replaces the JAX package's TPU kernel
 //   ops/pallas_gnlse.py::_kernel_body   (K6, the fused GNLSE SSFM kernel)
-// with one template, gnlse_ssfm_kernel<T>, T in {double, float}: float64
-// serves x64/df32, float32 serves x32.
+// and its affine build driven by ops/pallas_lle.py (K7, the LLE cavity)
+// with one template, gnlse_ssfm_kernel<T, Affine>, T in {double, float}:
+// float64 serves x64/df32, float32 serves x32; Affine false is K6, true K7.
 //
 // What it computes (the contract of models/gnlse.gnlse_fixed with method
 // 'strang', which ops/cuda_gnlse.solve_gnlse_batch_torch runs, and of
@@ -21,6 +22,14 @@
 //       N = i gamma (W - (i/omega_0) IDFT(i omega DFT(W))),
 //     where the Raman transforms drop out when f_R = 0 and the steepening
 //     ones when 1/omega_0 = 0;
+//   - Affine (K7, the contract of models/lle.lle_fixed with method
+//     'strang', which ops/cuda_lle.solve_lle_batch_torch runs): gamma = 1,
+//     no nonlinear terms, L = exp((-1 + i phi_d) s), and each linear
+//     substep ends with the affine write y <- y dp + dF, the detuning
+//     rotation dp = exp(-i Delta s) and the drive offset
+//     dF = F (e^{Lam0 s} - 1)/Lam0, Lam0 = -(1 + i Delta), of the cavity
+//     for s = dz/2 (with Lh) or dz (with Lf), which the wrapper builds in
+//     float64; a separate pointwise pass over shared memory;
 //   - ok starts as "y0 is finite"; after each chunk a non-finite state
 //     clears ok and the envelope keeps its last good state (which it then
 //     keeps for good: the rest of the run cannot change its outputs, so the
@@ -46,7 +55,8 @@
 // Global layout (row-major, one row per envelope, complex as (re, im)):
 //   y0 (B, n); lh, lf (n,) with fac_stride 0 or (B, n) with fac_stride n;
 //   gamma (B,); tw (n,) = (cos, sin)(2 pi k / n) in float64; hrc (n,) = conj(H_R);
-//   omega (n,); outputs peak (B,), y_last (B, n), ok (B,) uint8.
+//   omega (n,); Affine: aff (B, 4) complex = (dp_h, dF_h, dp_f, dF_f), gamma,
+//   hrc and omega unread; outputs peak (B,), y_last (B, n), ok (B,) uint8.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (ops/_build.py); bound with ctypes through the
@@ -68,7 +78,7 @@ constexpr int kNlBuffers = 7;
 constexpr int kReduceSlots = 32;
 
 // One envelope's integration: its buffers, factors and coefficients.
-template <typename T>
+template <typename T, bool Affine>
 struct Stepper {
     Block<T> c;
     Cx<T>*y, *x;                 // the state and its transform partner
@@ -78,15 +88,17 @@ struct Stepper {
     const T* omega;
     T g, h, one_m_fr, fr, inv_w0;
     bool use_nl, raman, steep;
+    Cx<T> dp_h, dF_h, dp_f, dF_f;  // Affine only
 
-    // y <- IDFT(L * DFT(y)).
-    __device__ void lin(const Cx<T>* L) {
+    // y <- IDFT(L * DFT(y)), then, Affine, y <- y dp + dF.
+    __device__ void lin(const Cx<T>* L, const Cx<T>& dp, const Cx<T>& dF) {
         Cx<T>* f = dft<T, false>(c, y, x);
         Cx<T>* o = f == y ? x : y;
         ssfm::mul_factor(c, f, L);
         Cx<T>* r = dft<T, true>(c, f, o);
         x = r == f ? o : f;
         y = r;
+        if constexpr (Affine) ssfm::affine(c, y, dp, dF);
     }
 
     // dst = N(src) (models/gnlse._nl_rhs); p and the block's q are scratch.
@@ -162,27 +174,28 @@ struct Stepper {
 
     // k fused symmetric steps: Lh, (NL, Lf)^(k-1), NL, Lh.
     __device__ void steps(int kk) {
-        lin(lh);
+        lin(lh, dp_h, dF_h);
         for (int i = 1; i < kk; ++i) {
             nl();
-            lin(lf);
+            lin(lf, dp_f, dF_f);
         }
         nl();
-        lin(lh);
+        lin(lh, dp_h, dF_h);
     }
 };
 
-template <typename T>
+template <typename T, bool Affine>
 __global__ void __launch_bounds__(ssfm::kMaxThreads)
 gnlse_ssfm_kernel(const Cx<T>* __restrict__ y0, const Cx<T>* __restrict__ lh,
                   const Cx<T>* __restrict__ lf, int fac_stride, const T* __restrict__ gamma,
-                  const Cx<double>* __restrict__ tw, const Cx<T>* __restrict__ hrc,
-                  const T* __restrict__ omega, T* __restrict__ pk_out,
-                  Cx<T>* __restrict__ y_last, uint8_t* __restrict__ ok_out, int n, int n_steps,
-                  int save_every, int use_nl, double dz, double f_r, double inv_w0) {
+                  const Cx<T>* __restrict__ aff, const Cx<double>* __restrict__ tw,
+                  const Cx<T>* __restrict__ hrc, const T* __restrict__ omega,
+                  T* __restrict__ pk_out, Cx<T>* __restrict__ y_last,
+                  uint8_t* __restrict__ ok_out, int n, int n_steps, int save_every, int use_nl,
+                  double dz, double f_r, double inv_w0) {
     extern __shared__ __align__(16) unsigned char smem[];
     const int b = blockIdx.x;
-    Stepper<T> st;
+    Stepper<T, Affine> st;
     st.c.tw = tw;
     st.c.red = reinterpret_cast<T*>(smem);
     st.c.n = n;
@@ -202,7 +215,16 @@ gnlse_ssfm_kernel(const Cx<T>* __restrict__ y0, const Cx<T>* __restrict__ lh,
     st.lf = lf + static_cast<size_t>(b) * fac_stride;
     st.hrc = hrc;
     st.omega = omega;
-    st.g = gamma[b];
+    if constexpr (Affine) {
+        st.g = T(1);
+        const Cx<T>* a = aff + 4 * static_cast<size_t>(b);
+        st.dp_h = a[0];
+        st.dF_h = a[1];
+        st.dp_f = a[2];
+        st.dF_f = a[3];
+    } else {
+        st.g = gamma[b];
+    }
     st.h = T(dz);
     st.fr = T(f_r);
     st.one_m_fr = T(1) - st.fr;
@@ -247,22 +269,24 @@ size_t shared_bytes(int n, size_t elem, int use_nl) {
     return elem * (kReduceSlots + 2 * buffers * static_cast<size_t>(n));
 }
 
-template <typename T>
+template <typename T, bool Affine>
 int launch(const void* y0, const void* lh, const void* lf, int fac_stride, const void* gamma,
-           const void* tw, const void* hrc, const void* omega, void* pk, void* y_last, void* ok,
-           int B, int n, int n_steps, int save_every, int use_nl, double dz, double f_r,
-           double inv_w0, void* stream) {
+           const void* aff, const void* tw, const void* hrc, const void* omega, void* pk,
+           void* y_last, void* ok, int B, int n, int n_steps, int save_every, int use_nl,
+           double dz, double f_r, double inv_w0, void* stream) {
     const size_t smem = shared_bytes(n, sizeof(T), use_nl);
-    cudaError_t err = cudaFuncSetAttribute(gnlse_ssfm_kernel<T>,
+    cudaError_t err = cudaFuncSetAttribute(gnlse_ssfm_kernel<T, Affine>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    gnlse_ssfm_kernel<T><<<B, ssfm::threads_for(n), smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const Cx<T>*>(y0), static_cast<const Cx<T>*>(lh),
-        static_cast<const Cx<T>*>(lf), fac_stride, static_cast<const T*>(gamma),
-        static_cast<const Cx<double>*>(tw), static_cast<const Cx<T>*>(hrc),
-        static_cast<const T*>(omega), static_cast<T*>(pk), static_cast<Cx<T>*>(y_last),
-        static_cast<uint8_t*>(ok), n, n_steps, save_every, use_nl, dz, f_r, inv_w0);
+    gnlse_ssfm_kernel<T, Affine>
+        <<<B, ssfm::threads_for(n), smem, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const Cx<T>*>(y0), static_cast<const Cx<T>*>(lh),
+            static_cast<const Cx<T>*>(lf), fac_stride, static_cast<const T*>(gamma),
+            static_cast<const Cx<T>*>(aff), static_cast<const Cx<double>*>(tw),
+            static_cast<const Cx<T>*>(hrc), static_cast<const T*>(omega), static_cast<T*>(pk),
+            static_cast<Cx<T>*>(y_last), static_cast<uint8_t*>(ok), n, n_steps, save_every,
+            use_nl, dz, f_r, inv_w0);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -279,9 +303,22 @@ extern "C" int gnlse_ssfm_shared_bytes(int n, int elem, int use_nl) {
                         void* pk, void* y_last, void* ok, int B, int n, int n_steps,             \
                         int save_every, int use_nl, double dz, double f_r, double inv_w0,        \
                         void* stream) {                                                          \
-        return launch<T>(y0, lh, lf, fac_stride, gamma, tw, hrc, omega, pk, y_last, ok, B, n,   \
-                         n_steps, save_every, use_nl, dz, f_r, inv_w0, stream);                 \
+        return launch<T, false>(y0, lh, lf, fac_stride, gamma, nullptr, tw, hrc, omega, pk,     \
+                                y_last, ok, B, n, n_steps, save_every, use_nl, dz, f_r, inv_w0, \
+                                stream);                                                        \
     }
 
 GNLSE_SSFM_LAUNCHER(gnlse_ssfm_f64, double)
 GNLSE_SSFM_LAUNCHER(gnlse_ssfm_f32, float)
+
+// The LLE (K7): the affine instantiation, Kerr only, unit gamma.
+#define LLE_SSFM_LAUNCHER(NAME, T)                                                               \
+    extern "C" int NAME(const void* y0, const void* lh, const void* lf, int fac_stride,          \
+                        const void* aff, const void* tw, void* pk, void* y_last, void* ok,       \
+                        int B, int n, int n_steps, int save_every, double dt, void* stream) {    \
+        return launch<T, true>(y0, lh, lf, fac_stride, nullptr, aff, tw, nullptr, nullptr, pk,  \
+                               y_last, ok, B, n, n_steps, save_every, 0, dt, 0.0, 0.0, stream); \
+    }
+
+LLE_SSFM_LAUNCHER(lle_ssfm_f64, double)
+LLE_SSFM_LAUNCHER(lle_ssfm_f32, float)

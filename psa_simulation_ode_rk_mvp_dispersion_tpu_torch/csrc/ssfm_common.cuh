@@ -1,5 +1,5 @@
 // Building blocks shared by the split-step Fourier (SSFM) kernels
-// csrc/gnlse_ssfm.cu (K6) and csrc/ssfm_rk45.cu (K8): one thread block holds
+// csrc/gnlse_ssfm.cu (K6, K7) and csrc/ssfm_rk45.cu (K8): one thread block holds
 // one envelope of n complex samples in shared memory and transforms it with
 // its own FFT.
 //
@@ -135,6 +135,17 @@ __device__ void mul_factor(const Block<T>& c, Cx<T>* a, const Cx<T>* f) {
     for (int k = c.tid; k < c.n; k += c.nt) {
         const Cx<T> x = a[k], w = f[k];
         a[k] = Cx<T>{w.re * x.re - w.im * x.im, w.re * x.im + w.im * x.re};
+    }
+}
+
+// a[k] <- a[k] dp + dF for the block (the LLE's affine write after an
+// inverse transform: detuning rotation and drive offset), in the plain
+// version's order, the complex product and then the sum.
+template <typename T>
+__device__ void affine(const Block<T>& c, Cx<T>* a, const Cx<T>& dp, const Cx<T>& dF) {
+    for (int k = c.tid; k < c.n; k += c.nt) {
+        const Cx<T> x = a[k];
+        a[k] = Cx<T>{(x.re * dp.re - x.im * dp.im) + dF.re, (x.re * dp.im + x.im * dp.re) + dF.im};
     }
 }
 

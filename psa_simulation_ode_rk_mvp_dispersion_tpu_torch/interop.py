@@ -3,7 +3,8 @@
 :func:`from_reference` turns the JAX package's ``SimulationConfig``,
 ``RHSCoeffs``, ``DispersionParams``, ``SymmetricPlan``,
 ``PhaseMatchingConfig``, ``ModelParams`` (with its parts), ``NWaveCoeffs``,
-``CombGrid``, ``TimeGrid``, ``GNLSECoeffs`` and ``NLTerms`` into their
+``CombGrid``, ``TimeGrid``, ``GNLSECoeffs``, ``NLTerms``, ``LLECoeffs`` and
+``LLENormalization`` into their
 counterparts here, reading every field by name through ``dataclasses.fields``
 and every array leaf through ``np.asarray``.  It never imports JAX: it only
 reads the objects it is given, so both packages can compute from
@@ -19,7 +20,7 @@ import numpy as np
 import torch
 
 from .config import SimulationConfig
-from .models import fwm4, gnlse, nwave
+from .models import fwm4, gnlse, lle, nwave
 from .ops.dispersion import DispersionParams
 from .ops.frequency_plan import SymmetricPlan
 from .ops.phase_matching import PhaseMatchingConfig, PhaseMatchingMethod
@@ -35,11 +36,11 @@ _CLASSES = {
         PhaseMatchingConfig, fwm4.WavesParams, fwm4.FiberParams,
         fwm4.SimulationGrid, fwm4.PhaseMatchingParams, fwm4.CacheParams,
         fwm4.ModelParams, nwave.NWaveCoeffs, nwave.CombGrid, gnlse.TimeGrid,
-        gnlse.GNLSECoeffs, gnlse.NLTerms,
+        gnlse.GNLSECoeffs, gnlse.NLTerms, lle.LLECoeffs, lle.LLENormalization,
     )
 }
 _TENSOR_CLASSES = (RHSCoeffs, DispersionParams, SymmetricPlan, nwave.NWaveCoeffs,
-                   gnlse.GNLSECoeffs, gnlse.NLTerms)
+                   gnlse.GNLSECoeffs, gnlse.NLTerms, lle.LLECoeffs)
 _ENUMS = {PhaseMatchingMethod.__name__: PhaseMatchingMethod}
 
 
@@ -60,9 +61,10 @@ def from_reference(obj, *, device=None, dtype: torch.dtype = torch.float64):
     """The counterpart of a JAX-package parameter object.
 
     Array leaves of ``RHSCoeffs``, ``DispersionParams``, ``SymmetricPlan``,
-    ``NWaveCoeffs``, ``GNLSECoeffs`` and ``NLTerms`` become ``dtype`` tensors
-    on ``device`` (``None``: the CUDA card); host containers (``CombGrid``
-    and ``TimeGrid`` among them) keep numpy copies and floats.
+    ``NWaveCoeffs``, ``GNLSECoeffs``, ``NLTerms`` and ``LLECoeffs`` become
+    ``dtype`` tensors on ``device`` (``None``: the CUDA card); host
+    containers (``CombGrid``, ``TimeGrid`` and ``LLENormalization`` among
+    them) keep numpy copies and floats.
     ``DispersionParams`` and ``SymmetricPlan`` are float64 by definition and
     ignore ``dtype``.
     """

@@ -442,6 +442,31 @@ def _scalar(v: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(float(v), dtype=like.real.dtype, device=like.device)
 
 
+def fixed_over_grid(y0, chunk, *, n_steps: int, save_every: int, keep_rows: bool = False):
+    """The save-grid contract of the fixed-step split-step solvers over a
+    ``(B, T)`` state, ``chunk(k, y)`` advancing k steps: returns ``(rows,
+    peak_max, y_last, ok)``, the saved states (row 0 and every chunk; only
+    with ``keep_rows``), the running max over saved samples of max_t
+    |y|^2, the state at the last saved grid point, and the per-lane flag.
+    The NaN freeze happens per chunk; the trailing ``n_steps % save_every``
+    steps are integrated and feed only ``ok``."""
+    if save_every < 1 or n_steps < 0:
+        raise ValueError("need n_steps >= 0 and save_every >= 1")
+    n_chunks, remainder = divmod(int(n_steps), int(save_every))
+    y, ok, pk = y0, _finite_mask(y0), _peak(y0)
+    rows = [y0] if keep_rows else None
+    for _ in range(n_chunks):
+        y_new = chunk(int(save_every), y)
+        ok = ok & _finite_mask(y_new)
+        y = torch.where(ok[:, None], y_new, y)
+        pk = torch.maximum(pk, _peak(y))
+        if keep_rows:
+            rows.append(y)
+    if remainder > 0:
+        ok = ok & _finite_mask(chunk(remainder, y))
+    return rows, pk, y, ok
+
+
 def gnlse_fixed(y0, gamma, alpha, lin_phase, *, dz_m: float, n_steps: int, save_every: int,
                 nl: Optional[NLTerms] = None, method: str = "strang",
                 keep_rows: bool = False):
@@ -450,31 +475,14 @@ def gnlse_fixed(y0, gamma, alpha, lin_phase, *, dz_m: float, n_steps: int, save_
 
     ``gamma`` is ``(B,)``, ``alpha`` ``(B,)`` or ``(B, T)``, ``lin_phase``
     ``(T,)`` or ``(B, T)``, all of ``y0``'s real dtype on its device.
-    Returns ``(rows, peak_max, y_last, ok)``: the saved states (row 0 and
-    every chunk; only with ``keep_rows``), the running max over saved
-    samples of max_t |A|^2, the state at the last saved grid point, and the
-    per-lane flag.  The NaN freeze happens per chunk; the trailing
-    ``n_steps % save_every`` steps are integrated and feed only ``ok``."""
-    if save_every < 1 or n_steps < 0:
-        raise ValueError("need n_steps >= 0 and save_every >= 1")
+    Returns :func:`fixed_over_grid`'s ``(rows, peak_max, y_last, ok)``."""
     h = _scalar(dz_m, y0)
     g = gamma[:, None]
     Lh = _lin_factor(alpha, lin_phase, 0.5 * h)
     Lf = _lin_factor(alpha, lin_phase, h)
     step = _STEPPERS[method]
-    n_chunks, remainder = divmod(int(n_steps), int(save_every))
-    y, ok, pk = y0, _finite_mask(y0), _peak(y0)
-    rows = [y0] if keep_rows else None
-    for _ in range(n_chunks):
-        y_new = step(save_every, y, Lh, Lf, g, h, nl)
-        ok = ok & _finite_mask(y_new)
-        y = torch.where(ok[:, None], y_new, y)
-        pk = torch.maximum(pk, _peak(y))
-        if keep_rows:
-            rows.append(y)
-    if remainder > 0:
-        ok = ok & _finite_mask(step(remainder, y, Lh, Lf, g, h, nl))
-    return rows, pk, y, ok
+    return fixed_over_grid(y0, lambda k, y: step(k, y, Lh, Lf, g, h, nl), n_steps=n_steps,
+                           save_every=save_every, keep_rows=keep_rows)
 
 
 # ---------------------------------------------------------------------------
@@ -609,25 +617,18 @@ def save_segments(dz_m: float, n_steps: int, save_every: int):
             int(n_steps) - n_chunks * int(save_every) > 0)
 
 
-def gnlse_adaptive(y0, gamma, alpha, lin_phase, *, dz_m: float, n_steps: int, save_every: int,
-                   rtol: float, atol: float, max_steps: int, nl: Optional[NLTerms] = None,
-                   method: str = "strang", keep_rows: bool = False):
-    """The adaptive batched SSFM over the save grid
-    (``_gnlse_adaptive_solver`` of the JAX package).
-
-    Inputs as :func:`gnlse_fixed`.  Returns ``(rows, peak_max, y_last, ok,
-    n_accepted, n_rejected)``.  Each saved segment ``[z_i, z_{i+1}]`` runs in
-    absolute z from ``dt0 = dz``, carried across segments; the trailing span
-    ``[z_S, n_steps dz]`` is integrated for ``ok`` and the counters only."""
+def adaptive_over_grid(y0, attempt, order: int, *, dz_m: float, n_steps: int, save_every: int,
+                       rtol: float, atol: float, max_steps: int, keep_rows: bool = False):
+    """The save-grid contract of the adaptive split-step solvers over a
+    ``(B, T)`` state, ``attempt(y, hb)`` returning the (coarse, fine) pair
+    of a step-doubling attempt of a method of ``order``.  Returns ``(rows,
+    peak_max, y_last, ok, n_accepted, n_rejected)``.  Each saved segment
+    ``[z_i, z_{i+1}]`` runs in absolute z from ``dt0 = dz``, carried across
+    segments; the trailing span ``[z_S, n_steps dz]`` is integrated for
+    ``ok`` and the counters only."""
     if save_every < 1 or n_steps < 0:
         raise ValueError("need n_steps >= 0 and save_every >= 1")
-    attempt_fn, order = _ADAPTIVE_ATTEMPTS[method]
-    g = gamma[:, None]
     B = y0.shape[0]
-
-    def attempt(y, hb):
-        return attempt_fn(y, alpha, lin_phase, g, hb, nl)
-
     n_chunks, seg, z_end_m, has_tail = save_segments(dz_m, n_steps, save_every)
     zg = [_scalar(i * seg, y0) for i in range(n_chunks + 1)]
     y, ok, pk = y0, _finite_mask(y0), _peak(y0)
@@ -649,6 +650,20 @@ def gnlse_adaptive(y0, gamma, alpha, lin_phase, *, dz_m: float, n_steps: int, sa
                                                  attempt, **kw)
         na, nr = na + a, nr + r
     return rows, pk, y, ok, na, nr
+
+
+def gnlse_adaptive(y0, gamma, alpha, lin_phase, *, dz_m: float, n_steps: int, save_every: int,
+                   rtol: float, atol: float, max_steps: int, nl: Optional[NLTerms] = None,
+                   method: str = "strang", keep_rows: bool = False):
+    """The adaptive batched SSFM over the save grid
+    (``_gnlse_adaptive_solver`` of the JAX package).  Inputs as
+    :func:`gnlse_fixed`; returns :func:`adaptive_over_grid`'s tuple."""
+    attempt_fn, order = _ADAPTIVE_ATTEMPTS[method]
+    g = gamma[:, None]
+    return adaptive_over_grid(
+        y0, lambda y, hb: attempt_fn(y, alpha, lin_phase, g, hb, nl), order, dz_m=dz_m,
+        n_steps=n_steps, save_every=save_every, rtol=rtol, atol=atol, max_steps=max_steps,
+        keep_rows=keep_rows)
 
 
 # ---------------------------------------------------------------------------

@@ -48,3 +48,15 @@ def dtypes_for(precision: str) -> Tuple[torch.dtype, torch.dtype]:
     """(real_dtype, complex_dtype) pair for a precision tier."""
     p = validate_precision(precision)
     return real_dtype(p), complex_dtype(p)
+
+
+def require_non_df32(precision: str, *, family: str) -> str:
+    """Validate a precision tier for a solver family that refuses ``df32``
+    in the JAX package (it has no two-float engine there); the port
+    refuses it alike, so that both packages take the same calls."""
+    p = validate_precision(precision)
+    if p == "df32":
+        raise ValueError(
+            f"precision='df32' is not implemented for the {family} solvers; use 'x64' "
+            "(float64) or 'x32' (float32)")
+    return p

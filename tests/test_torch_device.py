@@ -26,6 +26,9 @@ _COMB = T.NWaveCoeffs(gamma=0.01, alpha=0.0, beta_lin=np.zeros(5))
 _COMB_A0 = np.full((2, 5), 0.1, dtype=np.complex128)
 _PULSE = T.GNLSECoeffs(gamma=0.01, alpha=0.0, lin_phase=np.zeros(128))
 _PULSE_A0 = np.full((2, 128), 0.1, dtype=np.complex128)
+_CAVITY = T.LLECoeffs(detuning=1.0, pump_re=1.0, pump_im=0.0, lin_phase=np.zeros(128))
+_CAVITY_A0 = np.full((2, 128), 0.1, dtype=np.complex128)
+_LLE_GRID = T.TimeGrid(n_samples=128, t_window_s=20.0)
 
 ENTRY_POINTS = {
     "solve_batch": lambda **d: T.solve_batch(_CFG, _COEFFS, _A0, **d),
@@ -67,6 +70,17 @@ ENTRY_POINTS = {
     "run_gnlse_simulation": lambda **d: T.run_gnlse_simulation(_CFG, _PULSE, _PULSE_A0[0], **d),
     "solve_gnlse_batch_trajectories": lambda **d: T.gnlse.solve_gnlse_batch_trajectories(
         _CFG, _PULSE, _PULSE_A0, **d),
+    "solve_lle_batch": lambda **d: T.solve_lle_batch(_CFG, _CAVITY, _CAVITY_A0, **d),
+    "solve_lle_batch_rk45": lambda **d: T.solve_lle_batch(
+        T.custom_simulation_config(z_max=1.0, dz=0.1, integrator="rk45"), _CAVITY, _CAVITY_A0,
+        **d),
+    "run_lle_simulation": lambda **d: T.run_lle_simulation(_CFG, _CAVITY, _CAVITY_A0[0], **d),
+    "solve_lle_batch_trajectories": lambda **d: T.lle.solve_lle_batch_trajectories(
+        _CFG, _CAVITY, _CAVITY_A0, **d),
+    "run_lle_ramp": lambda **d: T.run_lle_ramp(_CFG, _CAVITY, _CAVITY_A0[0], detuning_start=0.0,
+                                               detuning_end=1.0, **d),
+    "detuning_scan": lambda **d: T.detuning_scan(_CFG, _LLE_GRID, detunings=[0.5, 1.0],
+                                                 pump=1.0, d2=-1.0, **d),
     "from_reference": lambda **d: interop.from_reference(
         J.RHSCoeffs(gamma=np.ones(2), alpha=np.zeros(2), delta_beta=np.zeros(2)), **d),
 }
@@ -93,7 +107,10 @@ def test_entry_point_without_device_raises_when_there_is_no_card(no_card, name):
                                   "run_adaptive_trajectory", "from_reference", "dbeta_spectrum",
                                   "solve_comb_batch", "run_comb_simulation",
                                   "solve_gnlse_batch", "run_gnlse_simulation",
-                                  "solve_gnlse_batch_trajectories"])
+                                  "solve_gnlse_batch_trajectories", "solve_lle_batch",
+                                  "solve_lle_batch_rk45", "run_lle_simulation",
+                                  "solve_lle_batch_trajectories", "run_lle_ramp",
+                                  "detuning_scan"])
 def test_entry_point_runs_on_the_cpu_when_asked(no_card, name):
     assert ENTRY_POINTS[name](device="cpu") is not None
 
@@ -129,3 +146,23 @@ def test_from_reference_carries_the_gnlse_parameters():
             v = getattr(got, f)
             assert v.dtype == torch.float64
             assert np.array_equal(v.numpy(), np.asarray(getattr(obj, f)))
+
+
+def test_from_reference_carries_the_lle_parameters():
+    """A JAX ``LLECoeffs`` (complex pump, per-cavity detuning) arrives as
+    equal float64 tensors, an ``LLENormalization`` as a host container of
+    floats."""
+    jc = J.make_lle_coeffs(J.lle.TimeGrid(n_samples=128, t_window_s=20.0),
+                           detuning=np.linspace(1.0, 4.0, 3), pump=2.0 * np.exp(0.3j), d2=-1.0)
+    got = interop.from_reference(jc, device="cpu")
+    assert isinstance(got, T.LLECoeffs)
+    for f in ("detuning", "pump_re", "pump_im", "lin_phase"):
+        v = getattr(got, f)
+        assert v.dtype == torch.float64 and np.array_equal(v.numpy(), np.asarray(getattr(jc, f)))
+    jn = J.normalize_ring_cavity(round_trip_length_m=100.0, t_roundtrip_s=5e-7, gamma_W_m=1.2e-3,
+                                 beta2_s2_m=-21e-27, alpha_half_loss=0.1, coupling_theta=0.08,
+                                 detuning_phase_rad=0.3, pump_power_W=1.5)
+    tn = interop.from_reference(jn, device="cpu")
+    assert isinstance(tn, T.LLENormalization) and tn == T.normalize_ring_cavity(
+        round_trip_length_m=100.0, t_roundtrip_s=5e-7, gamma_W_m=1.2e-3, beta2_s2_m=-21e-27,
+        alpha_half_loss=0.1, coupling_theta=0.08, detuning_phase_rad=0.3, pump_power_W=1.5)

@@ -476,3 +476,104 @@ def test_solve_gnlse_batch_auto_runs_the_kernels(card):
         if name is None:
             with pytest.raises(ValueError):
                 tg.solve_gnlse_batch(cfg, co, A0, engine="cuda", **kw)
+
+
+# ---------------------------------------------------------------------------
+# K7 and K8's LLE route: the affine instantiations of csrc/gnlse_ssfm.cu and
+# csrc/ssfm_rk45.cu
+# ---------------------------------------------------------------------------
+
+from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.models import lle as tl  # noqa: E402
+from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_lle as cl  # noqa: E402
+
+# a seed whose |psi|^2 overflows the type in the first Kerr substep
+LLE_BAD_SCALE = {torch.float64: 1e160, torch.float32: 1e25}
+
+
+def _cavity_inputs(B, n, rdt, device, bad=None, rows=False):
+    """bench_lle.py's soliton-ansatz cavities (Delta in [3.6, 4.4], F = 2,
+    d2 = -1) at width n, a complex pump at phase 0.3; cavity ``bad`` starts
+    LLE_BAD_SCALE times too strong; ``rows``: a per-cavity phase."""
+    grid = tl.TimeGrid(n_samples=n, t_window_s=20.0)
+    dets = np.linspace(3.6, 4.4, B)
+    co = tl.make_lle_coeffs(grid, detuning=dets, pump=2.0 * np.exp(0.3j), d2=-1.0)
+    psi0 = np.stack([tl.soliton_ansatz(grid, d, 2.0, -1.0) for d in dets])
+    if bad is not None:
+        psi0[bad] *= LLE_BAD_SCALE[rdt]
+    det, F, ph = tl.lane_coeffs(co, B, n, rdt, device)
+    if rows:
+        scale = torch.linspace(0.8, 1.2, B, dtype=rdt, device=device)
+        ph = (ph[None] * scale[:, None]).contiguous()
+    cdt = torch.complex128 if rdt == torch.float64 else torch.complex64
+    return torch.as_tensor(psi0, device=device).to(cdt), det, F, ph
+
+
+@pytest.mark.parametrize("rdt", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("rows", [False, True], ids=["shared_phase", "phase_rows"])
+@pytest.mark.parametrize("n,n_steps", [(128, 12), (256, 14), (384, 13), (2048, 14)])
+def test_lle_kernel_matches_plain_version(card, rdt, rows, n, n_steps):
+    """K7 at every width class, a bad cavity frozen at its input and, for 13
+    and 14 steps at save_every=4, a trailing partial chunk."""
+    t = _cavity_inputs(9, n, rdt, card, bad=4, rows=rows)
+    kw = dict(dt=0.01, n_steps=n_steps, save_every=4)
+    name = f"lle_ssfm_{'f64' if rdt == torch.float64 else 'f32'}"
+    launches = _build.LAUNCHES[name]
+    rk = cl.solve_lle_batch_cuda(*t, **kw)
+    rp = cl.solve_lle_batch_torch(*t, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[name] == launches + 1
+    assert torch.equal(rk.ok, rp.ok) and not bool(rk.ok[4]) and int(rk.ok.sum()) == 8
+    assert torch.equal(rk.A_end[4], t[0][4]) and torch.equal(rp.A_end[4], t[0][4])
+    good = rk.ok
+    assert _normwise(rk.A_end[good], rp.A_end[good]) <= SSFM_TOL[rdt]
+    torch.testing.assert_close(rk.peak_max[good], rp.peak_max[good], rtol=SSFM_TOL[rdt], atol=0)
+
+
+@pytest.mark.parametrize("rdt", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("n,n_steps", [(128, 20), (256, 23), (384, 21), (2048, 22)])
+def test_ssfm_rk45_lle_kernel_matches_plain_version(card, rdt, n, n_steps):
+    """K8's LLE route with a trailing span and a bad cavity, which the
+    controller rejects to dt_min (35 attempts): fp64 the same steps on
+    (nearly) every cavity and results within 1e-9 there; fp32 within 1e-4."""
+    rtol, atol = (1e-8, 1e-11) if rdt == torch.float64 else (1e-5, 1e-8)
+    t = _cavity_inputs(9, n, rdt, card, bad=4)
+    kw = dict(dt=0.01, n_steps=n_steps, save_every=10, rtol=rtol, atol=atol, max_steps=20_000)
+    name = f"ssfm_rk45_lle_{'f64' if rdt == torch.float64 else 'f32'}"
+    launches = _build.LAUNCHES[name]
+    rk = csa.solve_lle_batch_rk45_cuda(*t, **kw)
+    rp = csa.solve_lle_batch_rk45_torch(*t, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[name] == launches + 1
+    assert torch.equal(rk.ok, rp.ok) and not bool(rk.ok[4]) and int(rk.ok.sum()) == 8
+    assert int(rk.n_accepted[4]) == 0 and torch.isfinite(rk.A_end).all()
+    good = rk.ok
+    if rdt == torch.float64:
+        same = good & (rk.n_accepted == rp.n_accepted) & (rk.n_rejected == rp.n_rejected)
+        assert int(same.sum()) >= 7
+        assert _normwise(rk.A_end[same], rp.A_end[same]) <= 1e-9
+    assert _normwise(rk.A_end[good], rp.A_end[good]) <= (1e-7 if rdt == torch.float64 else 1e-4)
+
+
+def test_solve_lle_batch_auto_runs_the_kernels(card):
+    t = _cavity_inputs(8, 256, torch.float64, card)
+    co = tl.LLECoeffs(detuning=t[1].cpu(), pump_re=t[2].real.cpu(), pump_im=t[2].imag.cpu(),
+                      lin_phase=t[3].cpu())
+    psi0 = t[0].cpu().numpy()
+    for integrator, precision, name in (("rk4", "df32", "lle_ssfm_f64"),
+                                        ("rk4", "x32", "lle_ssfm_f32"),
+                                        ("rk45", "x64", "ssfm_rk45_lle_f64"),
+                                        ("rk45", "x32", "ssfm_rk45_lle_f32"),
+                                        ("rk4ip", "x64", None), ("rk4ip45", "x64", None)):
+        rtol, atol = (1e-5, 1e-8) if precision == "x32" else (1e-8, 1e-11)
+        cfg = T.custom_simulation_config(z_max=0.3, dz=0.01, save_every=7, integrator=integrator,
+                                         precision=precision, rtol=rtol, atol=atol)
+        _build.LAUNCHES.clear()
+        pk, A, ok = tl.solve_lle_batch(cfg, co, psi0)
+        assert _build.LAUNCHES == ({name: 1} if name else {}) and ok.all()
+        pk2, A2, ok2 = tl.solve_lle_batch(cfg, co, psi0, engine="torch", device=card)
+        assert _build.LAUNCHES == ({name: 1} if name else {})
+        bar = 1e-4 if precision == "x32" else (1e-7 if integrator == "rk45" else 1e-11)
+        assert np.max(np.abs(A - A2).max(-1) / np.abs(A2).max(-1)) <= bar
+        if name is None:
+            with pytest.raises(ValueError, match="Strang"):
+                tl.solve_lle_batch(cfg, co, psi0, engine="cuda")
