@@ -17,10 +17,11 @@ Phases (any failure raises, and the script exits non-zero):
    rk4/ab4/abm4 within rtol 1e-11, fp32 rk4 within rtol 1e-4, equal ``ok``
    flags, the bad lane frozen and finite;
 4. adaptive (rk45) kernel vs plain version on the card, 10^4 lanes, a bad
-   lane: fp64 at rtol 1e-10/atol 1e-13 and fp32 at rtol 1e-6/atol 1e-10,
-   2,500 steps; then fp32 over 100 m with a trailing partial span (497
-   steps) and with ``save_every=7`` (500 steps), as the plain version's time
-   follows its step count, not its lanes: equal ``ok``, the bad lane frozen
+   lane, over the first 100 m of the main path's fiber (its plain version's
+   time follows its step count, not its lanes; phase 6 drives the kernel
+   over the full 500 m): fp64 at rtol 1e-10/atol 1e-13, 500 steps, and fp32
+   at rtol 1e-6/atol 1e-10 with a trailing partial span (497 steps) and
+   with ``save_every=7`` (500 steps): equal ``ok``, the bad lane frozen
    and finite, step counters equal on >= 99% of lanes, fp64 within 1e-11 on
    the lanes whose counters agree and 10 x rtol on all, fp32 within 1e-4;
 5. the rk4 main path: ``gain_spectrum`` over 10^4 points at ``df32`` and
@@ -121,7 +122,33 @@ Phases (any failure raises, and the script exits non-zero):
 22. LLE times (median of 5 warm reps) of the kernels, ``solve_lle_batch``
     end to end (instance-steps/s, cavities/s), ``detuning_scan``
     (points/s) and the same Strang integration through ``torch.fft``, K7's
-    library call; K8's is its plain version's run in phase 20.
+    library call; K8's is its plain version's run in phase 20;
+23. vector GNLSE kernel K9 (``csrc/vgnlse_ssfm.cu``) vs its plain version on
+    the card at the ``bench_gnlse.py:242-276`` vector configuration (1,024
+    instances of two polarizations at theta = 0.4, T = 1,024, 1,000 steps
+    over 10 m, ``save_every=100``) with one instance made to blow up, each
+    body: manakov (rotation), cnlse with phase and group birefringence
+    (rotation), isotropic (the coherent RK4) and manakov with Raman and
+    self-steepening (nl), a run with a trailing partial chunk (1,005 steps),
+    and the nl body at T = 2,048 in fp32 (256 instances; fp64 refuses that
+    block, which does not fit in shared memory): fp64 within 1e-11 of each
+    instance's largest amplitude, fp32 against the fp64 plain version within
+    1e-4 (A_end and the peak), printed beside the fp32 plain version's own
+    error and the plain version with gamma 0.1% off; equal ``ok``, the bad
+    instance frozen at its input;
+24. one empty polarization: K9 with A_y = 0 against K6 on the x parts at
+    the same gamma (fp64 within 1e-11, fp32 1e-5), A_y staying 0;
+25. the vector main path: ``vgnlse.solve_vgnlse_batch`` at ``df32`` manakov
+    (``device`` left out), ``x32`` manakov, ``df32`` isotropic and ``x32``
+    manakov with nl, one K9 launch each, every instance ``ok``; an
+    8-instance subset against the plain fp64 version on the CPU in relative
+    power on the core and the tails (bars 1e-9, and 4.5e-3 / 2.6e-2 at
+    x32); ``run_vgnlse_simulation`` and ``solve_vgnlse_batch_trajectories``
+    on the card against the CPU, and one ``engine='auto'`` rk45 call, which
+    runs the plain torch controller (no launch);
+26. vector times (median of 5 warm reps) of K9's three bodies, of
+    ``solve_vgnlse_batch`` end to end (instance-steps/s) and of the same
+    Strang integration through ``torch.fft``, K9's library call.
 
 Each main path is driven with the launch counts cleared just before it and
 read just after.  The line before the last is a JSON object describing each
@@ -557,11 +584,12 @@ def check_fixed_kernel(psa, cs, common, dev, max_err, plain_ms):
 
 
 def check_rk45_kernel(psa, ca, common, dev, max_err, plain_ms, steps):
-    """Phase 4: fwm4_rk45.cu against its plain version at 10^4 lanes.  The
-    plain version's single run in the first case of each dtype is its time."""
+    """Phase 4: fwm4_rk45.cu against its plain version at 10^4 lanes over
+    100 m (the plain loop runs once per attempt of the slowest lane, ~75 s
+    in fp64 over the full 500 m).  The plain version's single run in the
+    first case of each dtype is its time."""
     B, bad = N_POINTS, N_POINTS // 2
-    cases = [(torch.float64, 2500, 10), (torch.float32, 2500, 10), (torch.float32, 497, 10),
-             (torch.float32, 500, 7)]
+    cases = [(torch.float64, 500, 10), (torch.float32, 497, 10), (torch.float32, 500, 7)]
     for rdt, n_steps, save_every in cases:
         rtol, atol = RK45_TOL[rdt]
         t = with_bad_lane(lanes(psa, common, B, rdt, dev), bad)
@@ -1312,6 +1340,330 @@ def lle_phases(psa, _build, cl, csa, dev, card, t_start, rec):
         f"{scan_s * 1e3:.3f} ms = {LLE_B / scan_s:.1f} points/s")
 
 
+# The vector configuration of bench_gnlse.py:242-276 (its manakov lanes): the
+# GNLSE grid, beta2, gamma, loss, steps and save interval above, over the
+# first 1,024 of the 2,048 envelopes (0.5-1.0 x the soliton power), each
+# split onto two polarizations at theta = 0.4.  The checks add birefringence
+# and the other bodies: cnlse with dbeta0 = 0.3 /m and dbeta1 = 1e-13 s/m,
+# isotropic with dbeta0 = 8 /m (the coherent exchange), and Raman with
+# self-steepening on the manakov coupling.
+VG_B, VG_THETA = 1024, 0.4
+VG_CASES = (("manakov", False, {}), ("cnlse", False, dict(dbeta0_1_m=0.3, dbeta1_s_m=1e-13)),
+            ("isotropic", False, dict(dbeta0_1_m=8.0)), ("manakov", True, {}))
+# the fp32 kernel against the fp64 plain version: bars written before the
+# first card run (PERF.md section 6), under the 1.744e-4 that the plain
+# version with gamma 0.1% off reads in A_end (ssfm_host_rehearsal.py
+# --readings); the peak sits at the input on these pulses, so gamma moves it
+# little and its bar is K7's
+VG_BAR32 = (1e-4, 1e-4)
+
+
+def vgnlse_setup(psa, precision, coupling="manakov", nl=False, bire=None, B=None, T=None):
+    """Host ``(A0 (B, 2, T), coeffs, nl terms or None)`` of the vector
+    configuration at ``precision``."""
+    B = VG_B if B is None else B
+    T = GN_T if T is None else T
+    vg = psa.vgnlse
+    grid = vg.TimeGrid.for_pulse(GN_T0, n_samples=T)
+    co = vg.make_vgnlse_coeffs(grid, psa.DispersionParams.from_betas(GN_OMEGA0, beta2=GN_BETA2),
+                               gamma_W_m=GN_GAMMA, alpha_1_m=GN_ALPHA, coupling=coupling,
+                               precision=precision, **(bire or {}))
+    terms = (psa.gnlse.make_nl_terms(grid, f_raman=0.18, omega0=GN_OMEGA0, precision=precision)
+             if nl else None)
+    P0 = psa.gnlse.soliton_peak_power(GN_BETA2, GN_GAMMA, GN_T0)
+    A = (np.sqrt(np.linspace(0.5, 1.5, 2 * VG_B)[:B] * P0)[:, None]
+         / np.cosh(grid.t()[None, :] / GN_T0))
+    A0 = np.stack([np.cos(VG_THETA) * A, np.sin(VG_THETA) * A], axis=1)
+    return A0.astype(np.complex128), co, terms
+
+
+def vgnlse_lanes(psa, rdt, dev, coupling="manakov", nl=False, bire=None, B=None, T=None,
+                 bad_alpha=None):
+    """Kernel inputs ``(A0, gamma, alpha, b_xpm, lin_phase)``, ``coherent``
+    and nl terms on the card; instance B//2 has the loss ``bad_alpha`` (a
+    gain that overflows within the first chunk)."""
+    B = VG_B if B is None else B
+    T = GN_T if T is None else T
+    A0, co, terms = vgnlse_setup(psa, "x64", coupling, nl, bire, B, T)
+    g, a, b, ph = psa.vgnlse.lane_coeffs(co, B, T, rdt, dev)
+    if bad_alpha is not None:
+        a = a.clone()
+        a[B // 2] = bad_alpha
+    cdt = torch.complex128 if rdt == torch.float64 else torch.complex64
+    return ((torch.as_tensor(A0, device=dev).to(cdt), g, a, b, ph), co.coherent,
+            psa.gnlse._cast_nl(terms, rdt, dev))
+
+
+def vnormwise(k, p):
+    """Worst over instances of max |k - p| / max |p| over both
+    polarizations."""
+    return normwise(k.flatten(1), p.flatten(1))
+
+
+def vgnlse_step_flop(n, body):
+    """The least work of one K9 step on both polarizations, as ``(transform
+    flop, pointwise flop)``: a linear substep a polarization (a transform
+    pair and a 6-flop factor product a sample) and the nonlinear one: the
+    joint rotation (15 a sample a polarization: both powers, the angle,
+    sin, cos and the product), the coherent RK4 (four evaluations of the
+    coupling and i gamma, 30 flop a sample a polarization, 24 for the stage
+    sums), or the nl RK4: per evaluation one Raman pair on the total power
+    (real-input transforms, half a complex pair) and one shock pair a
+    polarization, 30 + 8 flop a sample a polarization."""
+    pair = fft_flop(n) + fft_flop(n, True)
+    if body == "rotation":
+        return 2 * pair, 2 * n * (6 + 15)
+    if body == "coherent":
+        return 2 * pair, 2 * n * (6 + 4 * 30 + 24)
+    return 2 * pair + 4 * (0.5 * pair + 2 * pair), 2 * n * (6 + 4 * 38 + 24)
+
+
+def check_vgnlse_kernel(psa, cv, dev, max_err, plain_ms):
+    """Phase 23: vgnlse_ssfm.cu against its plain version at the vector
+    configuration with a blown-up instance, each body; a trailing partial
+    chunk (1,005 steps) on the manakov case; the nl body also at T = 2,048
+    in fp32 (the widest it takes; 256 instances).  fp64 within 1e-11 of each
+    instance's largest amplitude; fp32 against the fp64 plain version of
+    the same case."""
+    runs = [(torch.float64, c, GN_STEPS, GN_T, VG_B) for c in VG_CASES]
+    runs += [(torch.float64, VG_CASES[0], GN_STEPS + 5, GN_T, VG_B)]
+    runs += [(torch.float32, c, GN_STEPS, GN_T, VG_B) for c in VG_CASES]
+    runs += [(torch.float64, VG_CASES[3], GN_STEPS, 2 * GN_T, VG_B // 4),
+             (torch.float32, VG_CASES[3], GN_STEPS, 2 * GN_T, VG_B // 4)]
+    ref64 = {}
+    for rdt, (coupling, nl, bire), n_steps, T, B in runs:
+        t, coh, nl_t = vgnlse_lanes(psa, rdt, dev, coupling, nl, bire, B, T, bad_alpha=-4e6)
+        kw = dict(dz_m=GN_Z / GN_STEPS, n_steps=n_steps, save_every=GN_SAVE, nl=nl_t)
+        label = (f"vgnlse kernel vs plain {str(rdt)[6:]} {coupling}{' nl' if nl else ''} B={B} "
+                 f"T={T} n_steps={n_steps}")
+        key = f"vgnlse_ssfm_{suffix(rdt)}"
+        if rdt == torch.float64 and T == 2 * GN_T:
+            # the fp64 nl block does not fit at T = 2,048: only the fp64
+            # plain version runs, as the reference of the fp32 kernel
+            ref64[(coupling, nl, T)] = cv.solve_vgnlse_batch_torch(*t, coh, **kw)
+            why = cv.width_problem(T, rdt, dev, cv.body_of(coh, nl_t))
+            log(f"{label}: the kernel refuses it ({why})")
+            if why is None:
+                raise AssertionError(f"{label}: expected the shared-memory refusal")
+            continue
+        rk = cv.solve_vgnlse_batch_cuda(*t, coh, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rp = cv.solve_vgnlse_batch_torch(*t, coh, **kw)
+        torch.cuda.synchronize()
+        if n_steps == GN_STEPS and T == GN_T and coupling == "manakov" and not nl:
+            plain_ms[key] = 1e3 * (time.perf_counter() - t0)
+        if rdt == torch.float64 and n_steps == GN_STEPS:
+            ref64[(coupling, nl, T)] = rp
+        bad = B // 2
+        if not torch.equal(rk.ok, rp.ok):
+            raise AssertionError(f"{label}: ok flags differ")
+        if bool(rk.ok[bad]) or int(rk.ok.sum()) != B - 1:
+            raise AssertionError(f"{label}: expected exactly instance {bad} to fail")
+        if not (bool(torch.isfinite(rk.A_end).all()) and torch.equal(rk.A_end[bad], t[0][bad])):
+            raise AssertionError(f"{label}: the failed instance is not frozen at its input")
+        good = rk.ok
+        err_A = vnormwise(rk.A_end[good], rp.A_end[good])
+        err_pk = float(rel_err(rk.peak_max[good], rp.peak_max[good]).max())
+        max_err[key] = max(max_err.get(key, 0.0), float((rk.A_end[good] - rp.A_end[good])
+                                                        .abs().max()))
+        if rdt == torch.float64:
+            log(f"{label}: A_end max normwise err {err_A:.3e}, peak max rel err {err_pk:.3e} "
+                "(bar 1e-11); bad instance frozen at its input")
+            if not (err_A <= 1e-11 and err_pk <= 1e-11):
+                raise AssertionError(f"{label}: {err_A:.3e} / {err_pk:.3e} > 1e-11")
+            continue
+        ref = ref64[(coupling, nl, T)]
+        ek_A = vnormwise(rk.A_end[good].to(torch.complex128), ref.A_end[good])
+        ek_pk = float(rel_err(rk.peak_max[good].double(), ref.peak_max[good]).max())
+        ep_A = vnormwise(rp.A_end[good].to(torch.complex128), ref.A_end[good])
+        ep_pk = float(rel_err(rp.peak_max[good].double(), ref.peak_max[good]).max())
+        log(f"{label}: kernel vs plain fp64 A_end {ek_A:.3e} (bar {VG_BAR32[0]:g}), peak "
+            f"{ek_pk:.3e} (bar {VG_BAR32[1]:g}); plain fp32 (cuFFT) vs plain fp64 A_end "
+            f"{ep_A:.3e}, peak {ep_pk:.3e}; kernel vs plain fp32 A_end {err_A:.3e}, peak "
+            f"{err_pk:.3e}; bad instance frozen")
+        if coupling == "manakov" and not nl:
+            # what a wrong kernel would read: the plain fp64 version with
+            # every gamma 0.1% off
+            t64, _, _ = vgnlse_lanes(psa, torch.float64, dev, coupling, nl, bire, B, T,
+                                     bad_alpha=-4e6)
+            off = cv.solve_vgnlse_batch_torch(t64[0], t64[1] * (1 + 1e-3), *t64[2:], coh,
+                                              **dict(kw, nl=None))
+            log(f"{label}: the plain fp64 version with gamma 0.1% off reads A_end "
+                f"{vnormwise(off.A_end[good], ref.A_end[good]):.3e}, peak "
+                f"{float(rel_err(off.peak_max[good], ref.peak_max[good]).max()):.3e}")
+        if not (ek_A <= VG_BAR32[0] and ek_pk <= VG_BAR32[1]):
+            raise AssertionError(f"{label}: {ek_A:.3e} / {ek_pk:.3e} against fp64 over the bars")
+
+
+def vgnlse_phases(psa, _build, cv, cg, dev, card, t_start, rec):
+    """Phases 23-26, the vector GNLSE path; ``rec`` holds the records the
+    kernels line is made of."""
+    max_err, plain_ms, launches = rec["max_err"], rec["plain_ms"], rec["launches"]
+    ms, bound_ms, bound_by, bytes_of = (rec[k] for k in ("ms", "bound_ms", "bound_by",
+                                                         "bytes_of"))
+    library_ms = rec["library_ms"]
+    # --- 23. vector kernel K9 vs plain version -------------------------------------
+    check_vgnlse_kernel(psa, cv, dev, max_err, plain_ms)
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 23 done")
+
+    # --- 24. one empty polarization: K9 is K6 ---------------------------------------
+    for rdt in (torch.float64, torch.float32):
+        t, coh, _ = vgnlse_lanes(psa, rdt, dev, "cnlse")
+        A0 = t[0].clone()
+        A0[:, 1] = 0
+        kw = dict(dz_m=GN_Z / GN_STEPS, n_steps=GN_STEPS, save_every=GN_SAVE)
+        rv = cv.solve_vgnlse_batch_cuda(A0, *t[1:], coh, **kw)
+        rs = cg.solve_gnlse_batch_cuda(A0[:, 0].contiguous(), t[1], t[2], t[4][0].contiguous(),
+                                       **kw)
+        torch.cuda.synchronize()
+        err = normwise(rv.A_end[:, 0], rs.A_end)
+        bit = torch.equal(rv.A_end[:, 0], rs.A_end) and torch.equal(rv.peak_max[:, 0],
+                                                                    rs.peak_max)
+        bar = 1e-11 if rdt == torch.float64 else 1e-5
+        log(f"empty polarization {str(rdt)[6:]}: K9 (cnlse, A_y = 0) vs K6 on A_x at the same "
+            f"gamma, {VG_B} instances: A_end {err:.3e} (bar {bar:g}), bit for bit {bit}; A_y "
+            f"stays 0: {not bool(rv.A_end[:, 1].abs().any())}")
+        if not (err <= bar and bool(rv.ok.all()) and not bool(rv.A_end[:, 1].abs().any())):
+            raise AssertionError(f"empty polarization {rdt}: {err:.3e}")
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 24 done")
+
+    # --- 25. the vector main path -----------------------------------------------------
+    vg = psa.vgnlse
+    sub = np.linspace(0, VG_B - 1, 8).astype(int)
+    vg_paths = (("df32", VG_CASES[0], "vgnlse_ssfm_f64", 1e-9, 1e-9),
+                ("x32", VG_CASES[0], "vgnlse_ssfm_f32", 4.5e-3, 2.6e-2),
+                ("df32", VG_CASES[2], "vgnlse_ssfm_f64", 1e-9, 1e-9),
+                ("x32", VG_CASES[3], "vgnlse_ssfm_f32", 4.5e-3, 2.6e-2))
+
+    def vg_cfg(precision, integrator="rk4", **kw):
+        return psa.custom_simulation_config(z_max=GN_Z, dz=GN_Z / GN_STEPS, save_every=GN_SAVE,
+                                            precision=precision, integrator=integrator, **kw)
+
+    vg_refs = {}
+    for precision, (coupling, nl, bire), name, core_bar, tail_bar in vg_paths:
+        A0v, cov, nlv = vgnlse_setup(psa, precision, coupling, nl, bire)
+        # the first call leaves the device out: the card is the default
+        dev_kw = {} if precision == "df32" and coupling == "manakov" else {"device": "cuda"}
+        t0 = time.perf_counter()
+        (pk, A, ok), counts = run_main_path(psa, _build, name, lambda: vg.solve_vgnlse_batch(
+            vg_cfg(precision), cov, A0v, nl=nlv, engine="auto", **dev_kw))
+        sec = time.perf_counter() - t0
+        label = f"vgnlse {precision} {coupling}{' nl' if nl else ''}"
+        if counts != {name: 1}:
+            raise AssertionError(f"{label}: launches {counts}, not one {name}")
+        launches[name] = launches.get(name, 0) + counts[name]
+        if (A.shape != (VG_B, 2, GN_T) or pk.shape != (VG_B, 2) or not ok.all()
+                or not np.isfinite(A).all()):
+            raise AssertionError(f"{label}: shape {A.shape}, ok {ok.mean()}")
+        key = (coupling, nl)
+        if key not in vg_refs:
+            A0r, cor, nlr = vgnlse_setup(psa, "x64", coupling, nl, bire)
+            t1 = time.perf_counter()
+            vg_refs[key] = vg.solve_vgnlse_batch(vg_cfg("x64"), cor, A0r[sub], nl=nlr,
+                                                 engine="torch", device="cpu")[1]
+            log(f"plain fp64 {coupling}{' nl' if nl else ''} reference on the CPU, 8 instances: "
+                f"{time.perf_counter() - t1:.1f} s")
+        core, tails = power_errors(A[sub], vg_refs[key])
+        log(f"main path {label}: {VG_B} instances of 2 x {GN_T} samples, launches {counts}, "
+            f"ok 1.0, {sec * 1e3:.1f} ms (first call); 8-instance subset vs plain fp64 (CPU): "
+            f"max rel power err {core:.3e} on the core (bar {core_bar:g}), {tails:.3e} on the "
+            f"tails (bar {tail_bar:g})")
+        if not (core <= core_bar and tails <= tail_bar):
+            raise AssertionError(f"{label} subset error {core:.3e} / {tails:.3e}")
+
+    A0s, cos_, _ = vgnlse_setup(psa, "x64", "cnlse", bire=VG_CASES[1][2], B=16)
+    t0 = time.perf_counter()
+    z, A = vg.run_vgnlse_simulation(vg_cfg("x64"), cos_, A0s[0], device="cuda")
+    sec = time.perf_counter() - t0
+    z_c, A_c = vg.run_vgnlse_simulation(vg_cfg("x64"), cos_, A0s[0], device="cpu")
+    err = float(np.max(np.abs(A - A_c)) / np.max(np.abs(A_c)))
+    log(f"run_vgnlse_simulation on the card (cnlse with birefringence, 1,000 Strang steps, plain "
+        f"torch): {A.shape[0]} rows in {sec:.1f} s; vs the CPU {err:.3e} of the largest "
+        "amplitude (bar 1e-11)")
+    if not (A.shape == (GN_STEPS // GN_SAVE + 1, 2, GN_T) and np.array_equal(z, z_c)
+            and err <= 1e-11):
+        raise AssertionError(f"run_vgnlse_simulation: shape {A.shape}, error {err:.3e}")
+    zt, At, okt = vg.solve_vgnlse_batch_trajectories(vg_cfg("x64"), cos_, A0s, device="cuda")
+    zc, Ac, okc = vg.solve_vgnlse_batch_trajectories(vg_cfg("x64"), cos_, A0s, device="cpu")
+    err = float(np.max(np.abs(At - Ac)) / np.max(np.abs(Ac)))
+    log(f"solve_vgnlse_batch_trajectories on the card (16 instances, plain torch): vs the CPU "
+        f"{err:.3e} of the largest amplitude (bar 1e-11)")
+    if not (At.shape == (16, GN_STEPS // GN_SAVE + 1, 2, GN_T) and okt.all() and okc.all()
+            and err <= 1e-11):
+        raise AssertionError(f"solve_vgnlse_batch_trajectories: error {err:.3e}")
+    cfg45 = vg_cfg("x64", "rk45", rtol=1e-9, atol=1e-12)
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    _pk, A45, ok45 = vg.solve_vgnlse_batch(cfg45, cos_, A0s, device="cuda")
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = dict(_build.LAUNCHES)
+    _pk, A45c, _ok = vg.solve_vgnlse_batch(cfg45, cos_, A0s, device="cpu")
+    core, _tails = power_errors(A45, A45c)
+    log(f"solve_vgnlse_batch rk45 x64 (engine='auto', 16 instances): launches {counts} (the "
+        f"plain torch controller: neither package has a kernel), ok {ok45.mean()}, {sec:.1f} s; "
+        f"vs the CPU max rel power err {core:.3e} on the core (bar 1e-7)")
+    if counts or not ok45.all() or not core <= 1e-7:
+        raise AssertionError(f"rk45 auto: launches {counts}, ok {ok45.mean()}, {core:.3e}")
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 25 done")
+
+    # --- 26. vector times -------------------------------------------------------------
+    kw = dict(dz_m=GN_Z / GN_STEPS, n_steps=GN_STEPS, save_every=GN_SAVE)
+    n_saves = GN_STEPS // GN_SAVE
+    body_ms, vg_flop = {}, {}
+    for rdt in (torch.float64, torch.float32):
+        name, item = f"vgnlse_ssfm_{suffix(rdt)}", rdt.itemsize
+        # inputs: A0, the two shared factor planes, gamma, the float64
+        # twiddles (nl: conj(H_R), omega); outputs: the two peaks, A_end, ok
+        nbytes = VG_B * (2 * 2 * GN_T * item * 2 + 3 * item + 1) + (2 * 2 * 2 * item + 16) * GN_T
+        for coupling, nl, bire in VG_CASES[:1] + VG_CASES[2:]:
+            t, coh, nl_t = vgnlse_lanes(psa, rdt, dev, coupling, nl, bire)
+            body = cv.body_of(coh, nl_t)
+            sec = timed(lambda: cv.solve_vgnlse_batch_cuda(*t, coh, nl=nl_t, **kw))
+            # a chunk of k steps makes k + 1 linear substeps; each save adds
+            # the finite check and the two peaks
+            tr, pw = vgnlse_step_flop(GN_T, body)
+            pair2 = 2 * (fft_flop(GN_T) + fft_flop(GN_T, True))
+            flop = VG_B * (GN_STEPS * (tr + pw) + n_saves * (pair2 + 2 * 12 * GN_T))
+            extra = 3 * GN_T * item if nl else 0
+            b_ms = max(ops_ms(flop, rdt), 1e3 * (nbytes + extra) / PEAK_BYTES)
+            body_ms[(name, body)] = (1e3 * sec, b_ms, flop)
+            if body == "rotation":
+                ms[name] = 1e3 * sec
+                vg_flop[name] = flop
+                bound_ms[name] = b_ms
+                bound_by[name] = ("operations" if ops_ms(flop, rdt) >= 1e3 * nbytes / PEAK_BYTES
+                                  else "bytes")
+                bytes_of[name] = nbytes
+                # the same Strang integration through torch.fft (cuFFT) on the card
+                library_ms[name] = 1e3 * timed(lambda: cv.solve_vgnlse_batch_torch(*t, coh, **kw))
+    vg_e2e = {}
+    for precision, (coupling, nl, bire), _name, _c, _t in vg_paths:
+        A0v, cov, nlv = vgnlse_setup(psa, precision, coupling, nl, bire)
+        cfg = vg_cfg(precision)
+        vg_e2e[f"{precision} {coupling}{' nl' if nl else ''}"] = timed(
+            lambda: vg.solve_vgnlse_batch(cfg, cov, A0v, nl=nlv, device="cuda"))
+    log(f"vector GNLSE times on {card} (median of {REPS} warm reps, host clock with "
+        f"synchronize; bound: the least flop, two transform pairs a step, the Raman pair as "
+        f"real-input transforms, at FP64 {PEAK_FLOPS[torch.float64] / 1e12:g} / FP32 "
+        f"{PEAK_FLOPS[torch.float32] / 1e12:g} TFLOP/s; {PEAK_BYTES / 1e12:g} TB/s):")
+    for (name, body), (k_ms, b_ms, flop) in body_ms.items():
+        extra = ""
+        if body == "rotation":
+            extra = (f"; torch.fft Strang integration (cuFFT, the library call) "
+                     f"{library_ms[name]:.3f} ms; plain version on the card (one run, phase 23) "
+                     f"{plain_ms[name]:.1f} ms; K6 kerr on the same samples (2,048 envelopes, "
+                     f"phase 18) {ms[name.replace('vgnlse', 'gnlse')]:.3f} ms")
+        log(f"  {name} {body} {VG_B} instances x 2 x {GN_T} samples x {GN_STEPS} steps: "
+            f"{k_ms:.3f} ms = {VG_B * GN_STEPS / k_ms * 1e3:.1f} instance-steps/s; bound "
+            f"{b_ms:.3f} ms ({flop:.4g} flop; the kernel at {100 * b_ms / k_ms:.2f}% of it)"
+            f"{extra}")
+    for label, sec in vg_e2e.items():
+        log(f"  solve_vgnlse_batch end to end, {label}, {VG_B} instances: {sec * 1e3:.3f} ms = "
+            f"{VG_B * GN_STEPS / sec:.1f} instance-steps/s")
+
+
 def main():
     # --- 1. device -----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1326,6 +1678,7 @@ def main():
     from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_lle as cl
     from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_solver as cs
     from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_ssfm_adaptive as csa
+    from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_vgnlse as cv
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -1536,10 +1889,11 @@ def main():
             cfg=cfg, lambda_signal_m=lam3, device="cuda", **common))
     log(f"times on {card} (median of {REPS} warm reps, host clock with synchronize):")
     for name in ms:
-        extra = f"; plain version on the card (one run, phase 3/4) {plain_ms[name]:.1f} ms"
+        extra = f"; plain version on the card (one run, phase 3) {plain_ms[name]:.1f} ms"
         if name.startswith("fwm4_rk45"):
             mean, mx = steps[name + "_timed"]
-            extra = f"; attempted steps per lane mean {mean:.1f}, max {mx}" + extra
+            extra = (f"; attempted steps per lane mean {mean:.1f}, max {mx}; plain version on "
+                     f"the card over 100 m (one run, phase 4) {plain_ms[name]:.1f} ms")
         log(f"  {name} {N_POINTS} points: {ms[name]:.3f} ms = {N_POINTS / ms[name] * 1e3:.1f} "
             f"pts/s; bound {bound_ms[name]:.3f} ms ({bound_by[name]}; {bytes_of[name]} bytes)"
             f"{extra}")
@@ -1704,12 +2058,14 @@ def main():
                bound_ms=bound_ms, bound_by=bound_by, bytes_of=bytes_of, library_ms=library_ms)
     gnlse_phases(psa, _build, cg, csa, dev, card, t_start, rec)
     lle_phases(psa, _build, cl, csa, dev, card, t_start, rec)
+    vgnlse_phases(psa, _build, cv, cg, dev, card, t_start, rec)
     log(f"[{time.perf_counter() - t_start:.0f} s] all phases done")
 
     sources = {"fwm4_rk": f"{PKG}/csrc/fwm4_rk.cu", "fwm4_rk45": f"{PKG}/csrc/fwm4_rk45.cu",
                "comb_rk": f"{PKG}/csrc/comb_rk.cu", "comb_rk45": f"{PKG}/csrc/comb_rk45.cu",
                "gnlse_ssfm": f"{PKG}/csrc/gnlse_ssfm.cu", "ssfm_rk45": f"{PKG}/csrc/ssfm_rk45.cu",
-               "lle_ssfm": f"{PKG}/csrc/gnlse_ssfm.cu", "ssfm_rk45_lle": f"{PKG}/csrc/ssfm_rk45.cu"}
+               "lle_ssfm": f"{PKG}/csrc/gnlse_ssfm.cu", "ssfm_rk45_lle": f"{PKG}/csrc/ssfm_rk45.cu",
+               "vgnlse_ssfm": f"{PKG}/csrc/vgnlse_ssfm.cu"}
     replaces = {
         "fwm4_rk_f64": f"{JAX_PKG}/ops/pallas_df32.py:442",
         "fwm4_rk_f32": f"{JAX_PKG}/ops/pallas_solver.py:300",
@@ -1727,6 +2083,8 @@ def main():
         "lle_ssfm_f32": f"{JAX_PKG}/ops/pallas_lle.py:47",
         "ssfm_rk45_lle_f64": f"{JAX_PKG}/ops/pallas_ssfm_adaptive.py:101",
         "ssfm_rk45_lle_f32": f"{JAX_PKG}/ops/pallas_ssfm_adaptive.py:101",
+        "vgnlse_ssfm_f64": f"{JAX_PKG}/ops/pallas_vgnlse.py:58",
+        "vgnlse_ssfm_f32": f"{JAX_PKG}/ops/pallas_vgnlse.py:58",
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name.rsplit("_", 1)[0]],
@@ -1736,7 +2094,8 @@ def main():
         for name in ("fwm4_rk_f64", "fwm4_rk_f32", "fwm4_rk45_f64", "fwm4_rk45_f32",
                      "comb_rk_f64", "comb_rk_f32", "comb_rk45_f64", "comb_rk45_f32",
                      "gnlse_ssfm_f64", "gnlse_ssfm_f32", "ssfm_rk45_f64", "ssfm_rk45_f32",
-                     "lle_ssfm_f64", "lle_ssfm_f32", "ssfm_rk45_lle_f64", "ssfm_rk45_lle_f32")
+                     "lle_ssfm_f64", "lle_ssfm_f32", "ssfm_rk45_lle_f64", "ssfm_rk45_lle_f32",
+                     "vgnlse_ssfm_f64", "vgnlse_ssfm_f32")
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

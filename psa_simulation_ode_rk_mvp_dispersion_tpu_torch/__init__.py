@@ -8,16 +8,18 @@ path: parameter math, the RHS, the fixed-step (rk4/ab4/abm4) and adaptive
 (rk45) integrators, the single-run runner, the sweeps (gain spectrum,
 mismatch scan, PSA phase sweep, power x wavelength gain map, batched
 trajectories), result persistence (``io_fwm``), the N-wave comb
-(``models/nwave``), the GNLSE pulse model (``models/gnlse``) and the
-Lugiato-Lefever cavity (``models/lle``).  The rotating-frame sweeps and the
-batched comb, pulse and cavity solves run on a CUDA device through
-hand-written kernels: ``csrc/fwm4_rk.cu``
+(``models/nwave``), the GNLSE pulse model (``models/gnlse``), the
+Lugiato-Lefever cavity (``models/lle``) and the vector (two-polarization)
+GNLSE (``models/vgnlse``).  The rotating-frame sweeps and the batched comb,
+pulse, cavity and vector solves run on a CUDA device through hand-written
+kernels: ``csrc/fwm4_rk.cu``
 (``ops/cuda_solver.py``), ``csrc/fwm4_rk45.cu`` (``ops/cuda_adaptive.py``),
 ``csrc/comb_rk.cu`` (``ops/cuda_comb.py``), ``csrc/comb_rk45.cu``
 (``ops/cuda_comb_adaptive.py``), ``csrc/gnlse_ssfm.cu``
 (``ops/cuda_gnlse.py``; its affine instantiation for the LLE,
-``ops/cuda_lle.py``) and ``csrc/ssfm_rk45.cu``
-(``ops/cuda_ssfm_adaptive.py``, GNLSE and LLE routes).
+``ops/cuda_lle.py``), ``csrc/ssfm_rk45.cu``
+(``ops/cuda_ssfm_adaptive.py``, GNLSE and LLE routes) and
+``csrc/vgnlse_ssfm.cu`` (``ops/cuda_vgnlse.py``).
 
 Precision tiers: ``x64`` and ``df32`` run in float64/complex128, ``x32`` in
 float32/complex64.  Public entry points take ``device=``; ``None`` means the
@@ -45,6 +47,7 @@ from .ops import (
     cuda_lle,
     cuda_solver,
     cuda_ssfm_adaptive,
+    cuda_vgnlse,
     dispersion,
     frequency_plan,
     integrators,
@@ -104,7 +107,7 @@ from .ops.rhs import (
     rhs_yaman_simplified,
     rotating_to_lab,
 )
-from .models import fwm4, gnlse, lle, nwave
+from .models import fwm4, gnlse, lle, nwave, vgnlse
 from .models.lle import (
     LLECoeffs,
     LLENormalization,
@@ -130,6 +133,19 @@ from .models.gnlse import (
     sech_pulse,
     solve_gnlse_batch,
     soliton_peak_power,
+)
+from .models.vgnlse import (
+    MANAKOV_GAMMA_FACTOR,
+    XPM_LINEAR_BIREFRINGENT,
+    VGNLSECoeffs,
+    degree_of_polarization,
+    make_vgnlse_coeffs,
+    manakov_soliton_peak_power,
+    polarized_pulse,
+    run_vgnlse_simulation,
+    solve_vgnlse_batch,
+    solve_vgnlse_batch_trajectories,
+    stokes_parameters,
 )
 from .models.nwave import (
     CombGrid,

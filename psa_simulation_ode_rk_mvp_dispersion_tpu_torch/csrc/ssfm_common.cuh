@@ -1,7 +1,7 @@
 // Building blocks shared by the split-step Fourier (SSFM) kernels
-// csrc/gnlse_ssfm.cu (K6, K7) and csrc/ssfm_rk45.cu (K8): one thread block holds
-// one envelope of n complex samples in shared memory and transforms it with
-// its own FFT.
+// csrc/gnlse_ssfm.cu (K6, K7), csrc/ssfm_rk45.cu (K8) and csrc/vgnlse_ssfm.cu
+// (K9): one thread block holds one envelope of n complex samples (K9: its two
+// polarizations) in shared memory and transforms it with its own FFT.
 //
 // The transform.  n = m * r with m a power of two (>= 2) and r odd (every n
 // that is a multiple of 128 up to 2048 is such a product, r <= 15).  With
@@ -72,10 +72,14 @@ inline int threads_for(int n) {
     return half < kMaxThreads ? half : kMaxThreads;
 }
 
-// The DFT (INV false) or the inverse DFT scaled by 1/n (INV true) of a[0:n],
-// natural order in, natural order out.  a is overwritten and b is scratch;
-// the result is in a or b, whichever the function returns.
-template <typename T, bool INV>
+// The DFT (INV false) or the inverse DFT scaled by 1/n (INV true) of P
+// sequences of n samples held one after the other, a[s*n : (s+1)*n] (P = 2:
+// the two polarizations of csrc/vgnlse_ssfm.cu, transformed in the same
+// passes, so that the pair shares each pass's barrier), natural order in,
+// natural order out.  a is overwritten and b is scratch; the result is in a
+// or b, whichever the function returns.  For P = 1 the sequence index is the
+// constant 0.
+template <typename T, bool INV, int P = 1>
 __device__ Cx<T>* dft(const Block<T>& c, Cx<T>* a, Cx<T>* b) {
     const int n = c.n, m = c.m, r = c.r, hm = m >> 1, half = n >> 1;
     Cx<T>* src = a;
@@ -85,18 +89,22 @@ __device__ Cx<T>* dft(const Block<T>& c, Cx<T>* a, Cx<T>* b) {
         const bool first = ns == 1;
         const bool scale = INV && r == 1 && (ns << 1) == m;
         const int step = (m / (2 * ns)) * r;  // W_{2 ns}^j = W_n^{j step}
-        for (int t = c.tid; t < half; t += c.nt) {
+        for (int u = c.tid; u < P * half; u += c.nt) {
+            const int sq = P == 1 ? 0 : u / half;  // the sequence
+            const int t = u - sq * half;
+            const Cx<T>* in = src + sq * n;
+            Cx<T>* out = dst + sq * n;
             const int g = t / hm, j = t - g * hm, jl = j & (ns - 1);
-            const Cx<T> v0 = first ? src[j * r + g] : src[g * m + j];
-            const Cx<T> v1 = first ? src[(j + hm) * r + g] : src[g * m + j + hm];
+            const Cx<T> v0 = first ? in[j * r + g] : in[g * m + j];
+            const Cx<T> v1 = first ? in[(j + hm) * r + g] : in[g * m + j + hm];
             const Cx<double> w = ldg(&c.tw[jl * step]);
             const double wi = INV ? w.im : -w.im;
             const double tr = double(v1.re) * w.re - double(v1.im) * wi;
             const double ti = double(v1.re) * wi + double(v1.im) * w.re;
             const int o = g * m + ((j - jl) << 1) + jl;
             const double sc = scale ? c.inv_n : 1.0;
-            dst[o] = Cx<T>{T((v0.re + tr) * sc), T((v0.im + ti) * sc)};
-            dst[o + ns] = Cx<T>{T((v0.re - tr) * sc), T((v0.im - ti) * sc)};
+            out[o] = Cx<T>{T((v0.re + tr) * sc), T((v0.im + ti) * sc)};
+            out[o + ns] = Cx<T>{T((v0.re - tr) * sc), T((v0.im - ti) * sc)};
         }
         Cx<T>* s = src;
         src = dst;
@@ -104,12 +112,15 @@ __device__ Cx<T>* dft(const Block<T>& c, Cx<T>* a, Cx<T>* b) {
         __syncthreads();
     }
     if (r > 1) {
-        for (int k = c.tid; k < n; k += c.nt) {
+        for (int u = c.tid; u < P * n; u += c.nt) {
+            const int sq = P == 1 ? 0 : u / n;
+            const int k = u - sq * n;
+            const Cx<T>* in = src + sq * n;
             const int d = k & (m - 1);
             double ar = 0.0, ai = 0.0;
             int idx = 0;  // (g k) mod n
             for (int g = 0; g < r; ++g) {
-                const Cx<T> y = src[g * m + d];
+                const Cx<T> y = in[g * m + d];
                 const Cx<double> w = ldg(&c.tw[idx]);
                 const double wi = INV ? w.im : -w.im;
                 ar += double(y.re) * w.re - double(y.im) * wi;
@@ -118,7 +129,7 @@ __device__ Cx<T>* dft(const Block<T>& c, Cx<T>* a, Cx<T>* b) {
                 if (idx >= n) idx -= n;
             }
             const double sc = INV ? c.inv_n : 1.0;
-            dst[k] = Cx<T>{T(ar * sc), T(ai * sc)};
+            dst[u] = Cx<T>{T(ar * sc), T(ai * sc)};
         }
         Cx<T>* s = src;
         src = dst;

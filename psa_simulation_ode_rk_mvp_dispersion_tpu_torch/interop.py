@@ -3,9 +3,8 @@
 :func:`from_reference` turns the JAX package's ``SimulationConfig``,
 ``RHSCoeffs``, ``DispersionParams``, ``SymmetricPlan``,
 ``PhaseMatchingConfig``, ``ModelParams`` (with its parts), ``NWaveCoeffs``,
-``CombGrid``, ``TimeGrid``, ``GNLSECoeffs``, ``NLTerms``, ``LLECoeffs`` and
-``LLENormalization`` into their
-counterparts here, reading every field by name through ``dataclasses.fields``
+``CombGrid``, ``TimeGrid``, ``GNLSECoeffs``, ``NLTerms``, ``LLECoeffs``,
+``LLENormalization`` and ``VGNLSECoeffs`` into their counterparts here, reading every field by name through ``dataclasses.fields``
 and every array leaf through ``np.asarray``.  It never imports JAX: it only
 reads the objects it is given, so both packages can compute from
 bit-identical float64 inputs.
@@ -20,7 +19,7 @@ import numpy as np
 import torch
 
 from .config import SimulationConfig
-from .models import fwm4, gnlse, lle, nwave
+from .models import fwm4, gnlse, lle, nwave, vgnlse
 from .ops.dispersion import DispersionParams
 from .ops.frequency_plan import SymmetricPlan
 from .ops.phase_matching import PhaseMatchingConfig, PhaseMatchingMethod
@@ -37,10 +36,13 @@ _CLASSES = {
         fwm4.SimulationGrid, fwm4.PhaseMatchingParams, fwm4.CacheParams,
         fwm4.ModelParams, nwave.NWaveCoeffs, nwave.CombGrid, gnlse.TimeGrid,
         gnlse.GNLSECoeffs, gnlse.NLTerms, lle.LLECoeffs, lle.LLENormalization,
+        vgnlse.VGNLSECoeffs,
     )
 }
 _TENSOR_CLASSES = (RHSCoeffs, DispersionParams, SymmetricPlan, nwave.NWaveCoeffs,
-                   gnlse.GNLSECoeffs, gnlse.NLTerms, lle.LLECoeffs)
+                   gnlse.GNLSECoeffs, gnlse.NLTerms, lle.LLECoeffs, vgnlse.VGNLSECoeffs)
+# Fields of a tensor class that stay Python floats (static metadata in JAX).
+_STATIC_FIELDS = {("VGNLSECoeffs", "coherent")}
 _ENUMS = {PhaseMatchingMethod.__name__: PhaseMatchingMethod}
 
 
@@ -61,8 +63,9 @@ def from_reference(obj, *, device=None, dtype: torch.dtype = torch.float64):
     """The counterpart of a JAX-package parameter object.
 
     Array leaves of ``RHSCoeffs``, ``DispersionParams``, ``SymmetricPlan``,
-    ``NWaveCoeffs``, ``GNLSECoeffs``, ``NLTerms`` and ``LLECoeffs`` become
-    ``dtype`` tensors on ``device`` (``None``: the CUDA card); host
+    ``NWaveCoeffs``, ``GNLSECoeffs``, ``NLTerms``, ``LLECoeffs`` and
+    ``VGNLSECoeffs`` become ``dtype`` tensors on ``device`` (``None``: the
+    CUDA card; ``VGNLSECoeffs.coherent`` stays a float); host
     containers (``CombGrid``, ``TimeGrid`` and ``LLENormalization`` among
     them) keep numpy copies and floats.
     ``DispersionParams`` and ``SymmetricPlan`` are float64 by definition and
@@ -83,6 +86,8 @@ def from_reference(obj, *, device=None, dtype: torch.dtype = torch.float64):
         v = getattr(obj, f.name)
         if isinstance(v, Enum) or (dataclasses.is_dataclass(v) and not isinstance(v, type)):
             kwargs[f.name] = from_reference(v, device=device, dtype=dtype)
+        elif (name, f.name) in _STATIC_FIELDS:
+            kwargs[f.name] = float(v)
         else:
             kwargs[f.name] = _leaf(v, as_tensor=as_tensor, device=device, dtype=dtype)
     return cls(**kwargs)

@@ -386,13 +386,25 @@ def _lin_factor(alpha: torch.Tensor, lin_phase: torch.Tensor, h) -> torch.Tensor
     return torch.complex(decay * torch.cos(ang), decay * torch.sin(ang))
 
 
+def _lane_dims(y: torch.Tensor) -> tuple:
+    """Every axis of a ``(B, ...)`` state but the batch axis: ``(T,)`` for a
+    scalar envelope, ``(2, T)`` for a vector one."""
+    return tuple(range(1, y.ndim))
+
+
+def _lane(v: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """A per-lane ``(B,)`` tensor shaped to broadcast over ``y``'s lanes."""
+    return v.reshape(v.shape + (1,) * (y.ndim - 1))
+
+
 def _finite_mask(y: torch.Tensor) -> torch.Tensor:
-    """Per-instance all-finite flag over the trailing (time) axis."""
-    return torch.isfinite(y).all(dim=-1)
+    """Per-lane all-finite flag over every non-batch axis."""
+    return torch.isfinite(y).all(dim=_lane_dims(y))
 
 
 def _peak(y: torch.Tensor) -> torch.Tensor:
-    """Per-instance max over samples of |A|^2 (NaN propagates)."""
+    """Max over the time axis of |A|^2, a row at a time: ``(B,)`` for a
+    scalar state, ``(B, 2)`` for a vector one (NaN propagates)."""
     return (y.real * y.real + y.imag * y.imag).amax(dim=-1)
 
 
@@ -444,10 +456,11 @@ def _scalar(v: float, like: torch.Tensor) -> torch.Tensor:
 
 def fixed_over_grid(y0, chunk, *, n_steps: int, save_every: int, keep_rows: bool = False):
     """The save-grid contract of the fixed-step split-step solvers over a
-    ``(B, T)`` state, ``chunk(k, y)`` advancing k steps: returns ``(rows,
-    peak_max, y_last, ok)``, the saved states (row 0 and every chunk; only
-    with ``keep_rows``), the running max over saved samples of max_t
-    |y|^2, the state at the last saved grid point, and the per-lane flag.
+    ``(B, T)`` or ``(B, 2, T)`` state, ``chunk(k, y)`` advancing k steps:
+    returns ``(rows, peak_max, y_last, ok)``, the saved states (row 0 and
+    every chunk; only with ``keep_rows``), the running max over saved
+    samples of max_t |y|^2 (a row at a time), the state at the last saved
+    grid point, and the per-lane flag.
     The NaN freeze happens per chunk; the trailing ``n_steps % save_every``
     steps are integrated and feed only ``ok``."""
     if save_every < 1 or n_steps < 0:
@@ -458,7 +471,7 @@ def fixed_over_grid(y0, chunk, *, n_steps: int, save_every: int, keep_rows: bool
     for _ in range(n_chunks):
         y_new = chunk(int(save_every), y)
         ok = ok & _finite_mask(y_new)
-        y = torch.where(ok[:, None], y_new, y)
+        y = torch.where(_lane(ok, y), y_new, y)
         pk = torch.maximum(pk, _peak(y))
         if keep_rows:
             rows.append(y)
@@ -538,8 +551,8 @@ _ADAPTIVE_ATTEMPTS = {"strang": (_doubling_attempt, 2), "rk4ip": (_doubling_atte
 
 
 def _lane_rms2(a: torch.Tensor) -> torch.Tensor:
-    """Per-lane mean |a|^2 over the time axis."""
-    return (a.real * a.real + a.imag * a.imag).mean(dim=-1)
+    """Per-lane mean |a|^2 over every non-batch axis."""
+    return (a.real * a.real + a.imag * a.imag).mean(dim=_lane_dims(a))
 
 
 def _ssfm_error_norm(yc, yf, y_old, *, rtol: float, atol: float) -> torch.Tensor:
@@ -578,7 +591,7 @@ def _advance_segment(y, z, dt, ok, z_start, z_end, attempt, *, rtol: float, atol
             break
         clipped = (z_end - z) < dt
         h = torch.minimum(dt, z_end - z)
-        yc, yf = attempt(y, h[:, None])
+        yc, yf = attempt(y, _lane(h, y))
         enorm = _ssfm_error_norm(yc, yf, y, rtol=rtol, atol=atol)
         finite = torch.isfinite(enorm) & _finite_mask(yf) & _finite_mask(yc)
         accept = active & finite & (enorm <= 1.0)
@@ -598,7 +611,7 @@ def _advance_segment(y, z, dt, ok, z_start, z_end, attempt, *, rtol: float, atol
         dt = torch.where(active, torch.maximum(base, dt_min), dt)
         failed = active & ((~accept & (h <= dt_min)) | escape)
         z = torch.where(accept, z + h, z)
-        y = torch.where(accept[:, None], y_new, y)
+        y = torch.where(_lane(accept, y), y_new, y)
         ok = ok & ~failed
         na = na + accept.to(torch.int32)
         nr = nr + (active & ~accept).to(torch.int32)
@@ -620,8 +633,9 @@ def save_segments(dz_m: float, n_steps: int, save_every: int):
 def adaptive_over_grid(y0, attempt, order: int, *, dz_m: float, n_steps: int, save_every: int,
                        rtol: float, atol: float, max_steps: int, keep_rows: bool = False):
     """The save-grid contract of the adaptive split-step solvers over a
-    ``(B, T)`` state, ``attempt(y, hb)`` returning the (coarse, fine) pair
-    of a step-doubling attempt of a method of ``order``.  Returns ``(rows,
+    ``(B, T)`` or ``(B, 2, T)`` state, ``attempt(y, hb)`` returning the
+    (coarse, fine) pair of a step-doubling attempt of a method of
+    ``order`` (``hb`` shaped to broadcast over the state).  Returns ``(rows,
     peak_max, y_last, ok, n_accepted, n_rejected)``.  Each saved segment
     ``[z_i, z_{i+1}]`` runs in absolute z from ``dt0 = dz``, carried across
     segments; the trailing span ``[z_S, n_steps dz]`` is integrated for

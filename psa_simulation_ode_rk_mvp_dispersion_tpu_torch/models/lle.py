@@ -49,7 +49,8 @@ from ..config import SimulationConfig, validate_config
 from ..ops.integrators import rk4ip_step
 from ..parallel.sweep import VALID_ENGINES   # 'torch' is JAX's 'scan', 'cuda' its 'pallas'
 from ..utils.checks import resolve_device
-from ..utils.precision import dtypes_for, require_non_df32, validate_precision
+from ..utils.precision import (dtypes_for, require_f64_leaves, require_non_df32,
+                               validate_precision)
 from .fwm4 import _host
 from .gnlse import (  # noqa: F401 -- TimeGrid is part of this module's API, as in JAX's
     TimeGrid,
@@ -436,13 +437,8 @@ def _check_df32(coeffs: LLECoeffs, method: str) -> None:
     if method != "strang":
         raise ValueError("precision='df32' LLE solves are fixed-step Strang (integrator='rk4') "
                          "only (use x32/x64 for rk4ip/rk45/rk4ip45)")
-    for f in dataclasses.fields(coeffs):
-        v = getattr(coeffs, f.name)
-        dt = v.dtype if isinstance(v, torch.Tensor) else np.asarray(v).dtype
-        if dt != (torch.float64 if isinstance(v, torch.Tensor) else np.float64):
-            raise ValueError(
-                f"LLE df32: the df32 tier needs float64 coefficients, but {f.name} has dtype "
-                f"{dt} -- build it with precision='df32'")
+    require_f64_leaves("LLE df32", **{f.name: getattr(coeffs, f.name)
+                                      for f in dataclasses.fields(coeffs)})
 
 
 def _setup(cfg: SimulationConfig, coeffs: LLECoeffs):

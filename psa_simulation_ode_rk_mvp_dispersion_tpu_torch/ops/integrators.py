@@ -209,12 +209,14 @@ def integrate_fixed_grid(
     n_steps: int,
     save_every: int = 1,
     check_nan: bool = True,
+    unroll: int = 4,
     method: str = "rk4",
     batch_ndim: int = 0,
 ) -> IntegrationResult:
     """Integrate ``n_steps`` fixed steps from ``z0`` with step ``dz``,
     saving every ``save_every``-th state.  ``method``: ``'rk4'``, ``'ab4'``
-    or ``'abm4'``, all under the same save-grid / NaN-freeze contract."""
+    or ``'abm4'``, all under the same save-grid / NaN-freeze contract.
+    ``unroll`` is accepted for API parity and has no effect."""
     method = _check_args(save_every, n_steps, method)
     z0, dz = float(z0), float(dz)
     rows = [y0]
@@ -256,13 +258,14 @@ def integrate_reduce(
     reduce_init: Any = None,
     reduce_fn: Optional[Callable[[Any, torch.Tensor], Any]] = None,
     check_nan: bool = True,
+    unroll: int = 4,
     method: str = "rk4",
     batch_ndim: int = 0,
 ) -> ReduceResult:
     """Like :func:`integrate_fixed_grid`, but folds each saved sample (the
     initial state and every ``save_every``-th state) into
     ``reduce_fn(acc, y)`` instead of stacking the trajectory: O(B * state)
-    memory for a batch of B instances."""
+    memory for a batch of B instances.  ``unroll`` has no effect."""
     if reduce_fn is None:
         raise ValueError("reduce_fn is required")
     method = _check_args(save_every, n_steps, method)

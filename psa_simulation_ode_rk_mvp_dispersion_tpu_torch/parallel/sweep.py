@@ -177,6 +177,7 @@ def solve_batch(
     *,
     frame: str = "rotating",
     mesh=None,
+    unroll: int = 4,
     engine: str = "auto",
     progress=None,
     progress_chunk: int = 16384,
@@ -199,7 +200,8 @@ def solve_batch(
     ``fwm4_rk45.cu`` for rk45 (with ``cfg.rtol``/``atol``/``max_steps``;
     ``check_nan`` does not apply, the adaptive solve always masks a failed
     lane).  ``device=None`` means the CUDA card.  ``mesh`` must be None:
-    multi-device solves are not ported yet.
+    multi-device solves are not ported yet.  ``unroll`` (the JAX scan's
+    unroll factor) is accepted for API parity and has no effect.
     """
     if engine not in VALID_ENGINES:
         raise ValueError(f"engine must be one of {VALID_ENGINES}, got {engine!r}")
@@ -291,6 +293,7 @@ def solve_batch_trajectories(
     *,
     frame: str = "rotating",
     mesh=None,
+    unroll: int = 4,
     device=None,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Batched solve returning full decimated trajectories
@@ -299,7 +302,8 @@ def solve_batch_trajectories(
     ``cfg.integrator`` may be 'rk4', 'ab4', 'abm4' or 'rk45'.  Plain torch
     on ``device`` (``None``: the CUDA card): neither package has a kernel
     for this mode.  ``df32`` runs in float64 (the JAX package refuses it
-    here: it has no two-float trajectory engine).  ``mesh`` must be None.
+    here: it has no two-float trajectory engine).  ``mesh`` must be None;
+    ``unroll`` is accepted for API parity and has no effect.
     """
     _device, A0, gamma, alpha, dbeta = _batch_inputs(cfg, coeffs, A0, frame=frame, mesh=mesh,
                                                      device=device)

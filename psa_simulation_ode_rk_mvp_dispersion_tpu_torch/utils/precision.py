@@ -14,6 +14,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 VALID_PRECISIONS = ("x64", "x32", "df32")
@@ -60,3 +61,16 @@ def require_non_df32(precision: str, *, family: str) -> str:
             f"precision='df32' is not implemented for the {family} solvers; use 'x64' "
             "(float64) or 'x32' (float32)")
     return p
+
+
+def require_f64_leaves(what: str, **arrays) -> None:
+    """Refuse coefficients already rounded to float32 in a ``df32`` solve,
+    whose <=1e-9 promise needs float64 inputs (the JAX package's check of
+    the same name, for its two-float split); build them with
+    ``precision='df32'``."""
+    for name, a in arrays.items():
+        dt = a.dtype if isinstance(a, torch.Tensor) else np.asarray(a).dtype
+        if dt not in (torch.float64, np.dtype(np.float64)):
+            raise ValueError(
+                f"{what}: df32 solves need float64 inputs, but {name} has dtype {dt} -- build "
+                "it with precision='df32'")

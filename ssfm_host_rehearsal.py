@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Rehearse the LLE split-step kernels on the CPU, before a card is at hand.
+"""Rehearse the LLE and vector split-step kernels on the CPU, before a card
+is at hand.
 
 Run from the root of a checkout on a machine with g++ (no card, no nvcc):
 
     python3 ssfm_host_rehearsal.py
 
-It compiles ``csrc/gnlse_ssfm.cu`` and ``csrc/ssfm_rk45.cu`` as host C++
-into ``build/host_rehearsal/``: a stub ``cuda_runtime.h`` defines the CUDA
+It compiles ``csrc/gnlse_ssfm.cu``, ``csrc/ssfm_rk45.cu`` and
+``csrc/vgnlse_ssfm.cu`` as host C++ into ``build/host_rehearsal/``: a stub
+``cuda_runtime.h`` defines the CUDA
 qualifiers away, a block runs as one thread (``__syncthreads`` a no-op,
 ``__syncthreads_and(p)`` = p, ``__shfl_down_sync`` 0, ``__ldg`` a load),
 ``extern __shared__`` becomes a static buffer and each ``<<<...>>>`` launch
@@ -15,12 +17,22 @@ round.  It then calls the LLE launchers (K7 ``lle_ssfm_*``, K8's LLE route
 ``ssfm_rk45_lle_*``) through ctypes with the arguments their wrappers pass,
 on 5 soliton-ansatz cavities of 256 samples (a complex pump, one cavity
 overflowing), shared and per-cavity phase, and prints each against its
-plain version.  It cannot see what only the card's compiler refuses.
+plain version; then the vector launchers (K9 ``vgnlse_ssfm_*``) on 5
+two-polarization sech pulses of 256 and 384 samples (each body: rotation,
+coherent, Raman/steepening; shared and per-instance factor planes; one
+instance overflowing; a trailing partial chunk).  It cannot see what only
+the card's compiler refuses.
+
+``--readings`` prints instead the CPU readings of the plain vector version
+at ``chip_smoke.py``'s vector configuration (8 instances): the plain fp32
+version and the plain version with gamma 0.1% off against the plain fp64
+version, the readings the fp32 bars of the card check are set from.
 """
 
 import ctypes
 import re
 import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -30,6 +42,7 @@ import psa_torch as psa
 from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.models.gnlse import save_segments
 from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_lle as cl
 from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_ssfm_adaptive as csa
+from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_vgnlse as cv
 from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops._build import CSRC_DIR
 from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops.cuda_gnlse import twiddles
 
@@ -56,7 +69,8 @@ inline double2 __ldg(const double2* p) { return *p; }
 inline float2 __ldg(const float2* p) { return *p; }
 typedef int cudaError_t;
 typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
+       cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 template <typename F> inline int cudaFuncSetAttribute(F, int, int) { return 0; }
 inline int cudaGetLastError() { return 0; }
 """
@@ -114,12 +128,128 @@ def k8(lib, psi0, det, F, ph, dt, n_steps, save_every, rtol, atol, max_steps=20_
     return pk, y, ok.bool(), na, nr
 
 
+def k9(lib, y0, gamma, alpha, b, ph, coherent, nl, dz, n_steps, save_every):
+    """One call of vgnlse_ssfm_* with the arguments of
+    cuda_vgnlse.solve_vgnlse_batch_cuda."""
+    B, _, T = y0.shape
+    rdt = y0.real.dtype
+    Lh, Lf, stride = cv.factor_planes(alpha, ph, dz, y0)
+    tw = twiddles(T, "cpu")
+    if nl is None:
+        hrc, om, f_r, inv_w0 = tw, tw, 0.0, 0.0
+    else:
+        hrc = torch.complex(nl.hr_re, -nl.hr_im).contiguous()
+        om, f_r, inv_w0 = nl.omega.contiguous(), float(nl.f_r), float(nl.inv_w0)
+    pk, y = torch.empty((B, 2), dtype=rdt), torch.empty_like(y0)
+    ok = torch.empty(B, dtype=torch.uint8)
+    fn = getattr(lib, f"vgnlse_ssfm_{'f64' if rdt == torch.float64 else 'f32'}")
+    d = ctypes.c_double
+    err = fn(ptr(y0), ptr(Lh), ptr(Lf), stride, ptr(gamma), ptr(tw), ptr(hrc), ptr(om), ptr(pk),
+             ptr(y), ptr(ok), B, T, n_steps, save_every, cv.BODIES[cv.body_of(coherent, nl)],
+             d(dz), d(float(b)), d(coherent), d(f_r), d(inv_w0), None)
+    if err:
+        raise RuntimeError(f"vgnlse_ssfm returned {err}")
+    return pk, y, ok.bool()
+
+
 def normwise(a, b):
-    return float(((a - b).abs().amax(-1) / b.abs().amax(-1)).max())
+    dims = tuple(range(1, a.ndim))
+    return float(((a - b).abs().amax(dims) / b.abs().amax(dims)).max())
+
+
+def vector_pulses(grid, B, theta=0.4):
+    """Sech pulses at 0.5-1.0 x the soliton power (the first half of
+    bench_gnlse.py's 0.5-1.5 ramp over 2B envelopes) split at theta."""
+    P0 = psa.gnlse.soliton_peak_power(-2e-26, 2e-3, 1e-12)
+    A = (np.sqrt(np.linspace(0.5, 1.5, 2 * B)[:B] * P0)[:, None]
+         / np.cosh(grid.t()[None, :] / 1e-12))
+    return np.stack([np.cos(theta) * A, np.sin(theta) * A], axis=1).astype(np.complex128)
+
+
+def vector(lib9):
+    """K9 against its plain version, every body, fp64 and fp32."""
+    vg = psa.vgnlse
+    disp = psa.DispersionParams.from_betas(1.2e15, beta2=-2e-26)
+    for n in (256, 384):
+        grid = vg.TimeGrid.for_pulse(1e-12, n_samples=n)
+        A0 = vector_pulses(grid, 5)
+        A0[2] *= 1e3                                  # with the loss below: overflows
+        for coupling, nl_case in (("manakov", None), ("cnlse", None), ("isotropic", None),
+                                  ("manakov", (0.18, 1.2e15)), ("isotropic", (0.18, None))):
+            co = vg.make_vgnlse_coeffs(grid, disp, gamma_W_m=2e-3, alpha_1_m=5e-5,
+                                       coupling=coupling, dbeta0_1_m=8.0, dbeta1_s_m=1e-13)
+            nl = None if nl_case is None else psa.gnlse.make_nl_terms(
+                grid, f_raman=nl_case[0], omega0=nl_case[1])
+            for rdt, cdt in ((torch.float64, torch.complex128), (torch.float32, torch.complex64)):
+                gamma, alpha, b, ph = vg.lane_coeffs(co, 5, n, rdt, "cpu")
+                alpha = alpha.clone()
+                alpha[2] = -4e6 if rdt == torch.float64 else -4e4
+                nl_t = psa.gnlse._cast_nl(nl, rdt, "cpu")
+                y0 = torch.as_tensor(A0).to(cdt)
+                for n_steps, rows in ((12, False), (14, True)):
+                    phr = ph if not rows else (
+                        ph[None] * torch.linspace(0.9, 1.1, 5, dtype=rdt)[:, None, None])
+                    phr = phr.contiguous()
+                    pk, y, ok = k9(lib9, y0, gamma, alpha, b, phr, co.coherent, nl_t, 0.02,
+                                   n_steps, 4)
+                    r = cv.solve_vgnlse_batch_torch(y0, gamma, alpha, b, phr, co.coherent,
+                                                    dz_m=0.02, n_steps=n_steps, save_every=4,
+                                                    nl=nl_t)
+                    g = r.ok
+                    e_pk = float(((pk[g] - r.peak_max[g]) / r.peak_max[g]).abs().max())
+                    print(f"K9 n={n} {coupling} {'nl ' if nl_case else ''}{str(rdt)[6:]} "
+                          f"{n_steps} steps {'per-instance' if rows else 'shared'} planes: ok "
+                          f"{ok.tolist() == r.ok.tolist()} ({int(ok.sum())}/5), bad frozen "
+                          f"{torch.equal(y[2], y0[2])}, A_end {normwise(y[g], r.A_end[g]):.2e}, "
+                          f"peak {e_pk:.2e}")
+
+
+def readings():
+    """The plain vector version at chip_smoke.py's configuration on 8 of its
+    1,024 instances (T = 1,024, 1,000 steps of 0.01 m, save_every=100,
+    theta = 0.4, alpha 5e-5): fp32 and gamma 0.1% off against fp64."""
+    vg = psa.vgnlse
+    grid = vg.TimeGrid.for_pulse(1e-12, n_samples=1024)
+    disp = psa.DispersionParams.from_betas(1.2e15, beta2=-2e-26)
+    sub = np.linspace(0, 1023, 8).astype(int)
+    A0 = vector_pulses(grid, 1024)[sub]
+    kw = dict(dz_m=0.01, n_steps=1000, save_every=100)
+    for coupling, nl_case, bire in (("manakov", None, {}),
+                                    ("cnlse", None, dict(dbeta0_1_m=0.3, dbeta1_s_m=1e-13)),
+                                    ("isotropic", None, dict(dbeta0_1_m=8.0)),
+                                    ("manakov", (0.18, 1.2e15), {})):
+        co = vg.make_vgnlse_coeffs(grid, disp, gamma_W_m=2e-3, alpha_1_m=5e-5, coupling=coupling,
+                                   **bire)
+        nl = None if nl_case is None else psa.gnlse.make_nl_terms(
+            grid, f_raman=nl_case[0], omega0=nl_case[1])
+        out = {}
+        for rdt, cdt in ((torch.float64, torch.complex128), (torch.float32, torch.complex64)):
+            gamma, alpha, b, ph = vg.lane_coeffs(co, 8, 1024, rdt, "cpu")
+            nl_t = psa.gnlse._cast_nl(nl, rdt, "cpu")
+            y0 = torch.as_tensor(A0).to(cdt)
+            out[rdt] = cv.solve_vgnlse_batch_torch(y0, gamma, alpha, b, ph, co.coherent,
+                                                   nl=nl_t, **kw)
+            if rdt == torch.float64:
+                out["off"] = cv.solve_vgnlse_batch_torch(y0, gamma * (1 + 1e-3), alpha, b, ph,
+                                                         co.coherent, nl=nl_t, **kw)
+        ref = out[torch.float64]
+
+        def err(r):
+            return (normwise(r.A_end.to(torch.complex128), ref.A_end),
+                    float(((r.peak_max.double() - ref.peak_max) / ref.peak_max).abs().max()))
+
+        e32, eoff = err(out[torch.float32]), err(out["off"])
+        print(f"{coupling}{' nl' if nl_case else ''}: plain fp32 vs plain fp64 A_end {e32[0]:.3e}, "
+              f"peak {e32[1]:.3e}; gamma 0.1% off vs plain fp64 A_end {eoff[0]:.3e}, "
+              f"peak {eoff[1]:.3e}")
 
 
 def main():
     torch.set_num_threads(1)
+    if "--readings" in sys.argv:
+        readings()
+        return
+    vector(build("vgnlse_ssfm"))
     lib7, lib8 = build("gnlse_ssfm"), build("ssfm_rk45")
     grid = psa.lle.TimeGrid(n_samples=256, t_window_s=20.0)
     dets = np.linspace(3.5, 4.5, 5)

@@ -29,6 +29,8 @@ _PULSE_A0 = np.full((2, 128), 0.1, dtype=np.complex128)
 _CAVITY = T.LLECoeffs(detuning=1.0, pump_re=1.0, pump_im=0.0, lin_phase=np.zeros(128))
 _CAVITY_A0 = np.full((2, 128), 0.1, dtype=np.complex128)
 _LLE_GRID = T.TimeGrid(n_samples=128, t_window_s=20.0)
+_VECTOR = T.VGNLSECoeffs(gamma=0.01, alpha=0.0, b_xpm=1.0, lin_phase=np.zeros((2, 128)))
+_VECTOR_A0 = np.full((2, 2, 128), 0.1, dtype=np.complex128)
 
 ENTRY_POINTS = {
     "solve_batch": lambda **d: T.solve_batch(_CFG, _COEFFS, _A0, **d),
@@ -81,6 +83,14 @@ ENTRY_POINTS = {
                                                detuning_end=1.0, **d),
     "detuning_scan": lambda **d: T.detuning_scan(_CFG, _LLE_GRID, detunings=[0.5, 1.0],
                                                  pump=1.0, d2=-1.0, **d),
+    "solve_vgnlse_batch": lambda **d: T.solve_vgnlse_batch(_CFG, _VECTOR, _VECTOR_A0, **d),
+    "solve_vgnlse_batch_rk45": lambda **d: T.solve_vgnlse_batch(
+        T.custom_simulation_config(z_max=1.0, dz=0.1, integrator="rk45"), _VECTOR, _VECTOR_A0,
+        **d),
+    "run_vgnlse_simulation": lambda **d: T.run_vgnlse_simulation(_CFG, _VECTOR, _VECTOR_A0[0],
+                                                                 **d),
+    "solve_vgnlse_batch_trajectories": lambda **d: T.solve_vgnlse_batch_trajectories(
+        _CFG, _VECTOR, _VECTOR_A0, **d),
     "from_reference": lambda **d: interop.from_reference(
         J.RHSCoeffs(gamma=np.ones(2), alpha=np.zeros(2), delta_beta=np.zeros(2)), **d),
 }
@@ -110,7 +120,9 @@ def test_entry_point_without_device_raises_when_there_is_no_card(no_card, name):
                                   "solve_gnlse_batch_trajectories", "solve_lle_batch",
                                   "solve_lle_batch_rk45", "run_lle_simulation",
                                   "solve_lle_batch_trajectories", "run_lle_ramp",
-                                  "detuning_scan"])
+                                  "detuning_scan", "solve_vgnlse_batch",
+                                  "solve_vgnlse_batch_rk45", "run_vgnlse_simulation",
+                                  "solve_vgnlse_batch_trajectories"])
 def test_entry_point_runs_on_the_cpu_when_asked(no_card, name):
     assert ENTRY_POINTS[name](device="cpu") is not None
 

@@ -577,3 +577,127 @@ def test_solve_lle_batch_auto_runs_the_kernels(card):
         if name is None:
             with pytest.raises(ValueError, match="Strang"):
                 tl.solve_lle_batch(cfg, co, psi0, engine="cuda")
+
+
+# ---------------------------------------------------------------------------
+# K9: the vector split-step kernel, csrc/vgnlse_ssfm.cu
+# ---------------------------------------------------------------------------
+
+from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.models import vgnlse as tv  # noqa: E402
+from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_vgnlse as cv  # noqa: E402
+
+# body label -> (coupling, nl terms (f_R, omega_0) or None)
+VBODIES = {"rotation_manakov": ("manakov", None), "rotation_cnlse": ("cnlse", None),
+           "coherent": ("isotropic", None), "nl_manakov": ("manakov", (0.18, 1.2e15)),
+           "nl_isotropic": ("isotropic", (0.18, None))}
+
+
+def _vector_inputs(B, n, rdt, device, coupling, nl_case=None, bad=None, rows=False):
+    """Two-polarization sech pulses (0.5-1.5 x the soliton power, theta =
+    0.4) with birefringence; instance ``bad`` has a gain that overflows in
+    its first chunk; ``rows``: one phase plane an instance."""
+    grid = tv.TimeGrid.for_pulse(1e-12, n_samples=n)
+    co = tv.make_vgnlse_coeffs(grid, T.DispersionParams.from_betas(1.2e15, beta2=-2e-26),
+                               gamma_W_m=2e-3, alpha_1_m=5e-5, coupling=coupling,
+                               dbeta0_1_m=8.0, dbeta1_s_m=1e-13)
+    P0 = tg.soliton_peak_power(-2e-26, 2e-3, 1e-12)
+    A = np.sqrt(np.linspace(0.5, 1.5, B) * P0)[:, None] / np.cosh(grid.t()[None, :] / 1e-12)
+    A0 = np.stack([np.cos(0.4) * A, np.sin(0.4) * np.exp(0.5j) * A], axis=1)
+    cdt = torch.complex128 if rdt == torch.float64 else torch.complex64
+    g, a, b, ph = tv.lane_coeffs(co, B, n, rdt, device)
+    if bad is not None:
+        a = a.clone()
+        a[bad] = -4e6
+    if rows:
+        ph = (ph[None] * torch.linspace(0.9, 1.1, B, dtype=rdt, device=device)[:, None, None])
+    nl = None if nl_case is None else tg._cast_nl(
+        tg.make_nl_terms(grid, f_raman=nl_case[0], omega0=nl_case[1]), rdt, device)
+    return (torch.as_tensor(A0, device=device).to(cdt), g, a, b, ph.contiguous()), co, nl
+
+
+@pytest.mark.parametrize("rdt", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("body", sorted(VBODIES))
+@pytest.mark.parametrize("n,n_steps,rows", [(128, 12, False), (384, 14, True),
+                                            (1024, 13, False), (2048, 14, True)])
+def test_vgnlse_kernel_matches_plain_version(card, rdt, body, n, n_steps, rows):
+    """Every body and width class (r = 1 and r = 3 groups, the widest
+    block), shared and per-instance planes, a blown-up instance and, for 13
+    and 14 steps at save_every=4, a trailing partial chunk.  The fp64 nl
+    block at n = 2048 does not fit in shared memory: the wrapper refuses it
+    with the numbers."""
+    coupling, nl_case = VBODIES[body]
+    t, co, nl = _vector_inputs(9, n, rdt, card, coupling, nl_case, bad=4, rows=rows)
+    kw = dict(dz_m=0.02, n_steps=n_steps, save_every=4, nl=nl)
+    if cv.width_problem(n, rdt, card, cv.body_of(co.coherent, nl)) is not None:
+        assert rdt == torch.float64 and nl is not None and n == 2048
+        with pytest.raises(ValueError, match="bytes of shared memory"):
+            cv.solve_vgnlse_batch_cuda(*t, co.coherent, **kw)
+        return
+    name = f"vgnlse_ssfm_{'f64' if rdt == torch.float64 else 'f32'}"
+    launches = _build.LAUNCHES[name]
+    rk = cv.solve_vgnlse_batch_cuda(*t, co.coherent, **kw)
+    rp = cv.solve_vgnlse_batch_torch(*t, co.coherent, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[name] == launches + 1
+    assert torch.equal(rk.ok, rp.ok) and not bool(rk.ok[4]) and int(rk.ok.sum()) == 8
+    assert torch.isfinite(rk.A_end).all()
+    assert torch.equal(rk.A_end[4], t[0][4]) and torch.equal(rp.A_end[4], t[0][4])
+    good = rk.ok
+    assert _normwise(rk.A_end[good].flatten(1), rp.A_end[good].flatten(1)) <= SSFM_TOL[rdt]
+    torch.testing.assert_close(rk.peak_max[good], rp.peak_max[good], rtol=SSFM_TOL[rdt], atol=0)
+
+
+def test_vgnlse_kernel_shared_memory_matches_the_source(card):
+    lib = _build.load_library("vgnlse_ssfm")
+    for n in (128, 1024, 2048):
+        for rdt in (torch.float64, torch.float32):
+            for body, code in cv.BODIES.items():
+                assert lib.vgnlse_ssfm_shared_bytes(n, rdt.itemsize, code) == \
+                    cv.shared_bytes(n, rdt, body)
+    assert cv.width_problem(1024, torch.float64, card, "nl") is None
+    assert cv.width_problem(2048, torch.float32, card, "nl") is None
+
+
+@pytest.mark.parametrize("rdt", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_vgnlse_kernel_with_an_empty_polarization_is_the_scalar_kernel(card, rdt):
+    """A_y = 0: K9 on the pulses is K6 on their x parts at the same gamma
+    (the rotation's angle reduces to K6's; the y part stays exactly 0)."""
+    t, co, _ = _vector_inputs(6, 1024, rdt, card, "cnlse")
+    A0 = t[0].clone()
+    A0[:, 1] = 0
+    ph = t[4][0].contiguous()                        # no birefringence: both rows alike
+    ph = torch.stack([ph, ph]).contiguous()
+    kw = dict(dz_m=0.02, n_steps=50, save_every=10)
+    rv = cv.solve_vgnlse_batch_cuda(A0, t[1], t[2], t[3], ph, **kw)
+    rs = cg.solve_gnlse_batch_cuda(A0[:, 0].contiguous(), t[1], t[2], ph[0].contiguous(), **kw)
+    torch.cuda.synchronize()
+    assert bool(rv.ok.all()) and bool(rs.ok.all()) and not bool(rv.A_end[:, 1].abs().any())
+    assert _normwise(rv.A_end[:, 0], rs.A_end) <= SSFM_TOL[rdt]
+    torch.testing.assert_close(rv.peak_max[:, 0], rs.peak_max, rtol=SSFM_TOL[rdt], atol=0)
+
+
+def test_solve_vgnlse_batch_auto_runs_the_kernel(card):
+    t, co, _ = _vector_inputs(8, 256, torch.float64, card, "manakov")
+    A0 = t[0].cpu().numpy()
+    grid = tv.TimeGrid.for_pulse(1e-12, n_samples=256)
+    nl = tg.make_nl_terms(grid, f_raman=0.18, omega0=1.2e15)
+    for integrator, precision, use_nl, name in (("rk4", "df32", False, "vgnlse_ssfm_f64"),
+                                                ("rk4", "x32", True, "vgnlse_ssfm_f32"),
+                                                ("rk45", "x64", False, None),
+                                                ("rk4ip", "x64", True, None)):
+        cfg = T.custom_simulation_config(z_max=0.5, dz=0.05, save_every=3, integrator=integrator,
+                                         precision=precision, rtol=1e-9, atol=1e-12)
+        cof = tv.make_vgnlse_coeffs(grid, T.DispersionParams.from_betas(1.2e15, beta2=-2e-26),
+                                    gamma_W_m=2e-3, alpha_1_m=5e-5, coupling="manakov",
+                                    precision=precision)
+        kw = dict(nl=nl if use_nl else None)
+        _build.LAUNCHES.clear()
+        pk, A, ok = tv.solve_vgnlse_batch(cfg, cof, A0, **kw)
+        assert _build.LAUNCHES == ({name: 1} if name else {}) and ok.all()
+        pk2, A2, ok2 = tv.solve_vgnlse_batch(cfg, cof, A0, engine="torch", device=card, **kw)
+        assert _build.LAUNCHES == ({name: 1} if name else {})
+        bar = 1e-4 if precision == "x32" else 1e-11
+        assert np.max(np.abs(A - A2).max((-2, -1)) / np.abs(A2).max((-2, -1))) <= bar
+        if name is None:
+            with pytest.raises(ValueError, match="rk4 only"):
+                tv.solve_vgnlse_batch(cfg, cof, A0, engine="cuda", **kw)
