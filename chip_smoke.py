@@ -82,18 +82,19 @@ Phases (any failure raises, and the script exits non-zero):
     0.1% off;
 17. the GNLSE main path: ``gnlse.solve_gnlse_batch`` at the full size at
     ``df32`` Kerr (``device`` left out), ``x32`` Kerr, ``df32`` ``nl``,
-    ``x32`` ``nl``, rk45 ``x64`` and rk45 ``x32``, one K6 or K8 launch
-    each, every envelope ``ok``; an 8-envelope subset against the plain
+    ``x32`` ``nl``, rk45 ``x64`` and rk45 ``x32``, one launch each of the
+    route (K6 Kerr, K6 nl, K8), every envelope ``ok``; an 8-envelope subset against the plain
     fp64 version on the CPU in relative power on the core (above 1% of the
     peak) and the tails (above 1e-6), as ``bench_gnlse.py:393-397``
     measures them (bars: df32 1e-9, x32 4.5e-3 / 2.6e-2, rk45 x64 1e-7 and
     x32 5e-4 on the core); one ``run_gnlse_simulation`` on the card against
     the CPU, and one ``engine='auto'`` rk4ip call, which runs plain torch;
-18. GNLSE times (median of 5 warm reps) of the kernels and of
-    ``solve_gnlse_batch`` end to end, and of the same integrations through
-    ``torch.fft`` (cuFFT), K6's and K8's library calls; the plain versions
-    once each, in phases 15 and 16.  The bounds count the flop of the
-    kernels' sources, transforms included;
+18. GNLSE times (median of 5 warm reps) of the kernels (K6 Kerr and nl,
+    K8) and of ``solve_gnlse_batch`` end to end, and of the same
+    integrations through ``torch.fft`` (cuFFT), each route's library call
+    (median of 2 for nl); the plain versions once each, in phases 15 and
+    16.  The bounds count the least flop, transforms included, the Raman
+    pairs as real-input transforms;
 19. LLE kernel K7 (the affine instantiation of ``csrc/gnlse_ssfm.cu``) vs
     its plain version on the card at the ``bench_lle.py`` configuration
     (4,096 soliton-ansatz cavities of 256 samples, Delta in [3.6, 4.4],
@@ -130,17 +131,20 @@ Phases (any failure raises, and the script exits non-zero):
     body: manakov (rotation), cnlse with phase and group birefringence
     (rotation), isotropic (the coherent RK4) and manakov with Raman and
     self-steepening (nl), a run with a trailing partial chunk (1,005 steps),
-    and the nl body at T = 2,048 in fp32 (256 instances; fp64 refuses that
-    block, which does not fit in shared memory): fp64 within 1e-11 of each
+    and the nl body at T = 2,048 in fp64 and fp32 (256 instances): fp64
+    within 1e-11 of each
     instance's largest amplitude, fp32 against the fp64 plain version within
     1e-4 (A_end and the peak), printed beside the fp32 plain version's own
     error and the plain version with gamma 0.1% off; equal ``ok``, the bad
     instance frozen at its input;
 24. one empty polarization: K9 with A_y = 0 against K6 on the x parts at
-    the same gamma (fp64 within 1e-11, fp32 1e-5), A_y staying 0;
+    the same gamma, the rotation against Kerr (fp64 within 1e-11, fp32
+    1e-5; bit for bit is logged) and the nl body against K6 nl at the same
+    f_R and 1/omega_0 (1e-11, 1e-4), A_y staying 0;
 25. the vector main path: ``vgnlse.solve_vgnlse_batch`` at ``df32`` manakov
-    (``device`` left out), ``x32`` manakov, ``df32`` isotropic and ``x32``
-    manakov with nl, one K9 launch each, every instance ``ok``; an
+    (``device`` left out), ``x32`` manakov, ``df32`` and ``x32`` isotropic,
+    ``df32`` and ``x32`` manakov with nl, one launch each of the body's
+    route, every instance ``ok``; an
     8-instance subset against the plain fp64 version on the CPU in relative
     power on the core and the tails (bars 1e-9, and 4.5e-3 / 2.6e-2 at
     x32); ``run_vgnlse_simulation`` and ``solve_vgnlse_batch_trajectories``
@@ -148,11 +152,14 @@ Phases (any failure raises, and the script exits non-zero):
     runs the plain torch controller (no launch);
 26. vector times (median of 5 warm reps) of K9's three bodies, of
     ``solve_vgnlse_batch`` end to end (instance-steps/s) and of the same
-    Strang integration through ``torch.fft``, K9's library call.
+    Strang integration through ``torch.fft``, each body's library call
+    (median of 2 for coherent and nl).
 
 Each main path is driven with the launch counts cleared just before it and
-read just after.  The line before the last is a JSON object describing each
-kernel; the last line is ``{"ok": true, "device": {...}}``.
+read just after; the SSFM sources count each route apart (K6 Kerr and nl,
+K9 rotation, coherent and nl), and each route is a row of the kernels line.
+The line before the last is a JSON object describing each kernel; the last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 import dataclasses
@@ -170,6 +177,10 @@ ROOT = Path(__file__).resolve().parent
 N_POINTS = 10_000
 N_STEADY = 250_000
 REPS = 5
+# warm reps of the torch.fft integrations with the nonlinear terms or the
+# coherent coupling (1.3-4.2 s a call on an H100), the library calls of the
+# nl and coherent rows: fewer, for the script's run length
+NL_LIB_REPS = 2
 PKG = "psa_simulation_ode_rk_mvp_dispersion_tpu_torch"
 JAX_PKG = "psa_simulation_ode_rk_mvp_dispersion_tpu"
 
@@ -333,7 +344,7 @@ def power_errors(A, A_ref):
             float(rel[P_ref > 1e-6 * P_ref.max()].max()))
 
 
-def check_gnlse_kernel(psa, cg, dev, max_err, plain_ms, nl_ms):
+def check_gnlse_kernel(psa, cg, dev, max_err, plain_ms):
     """Phase 15: gnlse_ssfm.cu against its plain version at the bench size
     with a blown-up envelope; the plain version's 1,000-step run of each
     case is its time.  The fp32 kernel and the fp32 plain version round
@@ -353,10 +364,9 @@ def check_gnlse_kernel(psa, cg, dev, max_err, plain_ms, nl_ms):
         t0 = time.perf_counter()
         rp = cg.solve_gnlse_batch_torch(*t, **kw)
         torch.cuda.synchronize()
-        key = f"gnlse_ssfm_{suffix(rdt)}"
+        key = f"gnlse_ssfm{'_nl' if nl else ''}_{suffix(rdt)}"
         if n_steps == GN_STEPS:
-            (nl_ms if nl else plain_ms)[key + ("_nl_plain" if nl else "")] = \
-                1e3 * (time.perf_counter() - t0)
+            plain_ms[key] = 1e3 * (time.perf_counter() - t0)
             if rdt == torch.float64:
                 ref64[nl] = rp
         label = (f"gnlse kernel vs plain {str(rdt)[6:]} {'nl' if nl else 'kerr'} B={B} "
@@ -796,8 +806,7 @@ def gnlse_phases(psa, _build, cg, csa, dev, card, t_start, rec):
     ms, bound_ms, bound_by, bytes_of = (rec[k] for k in ("ms", "bound_ms", "bound_by",
                                                          "bytes_of"))
     # --- 15. GNLSE kernel K6 vs plain version --------------------------------------
-    nl_ms = {}
-    check_gnlse_kernel(psa, cg, dev, max_err, plain_ms, nl_ms)
+    check_gnlse_kernel(psa, cg, dev, max_err, plain_ms)
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 15 done")
 
     # --- 16. GNLSE kernel K8 vs plain version --------------------------------------
@@ -810,8 +819,8 @@ def gnlse_phases(psa, _build, cg, csa, dev, card, t_start, rec):
     gn_sub45 = np.linspace(0, GN_B45 - 1, 8).astype(int)
     gn_paths = (("df32", "rk4", False, "gnlse_ssfm_f64", 1e-9, 1e-9),
                 ("x32", "rk4", False, "gnlse_ssfm_f32", 4.5e-3, 2.6e-2),
-                ("df32", "rk4", True, "gnlse_ssfm_f64", 1e-9, 1e-9),
-                ("x32", "rk4", True, "gnlse_ssfm_f32", 4.5e-3, 2.6e-2),
+                ("df32", "rk4", True, "gnlse_ssfm_nl_f64", 1e-9, 1e-9),
+                ("x32", "rk4", True, "gnlse_ssfm_nl_f32", 4.5e-3, 2.6e-2),
                 ("x64", "rk45", False, "ssfm_rk45_f64", 1e-7, None),
                 ("x32", "rk45", False, "ssfm_rk45_f32", 5e-4, None))
 
@@ -895,31 +904,26 @@ def gnlse_phases(psa, _build, cg, csa, dev, card, t_start, rec):
         bytes_of[name] = nbytes
 
     for rdt in (torch.float64, torch.float32):
-        name = f"gnlse_ssfm_{suffix(rdt)}"
         item = rdt.itemsize
         # inputs: A0, the two shared factor rows, gamma, the float64
-        # twiddles (and conj(H_R), omega); outputs: the peak, A_end, ok
+        # twiddles (nl: conj(H_R), omega); outputs: the peak, A_end, ok
         nbytes = GN_B * (2 * GN_T * item * 2 + 2 * item + 1) + (2 * 2 * item + 16) * GN_T
         for nl in (False, True):
+            name = f"gnlse_ssfm{'_nl' if nl else ''}_{suffix(rdt)}"
             t, nl_t = gnlse_lanes(psa, rdt, dev, nl=nl)
-            kern_ms = 1e3 * timed(lambda: cg.solve_gnlse_batch_cuda(*t, **gn_kw, nl=nl_t))
+            ms[name] = 1e3 * timed(lambda: cg.solve_gnlse_batch_cuda(*t, **gn_kw, nl=nl_t))
             # a chunk of k steps makes k + 1 linear substeps; each save adds
             # the finite check and the peak
             tr, pw = gnlse_step_flop(GN_T, nl)
             tr = GN_B * (GN_STEPS * tr + n_saves * (fft_flop(GN_T) + fft_flop(GN_T, True)))
             pw = GN_B * (GN_STEPS * pw + n_saves * 12 * GN_T)
-            if nl:
-                key = name + "_nl"
-                nl_ms[name] = kern_ms
-                gn_flop[key] = tr + pw
-                nl_ms[name + "_bound"] = max(ops_ms(tr + pw, rdt), 1e3 * (
-                    nbytes + 3 * GN_T * item) / PEAK_BYTES)
-            else:
-                ms[name] = kern_ms
-                gn_flop[name] = tr + pw
-                gn_bound(name, ops_ms(tr + pw, rdt), nbytes)
-                # the same Strang integration through torch.fft (cuFFT) on the card
-                library_ms[name] = 1e3 * timed(lambda: cg.solve_gnlse_batch_torch(*t, **gn_kw))
+            gn_flop[name] = tr + pw
+            gn_bound(name, ops_ms(tr + pw, rdt), nbytes + (3 * GN_T * item if nl else 0))
+            # the same Strang integration through torch.fft (cuFFT) on the card;
+            # the nl one with fewer reps (seconds a call)
+            library_ms[name] = 1e3 * timed(
+                lambda: cg.solve_gnlse_batch_torch(*t, **gn_kw, nl=nl_t), reps=NL_LIB_REPS if nl
+                else REPS)
     for rdt in (torch.float64, torch.float32):
         name = f"ssfm_rk45_{suffix(rdt)}"
         rtol, atol = GN_TOL[rdt]
@@ -951,17 +955,15 @@ def gnlse_phases(psa, _build, cg, csa, dev, card, t_start, rec):
         f"bound: the least flop, the Raman pairs as real-input transforms, at FP64 "
         f"{PEAK_FLOPS[torch.float64] / 1e12:g} / FP32 {PEAK_FLOPS[torch.float32] / 1e12:g} "
         f"TFLOP/s; {PEAK_BYTES / 1e12:g} TB/s):")
-    for name in ("gnlse_ssfm_f64", "gnlse_ssfm_f32"):
-        log(f"  {name} kerr {GN_B} envelopes x {GN_STEPS} steps: {ms[name]:.3f} ms = "
+    for name in ("gnlse_ssfm_f64", "gnlse_ssfm_f32", "gnlse_ssfm_nl_f64", "gnlse_ssfm_nl_f32"):
+        nl = "_nl_" in name
+        log(f"  {name} {GN_B} envelopes x {GN_STEPS} steps: {ms[name]:.3f} ms = "
             f"{GN_B * GN_STEPS / ms[name] * 1e3:.1f} envelope-steps/s; bound {bound_ms[name]:.3f} "
             f"ms ({bound_by[name]}; {gn_flop[name]:.4g} flop, {bytes_of[name]} bytes; the kernel "
             f"at {100 * bound_ms[name] / ms[name]:.2f}% of it); torch.fft Strang integration "
-            f"(cuFFT, the library call) {library_ms[name]:.3f} ms; plain version on the card "
-            f"(one run, phase 15) {plain_ms[name]:.1f} ms")
-        log(f"  {name} nl {GN_B} envelopes x {GN_STEPS} steps: {nl_ms[name]:.3f} ms; bound "
-            f"{nl_ms[name + '_bound']:.3f} ms ({gn_flop[name + '_nl']:.4g} flop; the kernel at "
-            f"{100 * nl_ms[name + '_bound'] / nl_ms[name]:.2f}% of it); plain version on the card "
-            f"(one run, phase 15) {nl_ms[name + '_nl_plain']:.1f} ms")
+            f"(cuFFT, the library call{f', median of {NL_LIB_REPS}' if nl else ''}) "
+            f"{library_ms[name]:.3f} ms; plain version on the card (one run, phase 15) "
+            f"{plain_ms[name]:.1f} ms")
     for name in ("ssfm_rk45_f64", "ssfm_rk45_f32"):
         mean, mx = steps[name + "_timed"]
         log(f"  {name} {GN_B45} envelopes: {ms[name]:.3f} ms; bound {bound_ms[name]:.3f} ms "
@@ -1422,9 +1424,10 @@ def check_vgnlse_kernel(psa, cv, dev, max_err, plain_ms):
     """Phase 23: vgnlse_ssfm.cu against its plain version at the vector
     configuration with a blown-up instance, each body; a trailing partial
     chunk (1,005 steps) on the manakov case; the nl body also at T = 2,048
-    in fp32 (the widest it takes; 256 instances).  fp64 within 1e-11 of each
+    (the widest it takes; 256 instances).  fp64 within 1e-11 of each
     instance's largest amplitude; fp32 against the fp64 plain version of
-    the same case."""
+    the same case.  The plain version's 1,000-step run of each body at
+    T = 1,024 is its time."""
     runs = [(torch.float64, c, GN_STEPS, GN_T, VG_B) for c in VG_CASES]
     runs += [(torch.float64, VG_CASES[0], GN_STEPS + 5, GN_T, VG_B)]
     runs += [(torch.float32, c, GN_STEPS, GN_T, VG_B) for c in VG_CASES]
@@ -1436,22 +1439,17 @@ def check_vgnlse_kernel(psa, cv, dev, max_err, plain_ms):
         kw = dict(dz_m=GN_Z / GN_STEPS, n_steps=n_steps, save_every=GN_SAVE, nl=nl_t)
         label = (f"vgnlse kernel vs plain {str(rdt)[6:]} {coupling}{' nl' if nl else ''} B={B} "
                  f"T={T} n_steps={n_steps}")
-        key = f"vgnlse_ssfm_{suffix(rdt)}"
-        if rdt == torch.float64 and T == 2 * GN_T:
-            # the fp64 nl block does not fit at T = 2,048: only the fp64
-            # plain version runs, as the reference of the fp32 kernel
-            ref64[(coupling, nl, T)] = cv.solve_vgnlse_batch_torch(*t, coh, **kw)
-            why = cv.width_problem(T, rdt, dev, cv.body_of(coh, nl_t))
-            log(f"{label}: the kernel refuses it ({why})")
-            if why is None:
-                raise AssertionError(f"{label}: expected the shared-memory refusal")
-            continue
+        body = cv.body_of(coh, nl_t)
+        key = f"vgnlse_ssfm{'' if body == 'rotation' else '_' + body}_{suffix(rdt)}"
+        why = cv.width_problem(T, rdt, dev, body)
+        if why is not None:
+            raise AssertionError(f"{label}: the kernel refuses it ({why})")
         rk = cv.solve_vgnlse_batch_cuda(*t, coh, **kw)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rp = cv.solve_vgnlse_batch_torch(*t, coh, **kw)
         torch.cuda.synchronize()
-        if n_steps == GN_STEPS and T == GN_T and coupling == "manakov" and not nl:
+        if n_steps == GN_STEPS and T == GN_T and coupling != "cnlse":
             plain_ms[key] = 1e3 * (time.perf_counter() - t0)
         if rdt == torch.float64 and n_steps == GN_STEPS:
             ref64[(coupling, nl, T)] = rp
@@ -1508,24 +1506,33 @@ def vgnlse_phases(psa, _build, cv, cg, dev, card, t_start, rec):
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 23 done")
 
     # --- 24. one empty polarization: K9 is K6 ---------------------------------------
-    for rdt in (torch.float64, torch.float32):
-        t, coh, _ = vgnlse_lanes(psa, rdt, dev, "cnlse")
-        A0 = t[0].clone()
-        A0[:, 1] = 0
-        kw = dict(dz_m=GN_Z / GN_STEPS, n_steps=GN_STEPS, save_every=GN_SAVE)
-        rv = cv.solve_vgnlse_batch_cuda(A0, *t[1:], coh, **kw)
-        rs = cg.solve_gnlse_batch_cuda(A0[:, 0].contiguous(), t[1], t[2], t[4][0].contiguous(),
-                                       **kw)
-        torch.cuda.synchronize()
-        err = normwise(rv.A_end[:, 0], rs.A_end)
-        bit = torch.equal(rv.A_end[:, 0], rs.A_end) and torch.equal(rv.peak_max[:, 0],
-                                                                    rs.peak_max)
-        bar = 1e-11 if rdt == torch.float64 else 1e-5
-        log(f"empty polarization {str(rdt)[6:]}: K9 (cnlse, A_y = 0) vs K6 on A_x at the same "
-            f"gamma, {VG_B} instances: A_end {err:.3e} (bar {bar:g}), bit for bit {bit}; A_y "
-            f"stays 0: {not bool(rv.A_end[:, 1].abs().any())}")
-        if not (err <= bar and bool(rv.ok.all()) and not bool(rv.A_end[:, 1].abs().any())):
-            raise AssertionError(f"empty polarization {rdt}: {err:.3e}")
+    # the rotation against Kerr shares dft and the angle: bit for bit; the nl
+    # bodies share wide_fft, but K9 forms W_p = (1 - f_R) K_p + f_R R A_p
+    # where K6 forms A ((1 - f_R) P + f_R R): equal to rounding
+    for nl in (False, True):
+        for rdt in (torch.float64, torch.float32):
+            t, coh, nl_t = vgnlse_lanes(psa, rdt, dev, "cnlse", nl)
+            A0 = t[0].clone()
+            A0[:, 1] = 0
+            kw = dict(dz_m=GN_Z / GN_STEPS, n_steps=GN_STEPS, save_every=GN_SAVE, nl=nl_t)
+            rv = cv.solve_vgnlse_batch_cuda(A0, *t[1:], coh, **kw)
+            rs = cg.solve_gnlse_batch_cuda(A0[:, 0].contiguous(), t[1], t[2],
+                                           t[4][0].contiguous(), **kw)
+            torch.cuda.synchronize()
+            err = normwise(rv.A_end[:, 0], rs.A_end)
+            bit = torch.equal(rv.A_end[:, 0], rs.A_end) and torch.equal(rv.peak_max[:, 0],
+                                                                        rs.peak_max)
+            if nl:
+                bar = 1e-11 if rdt == torch.float64 else 1e-4
+            else:
+                bar = 1e-11 if rdt == torch.float64 else 1e-5
+            label = (f"empty polarization {str(rdt)[6:]}{' nl' if nl else ''}: K9 (cnlse, "
+                     f"A_y = 0) vs K6 on A_x at the same gamma"
+                     f"{', f_R and 1/omega_0' if nl else ''}")
+            log(f"{label}, {VG_B} instances: A_end {err:.3e} (bar {bar:g}), bit for bit {bit}; "
+                f"A_y stays 0: {not bool(rv.A_end[:, 1].abs().any())}")
+            if not (err <= bar and bool(rv.ok.all()) and not bool(rv.A_end[:, 1].abs().any())):
+                raise AssertionError(f"{label}: {err:.3e}")
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 24 done")
 
     # --- 25. the vector main path -----------------------------------------------------
@@ -1533,8 +1540,10 @@ def vgnlse_phases(psa, _build, cv, cg, dev, card, t_start, rec):
     sub = np.linspace(0, VG_B - 1, 8).astype(int)
     vg_paths = (("df32", VG_CASES[0], "vgnlse_ssfm_f64", 1e-9, 1e-9),
                 ("x32", VG_CASES[0], "vgnlse_ssfm_f32", 4.5e-3, 2.6e-2),
-                ("df32", VG_CASES[2], "vgnlse_ssfm_f64", 1e-9, 1e-9),
-                ("x32", VG_CASES[3], "vgnlse_ssfm_f32", 4.5e-3, 2.6e-2))
+                ("df32", VG_CASES[2], "vgnlse_ssfm_coherent_f64", 1e-9, 1e-9),
+                ("x32", VG_CASES[2], "vgnlse_ssfm_coherent_f32", 4.5e-3, 2.6e-2),
+                ("df32", VG_CASES[3], "vgnlse_ssfm_nl_f64", 1e-9, 1e-9),
+                ("x32", VG_CASES[3], "vgnlse_ssfm_nl_f32", 4.5e-3, 2.6e-2))
 
     def vg_cfg(precision, integrator="rk4", **kw):
         return psa.custom_simulation_config(z_max=GN_Z, dz=GN_Z / GN_STEPS, save_every=GN_SAVE,
@@ -1611,33 +1620,32 @@ def vgnlse_phases(psa, _build, cv, cg, dev, card, t_start, rec):
     # --- 26. vector times -------------------------------------------------------------
     kw = dict(dz_m=GN_Z / GN_STEPS, n_steps=GN_STEPS, save_every=GN_SAVE)
     n_saves = GN_STEPS // GN_SAVE
-    body_ms, vg_flop = {}, {}
+    vg_flop = {}
     for rdt in (torch.float64, torch.float32):
-        name, item = f"vgnlse_ssfm_{suffix(rdt)}", rdt.itemsize
+        item = rdt.itemsize
         # inputs: A0, the two shared factor planes, gamma, the float64
         # twiddles (nl: conj(H_R), omega); outputs: the two peaks, A_end, ok
         nbytes = VG_B * (2 * 2 * GN_T * item * 2 + 3 * item + 1) + (2 * 2 * 2 * item + 16) * GN_T
         for coupling, nl, bire in VG_CASES[:1] + VG_CASES[2:]:
             t, coh, nl_t = vgnlse_lanes(psa, rdt, dev, coupling, nl, bire)
             body = cv.body_of(coh, nl_t)
-            sec = timed(lambda: cv.solve_vgnlse_batch_cuda(*t, coh, nl=nl_t, **kw))
+            name = f"vgnlse_ssfm{'' if body == 'rotation' else '_' + body}_{suffix(rdt)}"
+            ms[name] = 1e3 * timed(lambda: cv.solve_vgnlse_batch_cuda(*t, coh, nl=nl_t, **kw))
             # a chunk of k steps makes k + 1 linear substeps; each save adds
             # the finite check and the two peaks
             tr, pw = vgnlse_step_flop(GN_T, body)
             pair2 = 2 * (fft_flop(GN_T) + fft_flop(GN_T, True))
             flop = VG_B * (GN_STEPS * (tr + pw) + n_saves * (pair2 + 2 * 12 * GN_T))
-            extra = 3 * GN_T * item if nl else 0
-            b_ms = max(ops_ms(flop, rdt), 1e3 * (nbytes + extra) / PEAK_BYTES)
-            body_ms[(name, body)] = (1e3 * sec, b_ms, flop)
-            if body == "rotation":
-                ms[name] = 1e3 * sec
-                vg_flop[name] = flop
-                bound_ms[name] = b_ms
-                bound_by[name] = ("operations" if ops_ms(flop, rdt) >= 1e3 * nbytes / PEAK_BYTES
-                                  else "bytes")
-                bytes_of[name] = nbytes
-                # the same Strang integration through torch.fft (cuFFT) on the card
-                library_ms[name] = 1e3 * timed(lambda: cv.solve_vgnlse_batch_torch(*t, coh, **kw))
+            nb = nbytes + (3 * GN_T * item if nl else 0)
+            vg_flop[name] = flop
+            bound_ms[name] = max(ops_ms(flop, rdt), 1e3 * nb / PEAK_BYTES)
+            bound_by[name] = "operations" if ops_ms(flop, rdt) >= 1e3 * nb / PEAK_BYTES else "bytes"
+            bytes_of[name] = nb
+            # the same Strang integration through torch.fft (cuFFT) on the card;
+            # the coherent and nl ones with fewer reps
+            library_ms[name] = 1e3 * timed(
+                lambda: cv.solve_vgnlse_batch_torch(*t, coh, nl=nl_t, **kw),
+                reps=REPS if body == "rotation" else NL_LIB_REPS)
     vg_e2e = {}
     for precision, (coupling, nl, bire), _name, _c, _t in vg_paths:
         A0v, cov, nlv = vgnlse_setup(psa, precision, coupling, nl, bire)
@@ -1648,17 +1656,21 @@ def vgnlse_phases(psa, _build, cv, cg, dev, card, t_start, rec):
         f"synchronize; bound: the least flop, two transform pairs a step, the Raman pair as "
         f"real-input transforms, at FP64 {PEAK_FLOPS[torch.float64] / 1e12:g} / FP32 "
         f"{PEAK_FLOPS[torch.float32] / 1e12:g} TFLOP/s; {PEAK_BYTES / 1e12:g} TB/s):")
-    for (name, body), (k_ms, b_ms, flop) in body_ms.items():
-        extra = ""
-        if body == "rotation":
-            extra = (f"; torch.fft Strang integration (cuFFT, the library call) "
-                     f"{library_ms[name]:.3f} ms; plain version on the card (one run, phase 23) "
-                     f"{plain_ms[name]:.1f} ms; K6 kerr on the same samples (2,048 envelopes, "
-                     f"phase 18) {ms[name.replace('vgnlse', 'gnlse')]:.3f} ms")
-        log(f"  {name} {body} {VG_B} instances x 2 x {GN_T} samples x {GN_STEPS} steps: "
-            f"{k_ms:.3f} ms = {VG_B * GN_STEPS / k_ms * 1e3:.1f} instance-steps/s; bound "
-            f"{b_ms:.3f} ms ({flop:.4g} flop; the kernel at {100 * b_ms / k_ms:.2f}% of it)"
-            f"{extra}")
+    for rdt in (torch.float64, torch.float32):
+        for body in ("rotation", "coherent", "nl"):
+            name = f"vgnlse_ssfm{'' if body == 'rotation' else '_' + body}_{suffix(rdt)}"
+            k6 = f"gnlse_ssfm{'_nl' if body == 'nl' else ''}_{suffix(rdt)}"
+            log(f"  {name} {VG_B} instances x 2 x {GN_T} samples x {GN_STEPS} steps: "
+                f"{ms[name]:.3f} ms = {VG_B * GN_STEPS / ms[name] * 1e3:.1f} instance-steps/s; "
+                f"bound {bound_ms[name]:.3f} ms ({bound_by[name]}; {vg_flop[name]:.4g} flop, "
+                f"{bytes_of[name]} bytes; the kernel at {100 * bound_ms[name] / ms[name]:.2f}% "
+                f"of it); torch.fft Strang integration (cuFFT, the library call"
+                f"{'' if body == 'rotation' else f', median of {NL_LIB_REPS}'}) "
+                f"{library_ms[name]:.3f} ms; plain version on the card (one run, phase 23) "
+                f"{plain_ms[name]:.1f} ms"
+                + ("" if body == "coherent" else
+                   f"; K6 {'nl' if body == 'nl' else 'kerr'} on the same samples (2,048 "
+                   f"envelopes, phase 18) {ms[k6]:.3f} ms"))
     for label, sec in vg_e2e.items():
         log(f"  solve_vgnlse_batch end to end, {label}, {VG_B} instances: {sec * 1e3:.3f} ms = "
             f"{VG_B * GN_STEPS / sec:.1f} instance-steps/s")
@@ -2065,7 +2077,10 @@ def main():
                "comb_rk": f"{PKG}/csrc/comb_rk.cu", "comb_rk45": f"{PKG}/csrc/comb_rk45.cu",
                "gnlse_ssfm": f"{PKG}/csrc/gnlse_ssfm.cu", "ssfm_rk45": f"{PKG}/csrc/ssfm_rk45.cu",
                "lle_ssfm": f"{PKG}/csrc/gnlse_ssfm.cu", "ssfm_rk45_lle": f"{PKG}/csrc/ssfm_rk45.cu",
-               "vgnlse_ssfm": f"{PKG}/csrc/vgnlse_ssfm.cu"}
+               "vgnlse_ssfm": f"{PKG}/csrc/vgnlse_ssfm.cu",
+               "gnlse_ssfm_nl": f"{PKG}/csrc/gnlse_ssfm.cu",
+               "vgnlse_ssfm_coherent": f"{PKG}/csrc/vgnlse_ssfm.cu",
+               "vgnlse_ssfm_nl": f"{PKG}/csrc/vgnlse_ssfm.cu"}
     replaces = {
         "fwm4_rk_f64": f"{JAX_PKG}/ops/pallas_df32.py:442",
         "fwm4_rk_f32": f"{JAX_PKG}/ops/pallas_solver.py:300",
@@ -2085,6 +2100,12 @@ def main():
         "ssfm_rk45_lle_f32": f"{JAX_PKG}/ops/pallas_ssfm_adaptive.py:101",
         "vgnlse_ssfm_f64": f"{JAX_PKG}/ops/pallas_vgnlse.py:58",
         "vgnlse_ssfm_f32": f"{JAX_PKG}/ops/pallas_vgnlse.py:58",
+        "gnlse_ssfm_nl_f64": f"{JAX_PKG}/ops/pallas_gnlse.py:360",
+        "gnlse_ssfm_nl_f32": f"{JAX_PKG}/ops/pallas_gnlse.py:360",
+        "vgnlse_ssfm_coherent_f64": f"{JAX_PKG}/ops/pallas_vgnlse.py:58",
+        "vgnlse_ssfm_coherent_f32": f"{JAX_PKG}/ops/pallas_vgnlse.py:58",
+        "vgnlse_ssfm_nl_f64": f"{JAX_PKG}/ops/pallas_vgnlse.py:58",
+        "vgnlse_ssfm_nl_f32": f"{JAX_PKG}/ops/pallas_vgnlse.py:58",
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name.rsplit("_", 1)[0]],
@@ -2095,7 +2116,9 @@ def main():
                      "comb_rk_f64", "comb_rk_f32", "comb_rk45_f64", "comb_rk45_f32",
                      "gnlse_ssfm_f64", "gnlse_ssfm_f32", "ssfm_rk45_f64", "ssfm_rk45_f32",
                      "lle_ssfm_f64", "lle_ssfm_f32", "ssfm_rk45_lle_f64", "ssfm_rk45_lle_f32",
-                     "vgnlse_ssfm_f64", "vgnlse_ssfm_f32")
+                     "vgnlse_ssfm_f64", "vgnlse_ssfm_f32", "gnlse_ssfm_nl_f64",
+                     "gnlse_ssfm_nl_f32", "vgnlse_ssfm_nl_f64", "vgnlse_ssfm_nl_f32",
+                     "vgnlse_ssfm_coherent_f64", "vgnlse_ssfm_coherent_f32")
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -38,19 +38,34 @@
 //     grows; the trailing n_steps % save_every steps are integrated from the
 //     last saved state and feed only ok.
 //
-// What bounds it: arithmetic.  A Kerr step is one transform pair (about
-// 10 n log2 n flop) and O(n) pointwise work on a state of n samples; an nl
-// step adds four evaluations of N, each two or four more transforms.  The
+// What bounds it: arithmetic and the barriers between transform passes.  A
+// Kerr step is one transform pair (about 10 n log2 n flop) and O(n)
+// pointwise work on a state of n samples; an nl step adds four evaluations
+// of N, each a Raman pair on the real power and a steepening pair.  The
 // state lives in shared memory for the whole integration; each envelope
 // reads its input once and writes its outputs (and its saved state, once a
-// chunk) to device memory.  The transforms are csrc/ssfm_common.cuh's own
-// radix-2 Stockham passes; the linear factors, the twiddles, conj(H_R) and
-// omega are read from device memory through the read-only cache, so that
-// the shared memory holds only state-sized buffers: 2 of them for Kerr, 7
-// for nl (y, its transform partner, the RK4 sums k1 + 2(k2 + k3) and
-// k2 + k3, the current derivative, the stage input, a second transform
-// scratch).  At n = 2048 in fp64 that is 229,632 bytes, inside the 232,448 a
-// Hopper block may use.
+// chunk) to device memory.  The linear factors, the twiddles, conj(H_R) and
+// omega are read from device memory through the cache, so that the shared
+// memory holds only state-sized buffers.
+//   - Kerr and K7 (gnlse_ssfm_kernel): csrc/ssfm_common.cuh's radix-2
+//     Stockham passes (dft); 2 buffers, y and its transform partner.
+//   - nl (gnlse_nl_kernel): 3 buffers, y and the transform pair; the RK4
+//     sums k1 + 2(k2 + k3) and the stage derivative stay in registers of
+//     the thread that owns the samples (sample j = tid + i nt, the same in
+//     every pointwise loop), so that at n = 1,024 in fp64 a block takes
+//     49,408 bytes, not 7 buffers' 114,944.  The transforms are the wide
+//     radix-4 passes (ssfm_common.cuh's wide_fft: 5 passes a transform at
+//     n = 1,024, not 10); the Raman pair transforms the real power as n/2
+//     complex samples (raman_spectrum unpacks, multiplies by conj(H_R) and
+//     repacks in one pass); the linear factor, the inverse's 1/n and the
+//     steepening factor act in the last pass of their transforms, since
+//     W - (i/omega_0) IDFT(i omega DFT(W)) = IDFT((1 + omega/omega_0) DFT(W)).
+//     The samples a thread owns are a template constant (2, 4 or 8), and
+//     every function of the nl path is force-inlined: the stepper's fields
+//     and sums are then registers, where a call would put them in a stack
+//     frame in local memory.
+// At n = 2048 the fp64 Kerr block takes 65,792 bytes and the nl block
+// 98,560, inside the 232,448 a Hopper block may use.
 //
 // Global layout (row-major, one row per envelope, complex as (re, im)):
 //   y0 (B, n); lh, lf (n,) with fac_stride 0 or (B, n) with fac_stride n;
@@ -74,20 +89,16 @@ using ssfm::Cx;
 using ssfm::dft;
 
 constexpr int kKerrBuffers = 2;
-constexpr int kNlBuffers = 7;
+constexpr int kNlBuffers = 3;
 constexpr int kReduceSlots = 32;
 
 // One envelope's integration: its buffers, factors and coefficients.
 template <typename T, bool Affine>
 struct Stepper {
     Block<T> c;
-    Cx<T>*y, *x;                 // the state and its transform partner
-    Cx<T>*a, *s, *k, *st, *q;    // nl only
+    Cx<T>*y, *x;  // the state and its transform partner
     const Cx<T>*lh, *lf;
-    const Cx<T>* hrc;
-    const T* omega;
-    T g, h, one_m_fr, fr, inv_w0;
-    bool use_nl, raman, steep;
+    T g, h;
     Cx<T> dp_h, dF_h, dp_f, dF_f;  // Affine only
 
     // y <- IDFT(L * DFT(y)), then, Affine, y <- y dp + dF.
@@ -101,139 +112,140 @@ struct Stepper {
         if constexpr (Affine) ssfm::affine(c, y, dp, dF);
     }
 
-    // dst = N(src) (models/gnlse._nl_rhs); p and the block's q are scratch.
-    __device__ void nl_rhs(const Cx<T>* src, Cx<T>* dst, Cx<T>* p) {
-        const int n = c.n;
-        Cx<T>* R = nullptr;  // its real parts: the Raman response
-        Cx<T>* free = p;
-        __syncthreads();
-        if (raman) {
-            for (int j = c.tid; j < n; j += c.nt) {
-                const Cx<T> v = src[j];
-                p[j] = Cx<T>{v.re * v.re + v.im * v.im, T(0)};
-            }
-            Cx<T>* f = dft<T, false>(c, p, q);
-            ssfm::mul_factor(c, f, hrc);
-            R = dft<T, true>(c, f, f == p ? q : p);
-            free = R == p ? q : p;
-        }
-        for (int j = c.tid; j < n; j += c.nt) {
-            const Cx<T> v = src[j];
-            const T P = v.re * v.re + v.im * v.im;
-            const T fac = raman ? one_m_fr * P + fr * R[j].re : one_m_fr * P;
-            const Cx<T> W{v.re * fac, v.im * fac};
-            if (steep) {
-                dst[j] = W;
-                free[j] = W;
-            } else {
-                dst[j] = Cx<T>{-(g * W.im), g * W.re};
-            }
-        }
-        if (!steep) return;
-        Cx<T>* other = free == p ? q : p;
-        Cx<T>* f = dft<T, false>(c, free, other);
-        for (int j = c.tid; j < n; j += c.nt) {
-            const Cx<T> F = f[j];
-            const T om = omega[j];
-            f[j] = Cx<T>{-(om * F.im), om * F.re};  // i omega F
-        }
-        const Cx<T>* V = dft<T, true>(c, f, f == free ? other : free);  // dW/dt
-        for (int j = c.tid; j < n; j += c.nt) {
-            const Cx<T> W = dst[j], v = V[j];
-            const T ir = W.re - inv_w0 * (-v.im);  // W - (1/omega_0) i dW/dt
-            const T ii = W.im - inv_w0 * v.re;
-            dst[j] = Cx<T>{-(g * ii), g * ir};
-        }
-    }
-
-    // One nonlinear substep of length h on y.
-    __device__ void nl() {
-        if (!use_nl) {
-            ssfm::kerr(c, y, g, h);
-            return;
-        }
-        const int n = c.n;
-        const T half = T(0.5) * h, sixth = h / T(6);
-        nl_rhs(y, a, x);  // k1
-        for (int j = c.tid; j < n; j += c.nt)
-            st[j] = Cx<T>{y[j].re + half * a[j].re, y[j].im + half * a[j].im};
-        nl_rhs(st, s, x);  // k2
-        for (int j = c.tid; j < n; j += c.nt)
-            st[j] = Cx<T>{y[j].re + half * s[j].re, y[j].im + half * s[j].im};
-        nl_rhs(st, k, x);  // k3
-        for (int j = c.tid; j < n; j += c.nt) {
-            const Cx<T> s23{s[j].re + k[j].re, s[j].im + k[j].im};
-            st[j] = Cx<T>{y[j].re + h * k[j].re, y[j].im + h * k[j].im};
-            a[j] = Cx<T>{a[j].re + T(2) * s23.re, a[j].im + T(2) * s23.im};
-        }
-        nl_rhs(st, k, x);  // k4
-        for (int j = c.tid; j < n; j += c.nt)
-            y[j] = Cx<T>{y[j].re + sixth * (a[j].re + k[j].re),
-                         y[j].im + sixth * (a[j].im + k[j].im)};
-    }
-
     // k fused symmetric steps: Lh, (NL, Lf)^(k-1), NL, Lh.
     __device__ void steps(int kk) {
         lin(lh, dp_h, dF_h);
         for (int i = 1; i < kk; ++i) {
-            nl();
+            ssfm::kerr(c, y, g, h);
             lin(lf, dp_f, dF_f);
         }
-        nl();
+        ssfm::kerr(c, y, g, h);
         lin(lh, dp_h, dF_h);
     }
 };
 
-template <typename T, bool Affine>
-__global__ void __launch_bounds__(ssfm::kMaxThreads)
-gnlse_ssfm_kernel(const Cx<T>* __restrict__ y0, const Cx<T>* __restrict__ lh,
-                  const Cx<T>* __restrict__ lf, int fac_stride, const T* __restrict__ gamma,
-                  const Cx<T>* __restrict__ aff, const Cx<double>* __restrict__ tw,
-                  const Cx<T>* __restrict__ hrc, const T* __restrict__ omega,
-                  T* __restrict__ pk_out, Cx<T>* __restrict__ y_last,
-                  uint8_t* __restrict__ ok_out, int n, int n_steps, int save_every, int use_nl,
-                  double dz, double f_r, double inv_w0) {
-    extern __shared__ __align__(16) unsigned char smem[];
-    const int b = blockIdx.x;
-    Stepper<T, Affine> st;
-    st.c.tw = tw;
-    st.c.red = reinterpret_cast<T*>(smem);
-    st.c.n = n;
-    ssfm::split(n, &st.c.m, &st.c.r);
-    st.c.tid = threadIdx.x;
-    st.c.nt = blockDim.x;
-    st.c.inv_n = 1.0 / n;
-    Cx<T>* buf = reinterpret_cast<Cx<T>*>(smem + kReduceSlots * sizeof(T));
-    st.y = buf;
-    st.x = buf + n;
-    st.a = buf + 2 * n;
-    st.s = buf + 3 * n;
-    st.k = buf + 4 * n;
-    st.st = buf + 5 * n;
-    st.q = buf + 6 * n;
-    st.lh = lh + static_cast<size_t>(b) * fac_stride;
-    st.lf = lf + static_cast<size_t>(b) * fac_stride;
-    st.hrc = hrc;
-    st.omega = omega;
-    if constexpr (Affine) {
-        st.g = T(1);
-        const Cx<T>* a = aff + 4 * static_cast<size_t>(b);
-        st.dp_h = a[0];
-        st.dF_h = a[1];
-        st.dp_f = a[2];
-        st.dF_f = a[3];
-    } else {
-        st.g = gamma[b];
-    }
-    st.h = T(dz);
-    st.fr = T(f_r);
-    st.one_m_fr = T(1) - st.fr;
-    st.inv_w0 = T(inv_w0);
-    st.use_nl = use_nl != 0;
-    st.raman = st.use_nl && f_r > 0.0;
-    st.steep = st.use_nl && inv_w0 != 0.0;
-    const Block<T>& c = st.c;
+// One envelope's nl integration: y in shared memory, the RK4 sums in
+// registers (slot i of a thread is sample tid + i nt, S slots a thread).
+template <typename T, int S>
+struct NlStepper {
+    Block<T> c;
+    ssfm::Plan full, half;  // the n-point transform; the n/2-point one of a real p
+    Cx<T>*y, *b1, *b2;      // the state and the transform pair (a permutation)
+    const Cx<T>*lh, *lf;
+    const Cx<T>* hrc;
+    const T* omega;
+    T g, h, one_m_fr, fr, inv_w0;
+    bool raman, steep;
+    Cx<T> a[S], s[S];  // k1, then k1 + 2(k2 + k3); k2, then the k4 stage input
 
+    __device__ __forceinline__ int at(int i) const { return c.tid + i * c.nt; }
+
+    // y <- IDFT(L * DFT(y)), L applied in the forward transform's last pass.
+    __device__ __forceinline__ void lin(const Cx<T>* L) {
+        Cx<T>* f = ssfm::wide_fft<T, false, 1>(full, y, b1, ssfm::MulBy<T>{L, c.n});
+        Cx<T>* r = ssfm::wide_fft<T, true, 1>(full, f, f == y ? b1 : y, ssfm::Scale{c.inv_n});
+        if (r != y) {
+            b1 = y;
+            y = r;
+        }
+    }
+
+    // out(i, N(x)) for each slot i, x = in(i) (models/gnlse._nl_rhs).
+    template <class In, class Out>
+    __device__ __forceinline__ void stage(const In& in, const Out& out) {
+        const int n = c.n;
+        const T* R = nullptr;  // the Raman response, n reals
+        __syncthreads();       // the last stage's reads of b1 and b2 are done
+        if (raman) {
+            T* p = reinterpret_cast<T*>(b1);
+#pragma unroll
+            for (int i = 0; i < S; ++i) {
+                const int j = at(i);
+                if (j < n) {
+                    const Cx<T> v = in(i);
+                    p[j] = v.re * v.re + v.im * v.im;
+                }
+            }
+            Cx<T>* z = ssfm::wide_fft<T, false, 1>(half, b1, b2, ssfm::NoPost{});
+            ssfm::raman_spectrum(half, z, hrc);
+            R = reinterpret_cast<const T*>(
+                ssfm::wide_fft<T, true, 1>(half, z, z == b1 ? b2 : b1, ssfm::Scale{c.inv_n}));
+        }
+        Cx<T>* w = R == reinterpret_cast<const T*>(b1) ? b2 : b1;
+#pragma unroll
+        for (int i = 0; i < S; ++i) {
+            const int j = at(i);
+            if (j < n) {
+                const Cx<T> v = in(i);
+                const T P = v.re * v.re + v.im * v.im;
+                const T fac = raman ? one_m_fr * P + fr * R[j] : one_m_fr * P;
+                const Cx<T> W{v.re * fac, v.im * fac};
+                if (steep)
+                    w[j] = W;
+                else
+                    out(i, Cx<T>{-(g * W.im), g * W.re});
+            }
+        }
+        if (!steep) return;
+        // W - (i/omega_0) IDFT(i omega DFT(W)) = IDFT((1 + omega/omega_0) DFT(W))
+        Cx<T>* f = ssfm::wide_fft<T, false, 1>(full, w, w == b1 ? b2 : b1,
+                                               ssfm::Steep<T>{omega, double(inv_w0)});
+        const Cx<T>* V =
+            ssfm::wide_fft<T, true, 1>(full, f, f == b1 ? b2 : b1, ssfm::Scale{c.inv_n});
+#pragma unroll
+        for (int i = 0; i < S; ++i) {
+            const int j = at(i);
+            if (j < n) out(i, Cx<T>{-(g * V[j].im), g * V[j].re});
+        }
+    }
+
+    // One RK4 step of length h on y, in the plain version's order:
+    // y + h/6 ((k1 + 2 (k2 + k3)) + k4).
+    __device__ __forceinline__ void nl() {
+        const T hh = T(0.5) * h, sixth = h / T(6);
+        stage([&](int i) { return y[at(i)]; }, [&](int i, const Cx<T>& d) { a[i] = d; });
+        stage([&](int i) {
+                  const Cx<T> v = y[at(i)];
+                  return Cx<T>{v.re + hh * a[i].re, v.im + hh * a[i].im};
+              },
+              [&](int i, const Cx<T>& d) { s[i] = d; });
+        stage([&](int i) {
+                  const Cx<T> v = y[at(i)];
+                  return Cx<T>{v.re + hh * s[i].re, v.im + hh * s[i].im};
+              },
+              [&](int i, const Cx<T>& d) {
+                  const Cx<T> v = y[at(i)];
+                  const Cx<T> s23{s[i].re + d.re, s[i].im + d.im};
+                  a[i] = Cx<T>{a[i].re + T(2) * s23.re, a[i].im + T(2) * s23.im};
+                  s[i] = Cx<T>{v.re + h * d.re, v.im + h * d.im};
+              });
+        stage([&](int i) { return s[i]; },
+              [&](int i, const Cx<T>& d) {
+                  Cx<T>& v = y[at(i)];
+                  v = Cx<T>{v.re + sixth * (a[i].re + d.re), v.im + sixth * (a[i].im + d.im)};
+              });
+    }
+
+    // k fused symmetric steps: Lh, (NL, Lf)^(k-1), NL, Lh.
+    __device__ __forceinline__ void steps(int kk) {
+        lin(lh);
+        for (int i = 1; i < kk; ++i) {
+            nl();
+            lin(lf);
+        }
+        nl();
+        lin(lh);
+    }
+};
+
+// The loop every kernel of this file runs over one envelope: y0 in, then
+// save chunks of st.steps(save_every) with the finite check, the save and the
+// peak, then the trailing steps.
+template <typename T, class St>
+__device__ __forceinline__ void integrate(St& st, const Cx<T>* y0, T* pk_out, Cx<T>* y_last,
+                                          uint8_t* ok_out, int n_steps, int save_every) {
+    const Block<T>& c = st.c;
+    const int b = blockIdx.x, n = c.n;
     Cx<T>* out = y_last + static_cast<size_t>(b) * n;
     for (int j = c.tid; j < n; j += c.nt) {
         const Cx<T> v = y0[static_cast<size_t>(b) * n + j];
@@ -264,9 +276,103 @@ gnlse_ssfm_kernel(const Cx<T>* __restrict__ y0, const Cx<T>* __restrict__ lh,
     }
 }
 
+template <typename T>
+__device__ Block<T> block_of(const Cx<double>* tw, unsigned char* smem, int n) {
+    Block<T> c;
+    c.tw = tw;
+    c.red = reinterpret_cast<T*>(smem);
+    c.n = n;
+    ssfm::split(n, &c.m, &c.r);
+    c.tid = threadIdx.x;
+    c.nt = blockDim.x;
+    c.inv_n = 1.0 / n;
+    return c;
+}
+
+template <typename T, bool Affine>
+__global__ void __launch_bounds__(ssfm::kMaxThreads)
+gnlse_ssfm_kernel(const Cx<T>* __restrict__ y0, const Cx<T>* __restrict__ lh,
+                  const Cx<T>* __restrict__ lf, int fac_stride, const T* __restrict__ gamma,
+                  const Cx<T>* __restrict__ aff, const Cx<double>* __restrict__ tw,
+                  T* __restrict__ pk_out, Cx<T>* __restrict__ y_last,
+                  uint8_t* __restrict__ ok_out, int n, int n_steps, int save_every, double dz) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int b = blockIdx.x;
+    Stepper<T, Affine> st;
+    st.c = block_of<T>(tw, smem, n);
+    Cx<T>* buf = reinterpret_cast<Cx<T>*>(smem + kReduceSlots * sizeof(T));
+    st.y = buf;
+    st.x = buf + n;
+    st.lh = lh + static_cast<size_t>(b) * fac_stride;
+    st.lf = lf + static_cast<size_t>(b) * fac_stride;
+    if constexpr (Affine) {
+        st.g = T(1);
+        const Cx<T>* a = aff + 4 * static_cast<size_t>(b);
+        st.dp_h = a[0];
+        st.dF_h = a[1];
+        st.dp_f = a[2];
+        st.dF_f = a[3];
+    } else {
+        st.g = gamma[b];
+    }
+    st.h = T(dz);
+    integrate<T>(st, y0, pk_out, y_last, ok_out, n_steps, save_every);
+}
+
+// Blocks an SM the nl kernel asks registers for: two (at most 128 registers
+// a thread at 256 threads; the stepper, its sums and a radix-4 butterfly
+// fit without spilling up to 4 slots), one at 8 slots (n > 1,024), whose
+// sums would spill under 128.
+template <typename T, int S>
+__global__ void __launch_bounds__(ssfm::kMaxThreads, S == 8 ? 1 : 2)
+gnlse_nl_kernel(const Cx<T>* __restrict__ y0, const Cx<T>* __restrict__ lh,
+                const Cx<T>* __restrict__ lf, int fac_stride, const T* __restrict__ gamma,
+                const Cx<double>* __restrict__ tw, const Cx<T>* __restrict__ hrc,
+                const T* __restrict__ omega, T* __restrict__ pk_out,
+                Cx<T>* __restrict__ y_last, uint8_t* __restrict__ ok_out, int n, int n_steps,
+                int save_every, double dz, double f_r, double inv_w0) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int b = blockIdx.x;
+    NlStepper<T, S> st;
+    st.c = block_of<T>(tw, smem, n);
+    st.full = ssfm::plan(tw, n, 1, st.c.tid, st.c.nt);
+    st.half = ssfm::plan(tw, n, 2, st.c.tid, st.c.nt);
+    Cx<T>* buf = reinterpret_cast<Cx<T>*>(smem + kReduceSlots * sizeof(T));
+    st.y = buf;
+    st.b1 = buf + n;
+    st.b2 = buf + 2 * n;
+    st.lh = lh + static_cast<size_t>(b) * fac_stride;
+    st.lf = lf + static_cast<size_t>(b) * fac_stride;
+    st.hrc = hrc;
+    st.omega = omega;
+    st.g = gamma[b];
+    st.h = T(dz);
+    st.fr = T(f_r);
+    st.one_m_fr = T(1) - st.fr;
+    st.inv_w0 = T(inv_w0);
+    st.raman = f_r > 0.0;
+    st.steep = inv_w0 != 0.0;
+    integrate<T>(st, y0, pk_out, y_last, ok_out, n_steps, save_every);
+}
+
 size_t shared_bytes(int n, size_t elem, int use_nl) {
     const size_t buffers = use_nl ? kNlBuffers : kKerrBuffers;
     return elem * (kReduceSlots + 2 * buffers * static_cast<size_t>(n));
+}
+
+// Slots a thread of the nl kernel: ceil(n / threads) rounded up to 2, 4 or 8.
+int nl_slots(int n) {
+    const int nt = ssfm::threads_for(n), need = (n + nt - 1) / nt;
+    return need <= 2 ? 2 : need <= 4 ? 4 : 8;
+}
+
+template <typename K, typename... Args>
+int launch_kernel(K kernel, int B, int n, size_t smem, void* stream, Args... args) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<B, ssfm::threads_for(n), smem, static_cast<cudaStream_t>(stream)>>>(args...);
+    return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, bool Affine>
@@ -275,19 +381,34 @@ int launch(const void* y0, const void* lh, const void* lf, int fac_stride, const
            void* y_last, void* ok, int B, int n, int n_steps, int save_every, int use_nl,
            double dz, double f_r, double inv_w0, void* stream) {
     const size_t smem = shared_bytes(n, sizeof(T), use_nl);
-    cudaError_t err = cudaFuncSetAttribute(gnlse_ssfm_kernel<T, Affine>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    gnlse_ssfm_kernel<T, Affine>
-        <<<B, ssfm::threads_for(n), smem, static_cast<cudaStream_t>(stream)>>>(
-            static_cast<const Cx<T>*>(y0), static_cast<const Cx<T>*>(lh),
-            static_cast<const Cx<T>*>(lf), fac_stride, static_cast<const T*>(gamma),
-            static_cast<const Cx<T>*>(aff), static_cast<const Cx<double>*>(tw),
-            static_cast<const Cx<T>*>(hrc), static_cast<const T*>(omega), static_cast<T*>(pk),
-            static_cast<Cx<T>*>(y_last), static_cast<uint8_t*>(ok), n, n_steps, save_every,
-            use_nl, dz, f_r, inv_w0);
-    return static_cast<int>(cudaGetLastError());
+    const auto* y0_ = static_cast<const Cx<T>*>(y0);
+    const auto* lh_ = static_cast<const Cx<T>*>(lh);
+    const auto* lf_ = static_cast<const Cx<T>*>(lf);
+    const auto* g_ = static_cast<const T*>(gamma);
+    const auto* tw_ = static_cast<const Cx<double>*>(tw);
+    auto* pk_ = static_cast<T*>(pk);
+    auto* yl_ = static_cast<Cx<T>*>(y_last);
+    auto* ok_ = static_cast<uint8_t*>(ok);
+    if (!use_nl)
+        return launch_kernel(gnlse_ssfm_kernel<T, Affine>, B, n, smem, stream, y0_, lh_, lf_,
+                             fac_stride, g_, static_cast<const Cx<T>*>(aff), tw_, pk_, yl_, ok_,
+                             n, n_steps, save_every, dz);
+    const auto* hrc_ = static_cast<const Cx<T>*>(hrc);
+    const auto* om_ = static_cast<const T*>(omega);
+    switch (nl_slots(n)) {
+        case 2:
+            return launch_kernel(gnlse_nl_kernel<T, 2>, B, n, smem, stream, y0_, lh_, lf_,
+                                 fac_stride, g_, tw_, hrc_, om_, pk_, yl_, ok_, n, n_steps,
+                                 save_every, dz, f_r, inv_w0);
+        case 4:
+            return launch_kernel(gnlse_nl_kernel<T, 4>, B, n, smem, stream, y0_, lh_, lf_,
+                                 fac_stride, g_, tw_, hrc_, om_, pk_, yl_, ok_, n, n_steps,
+                                 save_every, dz, f_r, inv_w0);
+        default:
+            return launch_kernel(gnlse_nl_kernel<T, 8>, B, n, smem, stream, y0_, lh_, lf_,
+                                 fac_stride, g_, tw_, hrc_, om_, pk_, yl_, ok_, n, n_steps,
+                                 save_every, dz, f_r, inv_w0);
+    }
 }
 
 }  // namespace

@@ -233,4 +233,238 @@ __host__ __device__ inline void split(int n, int* m, int* r) {
     *m = n / odd;
 }
 
+// ---------------------------------------------------------------------------
+// The wide transform of the nl bodies (csrc/gnlse_ssfm.cu's and
+// csrc/vgnlse_ssfm.cu's Raman/steepening RK4).  The same split n = m * r and
+// the same float64 table as dft, but radix-4 Stockham passes (one radix-2
+// pass first when log2 m is odd): a thread loads a butterfly's 4 points into
+// registers, turns them by their twiddles, combines them in double and
+// stores each output once, rounded to T, with one barrier a pass.  At
+// n = 1,024 that is 5 passes, not 10.  The r-odd tail pass is dft's.  The
+// caller's Post acts on each output of the last pass in double before it is
+// rounded (a linear factor, 1 + omega/omega_0, the inverse's scale), which
+// saves a pointwise pass and a rounding.  A Plan also describes the
+// half-length transform of a real sequence packed as n/2 complex samples
+// (the Raman pair), whose twiddles are every other entry of the table.
+// ---------------------------------------------------------------------------
+
+struct Plan {
+    const Cx<double>* tw;  // (ntab,) = (cos, sin)(2 pi k / ntab)
+    int len, m, r, lm;     // len = m * r samples a sequence, lm = log2 m
+    int ntab;              // the table's width: len or 2 len
+    int tid, nt;
+};
+
+// The plan of a transform of len = ntab / div samples (div 1 or 2).
+__device__ inline Plan plan(const Cx<double>* tw, int ntab, int div, int tid, int nt) {
+    Plan f;
+    f.tw = tw;
+    f.ntab = ntab;
+    f.len = ntab / div;
+    split(f.len, &f.m, &f.r);
+    f.lm = 0;
+    while ((1 << f.lm) < f.m) ++f.lm;
+    f.tid = tid;
+    f.nt = nt;
+    return f;
+}
+
+// Post operations on the last pass's outputs: (sequence, index, value).
+struct NoPost {
+    __device__ Cx<double> operator()(int, int, const Cx<double>& v) const { return v; }
+};
+struct Scale {
+    double s;
+    __device__ Cx<double> operator()(int, int, const Cx<double>& v) const {
+        return Cx<double>{v.re * s, v.im * s};
+    }
+};
+// v * f[sq * len + k], the product in mul_factor's order.
+template <typename T>
+struct MulBy {
+    const Cx<T>* f;
+    int len;
+    __device__ Cx<double> operator()(int sq, int k, const Cx<double>& v) const {
+        const Cx<T> w = f[sq * len + k];
+        return Cx<double>{double(w.re) * v.re - double(w.im) * v.im,
+                          double(w.re) * v.im + double(w.im) * v.re};
+    }
+};
+
+// v * (1 + inv_w0 omega[k]): the steepening term folded into the spectrum.
+template <typename T>
+struct Steep {
+    const T* omega;
+    double inv_w0;
+    __device__ Cx<double> operator()(int, int k, const Cx<double>& v) const {
+        const double fac = 1.0 + inv_w0 * double(omega[k]);
+        return Cx<double>{v.re * fac, v.im * fac};
+    }
+};
+
+// R-point butterfly in place (R = 2 or 4), the forward or inverse signs.
+template <int R, bool INV>
+__device__ inline void butterfly(double* xr, double* xi) {
+    if constexpr (R == 2) {
+        const double r0 = xr[0] + xr[1], i0 = xi[0] + xi[1];
+        const double r1 = xr[0] - xr[1], i1 = xi[0] - xi[1];
+        xr[0] = r0; xi[0] = i0; xr[1] = r1; xi[1] = i1;
+    } else {
+        const double a0r = xr[0] + xr[2], a0i = xi[0] + xi[2];
+        const double a1r = xr[0] - xr[2], a1i = xi[0] - xi[2];
+        const double a2r = xr[1] + xr[3], a2i = xi[1] + xi[3];
+        const double a3r = xr[1] - xr[3], a3i = xi[1] - xi[3];
+        xr[0] = a0r + a2r; xi[0] = a0i + a2i;
+        xr[2] = a0r - a2r; xi[2] = a0i - a2i;
+        if (INV) {  // X1 = a1 + i a3, X3 = a1 - i a3
+            xr[1] = a1r - a3i; xi[1] = a1i + a3r;
+            xr[3] = a1r + a3i; xi[3] = a1i - a3r;
+        } else {    // X1 = a1 - i a3, X3 = a1 + i a3
+            xr[1] = a1r + a3i; xi[1] = a1i - a3r;
+            xr[3] = a1r - a3i; xi[3] = a1i + a3r;
+        }
+    }
+}
+
+// One radix-R Stockham pass over P sequences: R sub-transforms of ns points
+// become one of R ns.  Butterfly j of group g reads points j + q m/R (the
+// first pass in natural order, q r + g, the others group-major g m + .),
+// turns point q by W_{R ns}^{q (j mod ns)} and writes output q at
+// g m + (j - j mod ns) R + j mod ns + q ns.
+template <typename T, bool INV, int R, int P, class Post>
+__device__ __forceinline__ void wide_pass(const Plan& f, const Cx<T>* src, Cx<T>* dst, int ns,
+                                          bool last, const Post& post) {
+    const int mR = f.m / R, per = f.r * mR, step = f.ntab / (R * ns);
+    for (int u = f.tid; u < P * per; u += f.nt) {
+        const int sq = P == 1 ? 0 : u / per;
+        const int t = u - sq * per;
+        const int g = t / mR, j = t - g * mR, k = j & (ns - 1);
+        const Cx<T>* in = src + sq * f.len;
+        Cx<T>* out = dst + sq * f.len;
+        double xr[R], xi[R];
+#pragma unroll
+        for (int q = 0; q < R; ++q) {
+            const int i = j + q * mR;
+            const Cx<T> v = ns == 1 ? in[i * f.r + g] : in[g * f.m + i];
+            xr[q] = double(v.re);
+            xi[q] = double(v.im);
+        }
+        if (ns > 1) {
+#pragma unroll
+            for (int q = 1; q < R; ++q) {
+                const Cx<double> w = ldg(&f.tw[q * k * step]);
+                const double wi = INV ? w.im : -w.im;
+                const double tr = xr[q] * w.re - xi[q] * wi;
+                const double ti = xr[q] * wi + xi[q] * w.re;
+                xr[q] = tr;
+                xi[q] = ti;
+            }
+        }
+        butterfly<R, INV>(xr, xi);
+        const int o = g * f.m + (j - k) * R + k;
+#pragma unroll
+        for (int q = 0; q < R; ++q) {
+            Cx<double> v{xr[q], xi[q]};
+            if (last) v = post(sq, o + q * ns, v);
+            out[o + q * ns] = Cx<T>{T(v.re), T(v.im)};
+        }
+    }
+}
+
+// The DFT (INV false) or the unscaled inverse DFT (INV true; the caller's
+// Post scales) of P sequences of f.len samples held one after the other,
+// natural order in and out.  a is overwritten and b is scratch; the result is
+// in a or b, whichever the function returns.  Every pass ends at a barrier.
+template <typename T, bool INV, int P, class Post>
+__device__ __forceinline__ Cx<T>* wide_fft(const Plan& f, Cx<T>* a, Cx<T>* b, const Post& post) {
+    const bool tail = f.r > 1;
+    Cx<T>* src = a;
+    Cx<T>* dst = b;
+    int ns = 1;
+    __syncthreads();  // a complete
+    if (f.lm & 1) {
+        wide_pass<T, INV, 2, P>(f, src, dst, 1, !tail && f.m == 2, post);
+        Cx<T>* s = src;
+        src = dst;
+        dst = s;
+        ns = 2;
+        __syncthreads();
+    }
+    for (; ns < f.m; ns <<= 2) {
+        wide_pass<T, INV, 4, P>(f, src, dst, ns, !tail && (ns << 2) == f.m, post);
+        Cx<T>* s = src;
+        src = dst;
+        dst = s;
+        __syncthreads();
+    }
+    if (tail) {
+        const int tws = f.ntab / f.len;
+        for (int u = f.tid; u < P * f.len; u += f.nt) {
+            const int sq = P == 1 ? 0 : u / f.len;
+            const int k = u - sq * f.len;
+            const Cx<T>* in = src + sq * f.len;
+            const int d = k & (f.m - 1), inc = k * tws;
+            double ar = 0.0, ai = 0.0;
+            int idx = 0;  // (g k tws) mod ntab
+            for (int g = 0; g < f.r; ++g) {
+                const Cx<T> y = in[g * f.m + d];
+                const Cx<double> w = ldg(&f.tw[idx]);
+                const double wi = INV ? w.im : -w.im;
+                ar += double(y.re) * w.re - double(y.im) * wi;
+                ai += double(y.re) * wi + double(y.im) * w.re;
+                idx += inc;
+                if (idx >= f.ntab) idx -= f.ntab;
+            }
+            const Cx<double> v = post(sq, k, Cx<double>{ar, ai});
+            dst[u] = Cx<T>{T(v.re), T(v.im)};
+        }
+        Cx<T>* s = src;
+        src = dst;
+        dst = s;
+        __syncthreads();
+    }
+    return src;
+}
+
+// The middle of the Raman pair R = Re IDFT(hrc DFT(p)) for a real p of n
+// samples, in place on z: on entry Z = DFT_{n/2}(p[2q] + i p[2q+1]) (natural
+// order, f the half-length plan, f.ntab = n); on exit Z' with
+// IDFT_{n/2}(Z') / 2 = r[2q] + i r[2q+1].  A thread takes the pair (k, n/2 -
+// k): it unpacks X[k] = (Z[k] + Z*[M-k])/2 + W_n^k (Z[k] - Z*[M-k])/(2i) and
+// X[M-k] (M = n/2), multiplies by hrc, drops the imaginary parts at 0 and M
+// as a real inverse transform does, and packs Y back:
+// Z'[k] = Y[k] + Y*[M-k] + i (Y[k] - Y*[M-k]) W_n^{-k}.  All in double.
+template <typename T>
+__device__ __forceinline__ void raman_spectrum(const Plan& f, Cx<T>* z, const Cx<T>* hrc) {
+    const int M = f.len;
+    for (int k = f.tid; k <= M / 2; k += f.nt) {
+        if (k == 0) {
+            const double x0 = double(z[0].re) + double(z[0].im);
+            const double xm = double(z[0].re) - double(z[0].im);
+            const double y0 = double(hrc[0].re) * x0, ym = double(hrc[M].re) * xm;
+            z[0] = Cx<T>{T(y0 + ym), T(y0 - ym)};
+            continue;
+        }
+        const Cx<T> zk = z[k], zc = z[M - k];
+        const double er = 0.5 * (double(zk.re) + double(zc.re));
+        const double ei = 0.5 * (double(zk.im) - double(zc.im));
+        const double orr = 0.5 * (double(zk.im) + double(zc.im));
+        const double oi = -0.5 * (double(zk.re) - double(zc.re));
+        const Cx<double> w = ldg(&f.tw[k]);  // W_n^k = (w.re, -w.im)
+        const double tr = w.re * orr + w.im * oi, ti = w.re * oi - w.im * orr;
+        const double xr = er + tr, xi = ei + ti;     // X[k]
+        const double xcr = er - tr, xci = ti - ei;   // X[M-k] = conj(Xe - t)
+        const Cx<T> hk = hrc[k], hc = hrc[M - k];
+        const double yr = double(hk.re) * xr - double(hk.im) * xi;
+        const double yi = double(hk.re) * xi + double(hk.im) * xr;
+        const double ycr = double(hc.re) * xcr - double(hc.im) * xci;
+        const double yci = double(hc.re) * xci + double(hc.im) * xcr;
+        const double er2 = yr + ycr, ei2 = yi - yci;  // E = Y[k] + conj(Y[M-k])
+        const double dr = yr - ycr, di = yi + yci;    // Y[k] - conj(Y[M-k])
+        const double orr2 = dr * w.re - di * w.im, oi2 = dr * w.im + di * w.re;  // O = d W_n^{-k}
+        z[k] = Cx<T>{T(er2 - oi2), T(ei2 + orr2)};                  // E + i O
+        if (M - k != k) z[M - k] = Cx<T>{T(er2 + oi2), T(orr2 - ei2)};  // E* + i O*
+    }
+}
+
 }  // namespace ssfm

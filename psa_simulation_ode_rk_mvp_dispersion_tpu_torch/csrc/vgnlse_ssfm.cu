@@ -41,16 +41,25 @@
 // step is two transform pairs (one a polarization) and O(n) pointwise work;
 // the state stays in shared memory for the whole integration, and each
 // instance reads its input once and writes its outputs (and its saved state
-// once a chunk).  The two polarizations go through each transform in the
-// same radix-2 passes (csrc/ssfm_common.cuh, dft<T, INV, 2>), so a pass
-// costs one barrier for the pair, with twice K6's butterflies a barrier.
-// The factor planes, the twiddles, conj(H_R) and omega are read through the
-// read-only cache; shared memory holds only state-sized buffers of 2n
-// samples: y and its transform partner x (rotation, coherent), plus the RK4
-// sums a, s, k, the stage input st and the scratch q (nl): 4 or 14 buffers
-// of n complex values.  The nl block at n = 1024 in fp64 takes 229,632
-// bytes, inside the 232,448 a Hopper block may use; at n = 2048 it fits in
-// fp32 only (ops/cuda_vgnlse.width_problem refuses the rest).
+// once a chunk).  The factor planes, the twiddles, conj(H_R) and omega are
+// read through the cache; shared memory holds only state-sized buffers of 2n
+// samples.
+//   - rotation, coherent (vgnlse_ssfm_kernel): the two polarizations go
+//     through each transform in the same radix-2 passes (csrc/
+//     ssfm_common.cuh, dft<T, INV, 2>), so a pass costs one barrier for the
+//     pair; 2 buffers, y and its transform partner.
+//   - nl (vgnlse_nl_kernel): 3 buffers, y and the transform pair; the RK4
+//     sums k1 + 2(k2 + k3) and the stage derivative of both polarizations
+//     stay in registers of the thread that owns the sample (force-inlined,
+//     as csrc/gnlse_ssfm.cu's; in fp64 above n = 512 a thread owns 8
+//     samples of each polarization, at n/8 threads), so that at n = 1,024
+//     in fp64 a block takes 98,560 bytes and two blocks fit an SM, not 14
+//     buffers' 229,632, and fp64 takes n = 2,048 (196,864 bytes).  The
+//     transforms are the wide radix-4 passes of csrc/gnlse_ssfm.cu's nl
+//     kernel (ssfm_common.cuh's wide_fft, both polarizations in one pass),
+//     the Raman pair transforms the real total power as n/2 complex
+//     samples, and the linear factor, the inverse's 1/n and the steepening
+//     factor 1 + omega/omega_0 act in the last pass of their transforms.
 //
 // Global layout (row-major, complex as (re, im)):
 //   y0 (B, 2, n); lh, lf (2, n) with fac_stride 0 or (B, 2, n) with
@@ -77,7 +86,7 @@ enum Body { kRotation = 0, kCoherent = 1, kNl = 2 };
 
 constexpr int kPols = 2;
 constexpr int kRotationBuffers = 4;  // y and x, two polarizations each
-constexpr int kNlBuffers = 14;       // y, x, a, s, k, st, q
+constexpr int kNlBuffers = 6;        // y and the transform pair
 constexpr int kReduceSlots = 32;
 
 template <typename T>
@@ -110,13 +119,9 @@ template <typename T, int Body>
 struct Stepper {
     Block<T> c;    // n: one polarization's samples
     Block<T> c2;   // the same block over both polarizations (n = 2 * c.n)
-    Cx<T>*y, *x;                // the state and its transform partner, 2n each
-    Cx<T>*a, *s, *k, *st, *q;   // nl only
+    Cx<T>*y, *x;  // the state and its transform partner, 2n each
     const Cx<T>*lh, *lf;
-    const Cx<T>* hrc;
-    const T* omega;
-    T g, h, b, coh, one_m_fr, fr, inv_w0;
-    bool raman, steep;
+    T g, h, b, coh;
 
     // y_p <- IDFT(L_p * DFT(y_p)) for both polarizations.
     __device__ void lin(const Cx<T>* L) {
@@ -173,89 +178,11 @@ struct Stepper {
         }
     }
 
-    // dst = N(src) over both polarizations (models/vgnlse._v_nl_rhs_gen);
-    // x and q are scratch.
-    __device__ void nl_rhs(const Cx<T>* src, Cx<T>* dst) {
-        const int n = c.n;
-        const bool cterm = coh != T(0);
-        const Cx<T>* R = nullptr;  // its real parts: the Raman response
-        __syncthreads();
-        if (raman) {
-            Cx<T>* p = x;
-            Cx<T>* p2 = x + n;
-            for (int j = c.tid; j < n; j += c.nt) {
-                const Cx<T> u = src[j], v = src[n + j];
-                p[j] = Cx<T>{(u.re * u.re + u.im * u.im) + (v.re * v.re + v.im * v.im), T(0)};
-            }
-            Cx<T>* f = dft<T, false>(c, p, p2);
-            ssfm::mul_factor(c, f, hrc);
-            R = dft<T, true>(c, f, f == p ? p2 : p);
-        }
-        for (int j = c.tid; j < n; j += c.nt) {
-            const Cx<T> u = src[j], v = src[n + j];
-            const Cx<T> Ku = coupling(u, v, b, coh, cterm), Kv = coupling(v, u, b, coh, cterm);
-            Cx<T> Wu{one_m_fr * Ku.re, one_m_fr * Ku.im}, Wv{one_m_fr * Kv.re, one_m_fr * Kv.im};
-            if (raman) {
-                const T Rj = R[j].re;
-                Wu = Cx<T>{Wu.re + fr * (Rj * u.re), Wu.im + fr * (Rj * u.im)};
-                Wv = Cx<T>{Wv.re + fr * (Rj * v.re), Wv.im + fr * (Rj * v.im)};
-            }
-            if (steep) {
-                dst[j] = Wu;
-                dst[n + j] = Wv;
-                q[j] = Wu;
-                q[n + j] = Wv;
-            } else {
-                dst[j] = times_ig(Wu, g);
-                dst[n + j] = times_ig(Wv, g);
-            }
-        }
-        if (steep) {
-            Cx<T>* f = dft<T, false, kPols>(c, q, x);  // the Raman response is used up
-            for (int j = c.tid; j < 2 * n; j += c.nt) {
-                const Cx<T> F = f[j];
-                const T om = omega[j < n ? j : j - n];
-                f[j] = Cx<T>{-(om * F.im), om * F.re};  // i omega F
-            }
-            const Cx<T>* V = dft<T, true, kPols>(c, f, f == q ? x : q);  // dW/dt
-            for (int j = c.tid; j < 2 * n; j += c.nt) {
-                const Cx<T> W = dst[j], v = V[j];
-                // W - (1/omega_0) i dW/dt
-                dst[j] = times_ig(Cx<T>{W.re - inv_w0 * (-v.im), W.im - inv_w0 * v.re}, g);
-            }
-        }
-        __syncthreads();  // dst complete for the stage loops, which stride over 2n
-    }
-
-    // One RK4 step of the generalized operator over dz.
-    __device__ void nl_rk4() {
-        const int n2 = 2 * c.n;
-        const T half = T(0.5) * h, sixth = h / T(6);
-        nl_rhs(y, a);  // k1
-        for (int j = c.tid; j < n2; j += c.nt)
-            st[j] = Cx<T>{y[j].re + half * a[j].re, y[j].im + half * a[j].im};
-        nl_rhs(st, s);  // k2
-        for (int j = c.tid; j < n2; j += c.nt)
-            st[j] = Cx<T>{y[j].re + half * s[j].re, y[j].im + half * s[j].im};
-        nl_rhs(st, k);  // k3
-        for (int j = c.tid; j < n2; j += c.nt) {
-            const Cx<T> s23{s[j].re + k[j].re, s[j].im + k[j].im};
-            st[j] = Cx<T>{y[j].re + h * k[j].re, y[j].im + h * k[j].im};
-            a[j] = Cx<T>{a[j].re + T(2) * s23.re, a[j].im + T(2) * s23.im};
-        }
-        nl_rhs(st, k);  // k4
-        for (int j = c.tid; j < n2; j += c.nt)
-            y[j] = Cx<T>{y[j].re + sixth * (a[j].re + k[j].re),
-                         y[j].im + sixth * (a[j].im + k[j].im)};
-    }
-
     __device__ void nl() {
         if constexpr (Body == kRotation) {
             rotation();
-        } else if constexpr (Body == kCoherent) {
-            coherent_rk4();
         } else {
-            nl_rk4();
+            coherent_rk4();
         }
     }
 
@@ -271,51 +198,172 @@ struct Stepper {
     }
 };
 
-template <typename T, int Body>
-__global__ void __launch_bounds__(ssfm::kMaxThreads)
-vgnlse_ssfm_kernel(const Cx<T>* __restrict__ y0, const Cx<T>* __restrict__ lh,
-                   const Cx<T>* __restrict__ lf, int fac_stride, const T* __restrict__ gamma,
-                   const Cx<double>* __restrict__ tw, const Cx<T>* __restrict__ hrc,
-                   const T* __restrict__ omega, T* __restrict__ pk_out,
-                   Cx<T>* __restrict__ y_last, uint8_t* __restrict__ ok_out, int n, int n_steps,
-                   int save_every, double dz, double b, double coherent, double f_r,
-                   double inv_w0) {
-    extern __shared__ __align__(16) unsigned char smem[];
-    const int bi = blockIdx.x;
-    const int n2 = kPols * n;
-    Stepper<T, Body> st;
-    st.c.tw = tw;
-    st.c.red = reinterpret_cast<T*>(smem);
-    st.c.n = n;
-    ssfm::split(n, &st.c.m, &st.c.r);
-    st.c.tid = threadIdx.x;
-    st.c.nt = blockDim.x;
-    st.c.inv_n = 1.0 / n;
-    st.c2 = st.c;
-    st.c2.n = n2;
-    Cx<T>* buf = reinterpret_cast<Cx<T>*>(smem + kReduceSlots * sizeof(T));
-    st.y = buf;
-    st.x = buf + n2;
-    st.a = buf + 2 * n2;
-    st.s = buf + 3 * n2;
-    st.k = buf + 4 * n2;
-    st.st = buf + 5 * n2;
-    st.q = buf + 6 * n2;
-    st.lh = lh + static_cast<size_t>(bi) * fac_stride;
-    st.lf = lf + static_cast<size_t>(bi) * fac_stride;
-    st.hrc = hrc;
-    st.omega = omega;
-    st.g = gamma[bi];
-    st.h = T(dz);
-    st.b = T(b);
-    st.coh = T(coherent);
-    st.fr = T(f_r);
-    st.one_m_fr = T(1) - st.fr;
-    st.inv_w0 = T(inv_w0);
-    st.raman = Body == kNl && f_r > 0.0;
-    st.steep = Body == kNl && inv_w0 != 0.0;
-    const Block<T>& c = st.c;
+// One instance's nl integration: y in shared memory, the RK4 sums of both
+// polarizations in registers (slot i of a thread is sample tid + i nt of
+// each polarization, S slots a thread).
+template <typename T, int S>
+struct NlStepper {
+    Block<T> c;             // n: one polarization's samples
+    Block<T> c2;            // the same block over both polarizations (n = 2 * c.n)
+    ssfm::Plan full, half;  // the n-point transforms; the n/2-point one of a real p
+    Cx<T>*y, *b1, *b2;      // the state and the transform pair, 2n each (a permutation)
+    const Cx<T>*lh, *lf;
+    const Cx<T>* hrc;
+    const T* omega;
+    T g, h, b, coh, one_m_fr, fr, inv_w0;
+    bool raman, steep;
+    // k1, then k1 + 2(k2 + k3); k2, then the k4 stage input; [polarization][slot]
+    Cx<T> a[kPols][S], s[kPols][S];
 
+    __device__ __forceinline__ int at(int i) const { return c.tid + i * c.nt; }
+
+    // y_p <- IDFT(L_p * DFT(y_p)), L applied in the forward transform's last pass.
+    __device__ __forceinline__ void lin(const Cx<T>* L) {
+        Cx<T>* f = ssfm::wide_fft<T, false, kPols>(full, y, b1, ssfm::MulBy<T>{L, c.n});
+        Cx<T>* r =
+            ssfm::wide_fft<T, true, kPols>(full, f, f == y ? b1 : y, ssfm::Scale{c.inv_n});
+        if (r != y) {
+            b1 = y;
+            y = r;
+        }
+    }
+
+    // out(i, N_x, N_y) for each slot i, the stage input in(i, u, v)
+    // (models/vgnlse._v_nl_rhs_gen).
+    template <class In, class Out>
+    __device__ __forceinline__ void stage(const In& in, const Out& out) {
+        const int n = c.n;
+        const bool cterm = coh != T(0);
+        const T* R = nullptr;  // the Raman response on the total power, n reals
+        __syncthreads();       // the last stage's reads of b1 and b2 are done
+        if (raman) {
+            T* p = reinterpret_cast<T*>(b1);
+#pragma unroll
+            for (int i = 0; i < S; ++i) {
+                const int j = at(i);
+                if (j < n) {
+                    Cx<T> u, v;
+                    in(i, u, v);
+                    p[j] = (u.re * u.re + u.im * u.im) + (v.re * v.re + v.im * v.im);
+                }
+            }
+            Cx<T>* z = ssfm::wide_fft<T, false, 1>(half, b1, b2, ssfm::NoPost{});
+            ssfm::raman_spectrum(half, z, hrc);
+            R = reinterpret_cast<const T*>(
+                ssfm::wide_fft<T, true, 1>(half, z, z == b1 ? b2 : b1, ssfm::Scale{c.inv_n}));
+        }
+        Cx<T>* w = R == reinterpret_cast<const T*>(b1) ? b2 : b1;
+#pragma unroll
+        for (int i = 0; i < S; ++i) {
+            const int j = at(i);
+            if (j < n) {
+                Cx<T> u, v;
+                in(i, u, v);
+                const Cx<T> Ku = coupling(u, v, b, coh, cterm), Kv = coupling(v, u, b, coh, cterm);
+                Cx<T> Wu{one_m_fr * Ku.re, one_m_fr * Ku.im};
+                Cx<T> Wv{one_m_fr * Kv.re, one_m_fr * Kv.im};
+                if (raman) {
+                    const T Rj = R[j];
+                    Wu = Cx<T>{Wu.re + fr * (Rj * u.re), Wu.im + fr * (Rj * u.im)};
+                    Wv = Cx<T>{Wv.re + fr * (Rj * v.re), Wv.im + fr * (Rj * v.im)};
+                }
+                if (steep) {
+                    w[j] = Wu;
+                    w[n + j] = Wv;
+                } else {
+                    out(i, times_ig(Wu, g), times_ig(Wv, g));
+                }
+            }
+        }
+        if (!steep) return;
+        // W - (i/omega_0) IDFT(i omega DFT(W)) = IDFT((1 + omega/omega_0) DFT(W))
+        Cx<T>* f = ssfm::wide_fft<T, false, kPols>(full, w, w == b1 ? b2 : b1,
+                                                   ssfm::Steep<T>{omega, double(inv_w0)});
+        const Cx<T>* V =
+            ssfm::wide_fft<T, true, kPols>(full, f, f == b1 ? b2 : b1, ssfm::Scale{c.inv_n});
+#pragma unroll
+        for (int i = 0; i < S; ++i) {
+            const int j = at(i);
+            if (j < n) out(i, times_ig(V[j], g), times_ig(V[n + j], g));
+        }
+    }
+
+    // One RK4 step of length h on both polarizations, in the plain version's
+    // order: y + h/6 ((k1 + 2 (k2 + k3)) + k4).
+    __device__ __forceinline__ void nl() {
+        const int n = c.n;
+        const T hh = T(0.5) * h, sixth = h / T(6);
+        stage(
+            [&](int i, Cx<T>& u, Cx<T>& v) {
+                u = y[at(i)];
+                v = y[n + at(i)];
+            },
+            [&](int i, const Cx<T>& du, const Cx<T>& dv) {
+                a[0][i] = du;
+                a[1][i] = dv;
+            });
+        stage(
+            [&](int i, Cx<T>& u, Cx<T>& v) {
+                const Cx<T> yu = y[at(i)], yv = y[n + at(i)];
+                u = Cx<T>{yu.re + hh * a[0][i].re, yu.im + hh * a[0][i].im};
+                v = Cx<T>{yv.re + hh * a[1][i].re, yv.im + hh * a[1][i].im};
+            },
+            [&](int i, const Cx<T>& du, const Cx<T>& dv) {
+                s[0][i] = du;
+                s[1][i] = dv;
+            });
+        stage(
+            [&](int i, Cx<T>& u, Cx<T>& v) {
+                const Cx<T> yu = y[at(i)], yv = y[n + at(i)];
+                u = Cx<T>{yu.re + hh * s[0][i].re, yu.im + hh * s[0][i].im};
+                v = Cx<T>{yv.re + hh * s[1][i].re, yv.im + hh * s[1][i].im};
+            },
+            [&](int i, const Cx<T>& du, const Cx<T>& dv) {
+                const Cx<T> d[kPols] = {du, dv};
+#pragma unroll
+                for (int q = 0; q < kPols; ++q) {
+                    const Cx<T> yq = y[q * n + at(i)];
+                    const Cx<T> s23{s[q][i].re + d[q].re, s[q][i].im + d[q].im};
+                    a[q][i] = Cx<T>{a[q][i].re + T(2) * s23.re, a[q][i].im + T(2) * s23.im};
+                    s[q][i] = Cx<T>{yq.re + h * d[q].re, yq.im + h * d[q].im};
+                }
+            });
+        stage(
+            [&](int i, Cx<T>& u, Cx<T>& v) {
+                u = s[0][i];
+                v = s[1][i];
+            },
+            [&](int i, const Cx<T>& du, const Cx<T>& dv) {
+                const Cx<T> d[kPols] = {du, dv};
+#pragma unroll
+                for (int q = 0; q < kPols; ++q) {
+                    Cx<T>& yq = y[q * n + at(i)];
+                    yq = Cx<T>{yq.re + sixth * (a[q][i].re + d[q].re),
+                               yq.im + sixth * (a[q][i].im + d[q].im)};
+                }
+            });
+    }
+
+    // k fused symmetric steps: Lh, (NL, Lf)^(k-1), NL, Lh.
+    __device__ __forceinline__ void steps(int kk) {
+        lin(lh);
+        for (int i = 1; i < kk; ++i) {
+            nl();
+            lin(lf);
+        }
+        nl();
+        lin(lh);
+    }
+};
+
+// The loop every kernel of this file runs over one instance: y0 in, then
+// save chunks of st.steps(save_every) with the finite check, the save and
+// each polarization's peak, then the trailing steps.
+template <typename T, class St>
+__device__ __forceinline__ void integrate(St& st, const Cx<T>* y0, T* pk_out, Cx<T>* y_last,
+                                          uint8_t* ok_out, int n_steps, int save_every) {
+    const Block<T>& c = st.c;
+    const int bi = blockIdx.x, n = c.n, n2 = kPols * n;
     Cx<T>* out = y_last + static_cast<size_t>(bi) * n2;
     for (int j = c.tid; j < n2; j += c.nt) {
         const Cx<T> v = y0[static_cast<size_t>(bi) * n2 + j];
@@ -349,6 +397,81 @@ vgnlse_ssfm_kernel(const Cx<T>* __restrict__ y0, const Cx<T>* __restrict__ lh,
     }
 }
 
+template <typename T, class St>
+__device__ __forceinline__ void setup(St& st, const Cx<double>* tw, unsigned char* smem, int n) {
+    st.c.tw = tw;
+    st.c.red = reinterpret_cast<T*>(smem);
+    st.c.n = n;
+    ssfm::split(n, &st.c.m, &st.c.r);
+    st.c.tid = threadIdx.x;
+    st.c.nt = blockDim.x;
+    st.c.inv_n = 1.0 / n;
+    st.c2 = st.c;
+    st.c2.n = kPols * n;
+}
+
+template <typename T, int Body>
+__global__ void __launch_bounds__(ssfm::kMaxThreads)
+vgnlse_ssfm_kernel(const Cx<T>* __restrict__ y0, const Cx<T>* __restrict__ lh,
+                   const Cx<T>* __restrict__ lf, int fac_stride, const T* __restrict__ gamma,
+                   const Cx<double>* __restrict__ tw, T* __restrict__ pk_out,
+                   Cx<T>* __restrict__ y_last, uint8_t* __restrict__ ok_out, int n, int n_steps,
+                   int save_every, double dz, double b, double coherent) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int bi = blockIdx.x;
+    Stepper<T, Body> st;
+    setup<T>(st, tw, smem, n);
+    Cx<T>* buf = reinterpret_cast<Cx<T>*>(smem + kReduceSlots * sizeof(T));
+    st.y = buf;
+    st.x = buf + kPols * n;
+    st.lh = lh + static_cast<size_t>(bi) * fac_stride;
+    st.lf = lf + static_cast<size_t>(bi) * fac_stride;
+    st.g = gamma[bi];
+    st.h = T(dz);
+    st.b = T(b);
+    st.coh = T(coherent);
+    integrate<T>(st, y0, pk_out, y_last, ok_out, n_steps, save_every);
+}
+
+// Blocks an SM the nl kernel asks registers for: two (at most 128 registers
+// a thread at 256 threads), one at 8 slots, whose sums of both
+// polarizations would spill under 128 (in fp64 at n = 1,024 it runs 128
+// threads, so that two blocks still fit; nl_threads).
+template <typename T, int S>
+__global__ void __launch_bounds__(ssfm::kMaxThreads, S == 8 ? 1 : 2)
+vgnlse_nl_kernel(const Cx<T>* __restrict__ y0, const Cx<T>* __restrict__ lh,
+                 const Cx<T>* __restrict__ lf, int fac_stride, const T* __restrict__ gamma,
+                 const Cx<double>* __restrict__ tw, const Cx<T>* __restrict__ hrc,
+                 const T* __restrict__ omega, T* __restrict__ pk_out,
+                 Cx<T>* __restrict__ y_last, uint8_t* __restrict__ ok_out, int n, int n_steps,
+                 int save_every, double dz, double b, double coherent, double f_r,
+                 double inv_w0) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int bi = blockIdx.x;
+    NlStepper<T, S> st;
+    setup<T>(st, tw, smem, n);
+    st.full = ssfm::plan(tw, n, 1, st.c.tid, st.c.nt);
+    st.half = ssfm::plan(tw, n, 2, st.c.tid, st.c.nt);
+    Cx<T>* buf = reinterpret_cast<Cx<T>*>(smem + kReduceSlots * sizeof(T));
+    st.y = buf;
+    st.b1 = buf + kPols * n;
+    st.b2 = buf + 2 * kPols * n;
+    st.lh = lh + static_cast<size_t>(bi) * fac_stride;
+    st.lf = lf + static_cast<size_t>(bi) * fac_stride;
+    st.hrc = hrc;
+    st.omega = omega;
+    st.g = gamma[bi];
+    st.h = T(dz);
+    st.b = T(b);
+    st.coh = T(coherent);
+    st.fr = T(f_r);
+    st.one_m_fr = T(1) - st.fr;
+    st.inv_w0 = T(inv_w0);
+    st.raman = f_r > 0.0;
+    st.steep = inv_w0 != 0.0;
+    integrate<T>(st, y0, pk_out, y_last, ok_out, n_steps, save_every);
+}
+
 size_t shared_bytes(int n, size_t elem, int body) {
     const size_t buffers = body == kNl ? kNlBuffers : kRotationBuffers;
     return elem * (kReduceSlots + 2 * buffers * static_cast<size_t>(n));
@@ -358,23 +481,29 @@ size_t shared_bytes(int n, size_t elem, int body) {
 // ssfm::kMaxThreads (2n is a multiple of 256).
 int threads_for(int n) { return ssfm::threads_for(kPols * n); }
 
-template <typename T, int Body>
-int launch(const void* y0, const void* lh, const void* lf, int fac_stride, const void* gamma,
-           const void* tw, const void* hrc, const void* omega, void* pk, void* y_last, void* ok,
-           int B, int n, int n_steps, int save_every, double dz, double b, double coherent,
-           double f_r, double inv_w0, void* stream) {
-    const size_t smem = shared_bytes(n, sizeof(T), Body);
-    cudaError_t err = cudaFuncSetAttribute(vgnlse_ssfm_kernel<T, Body>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+// Threads a block of the nl kernel: threads_for(n), but in fp64 above
+// n = 512 about n/8 (a multiple of 32; 128 at n = 1,024), so that each
+// thread holds 8 slots: the fp64 sums of both polarizations then stay in
+// registers (the 8-slot instantiation takes them without spilling) and two
+// blocks of 128 threads still fit an SM's registers.
+int nl_threads(int n, size_t elem) {
+    if (elem == sizeof(double) && n > 512) return (n / 8 + 31) / 32 * 32;
+    return threads_for(n);
+}
+
+// Slots a thread of the nl kernel: ceil(n / threads) rounded up to 1, 2, 4
+// or 8.
+int nl_slots(int n, int nt) {
+    const int need = (n + nt - 1) / nt;
+    return need <= 1 ? 1 : need <= 2 ? 2 : need <= 4 ? 4 : 8;
+}
+
+template <typename K, typename... Args>
+int launch_kernel(K kernel, int B, int nt, size_t smem, void* stream, Args... args) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    vgnlse_ssfm_kernel<T, Body>
-        <<<B, threads_for(n), smem, static_cast<cudaStream_t>(stream)>>>(
-            static_cast<const Cx<T>*>(y0), static_cast<const Cx<T>*>(lh),
-            static_cast<const Cx<T>*>(lf), fac_stride, static_cast<const T*>(gamma),
-            static_cast<const Cx<double>*>(tw), static_cast<const Cx<T>*>(hrc),
-            static_cast<const T*>(omega), static_cast<T*>(pk), static_cast<Cx<T>*>(y_last),
-            static_cast<uint8_t*>(ok), n, n_steps, save_every, dz, b, coherent, f_r, inv_w0);
+    kernel<<<B, nt, smem, static_cast<cudaStream_t>(stream)>>>(args...);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -383,18 +512,46 @@ int launch_body(int body, const void* y0, const void* lh, const void* lf, int fa
                 const void* gamma, const void* tw, const void* hrc, const void* omega, void* pk,
                 void* y_last, void* ok, int B, int n, int n_steps, int save_every, double dz,
                 double b, double coherent, double f_r, double inv_w0, void* stream) {
+    const size_t smem = shared_bytes(n, sizeof(T), body);
+    const auto* y0_ = static_cast<const Cx<T>*>(y0);
+    const auto* lh_ = static_cast<const Cx<T>*>(lh);
+    const auto* lf_ = static_cast<const Cx<T>*>(lf);
+    const auto* g_ = static_cast<const T*>(gamma);
+    const auto* tw_ = static_cast<const Cx<double>*>(tw);
+    const auto* hrc_ = static_cast<const Cx<T>*>(hrc);
+    const auto* om_ = static_cast<const T*>(omega);
+    auto* pk_ = static_cast<T*>(pk);
+    auto* yl_ = static_cast<Cx<T>*>(y_last);
+    auto* ok_ = static_cast<uint8_t*>(ok);
     if (body == kRotation)
-        return launch<T, kRotation>(y0, lh, lf, fac_stride, gamma, tw, hrc, omega, pk, y_last,
-                                    ok, B, n, n_steps, save_every, dz, b, coherent, f_r, inv_w0,
-                                    stream);
+        return launch_kernel(vgnlse_ssfm_kernel<T, kRotation>, B, threads_for(n), smem, stream,
+                             y0_, lh_, lf_, fac_stride, g_, tw_, pk_, yl_, ok_, n, n_steps,
+                             save_every, dz, b, coherent);
     if (body == kCoherent)
-        return launch<T, kCoherent>(y0, lh, lf, fac_stride, gamma, tw, hrc, omega, pk, y_last,
-                                    ok, B, n, n_steps, save_every, dz, b, coherent, f_r, inv_w0,
-                                    stream);
-    if (body == kNl)
-        return launch<T, kNl>(y0, lh, lf, fac_stride, gamma, tw, hrc, omega, pk, y_last, ok, B,
-                              n, n_steps, save_every, dz, b, coherent, f_r, inv_w0, stream);
-    return static_cast<int>(cudaErrorInvalidValue);
+        return launch_kernel(vgnlse_ssfm_kernel<T, kCoherent>, B, threads_for(n), smem, stream,
+                             y0_, lh_, lf_, fac_stride, g_, tw_, pk_, yl_, ok_, n, n_steps,
+                             save_every, dz, b, coherent);
+    if (body != kNl) return static_cast<int>(cudaErrorInvalidValue);
+    const int nt = nl_threads(n, sizeof(T)), slots = nl_slots(n, nt);
+    if (slots == 1)
+        return launch_kernel(vgnlse_nl_kernel<T, 1>, B, nt, smem, stream, y0_, lh_, lf_,
+                             fac_stride, g_, tw_, hrc_, om_, pk_, yl_, ok_, n, n_steps,
+                             save_every, dz, b, coherent, f_r, inv_w0);
+    if (slots == 2)
+        return launch_kernel(vgnlse_nl_kernel<T, 2>, B, nt, smem, stream, y0_, lh_, lf_,
+                             fac_stride, g_, tw_, hrc_, om_, pk_, yl_, ok_, n, n_steps,
+                             save_every, dz, b, coherent, f_r, inv_w0);
+    // fp64 takes 8 slots above n = 512 (nl_threads): its 4-slot kernel, whose
+    // sums would spill at two blocks an SM, is never built
+    if constexpr (sizeof(T) != sizeof(double)) {
+        if (slots == 4)
+            return launch_kernel(vgnlse_nl_kernel<T, 4>, B, nt, smem, stream, y0_, lh_, lf_,
+                                 fac_stride, g_, tw_, hrc_, om_, pk_, yl_, ok_, n, n_steps,
+                                 save_every, dz, b, coherent, f_r, inv_w0);
+    }
+    return launch_kernel(vgnlse_nl_kernel<T, 8>, B, nt, smem, stream, y0_, lh_, lf_, fac_stride,
+                         g_, tw_, hrc_, om_, pk_, yl_, ok_, n, n_steps, save_every, dz, b,
+                         coherent, f_r, inv_w0);
 }
 
 }  // namespace

@@ -11,9 +11,11 @@ missing ``nvcc`` or a failed build raises :class:`KernelBuildError` with the
 compiler's output; there is no stand-in.
 
 :data:`LAUNCHES` counts kernel launches by kernel name (``fwm4_rk_f64``,
-``fwm4_rk45_f32``, ``comb_rk_f64``, ``comb_rk45_f32``, ...).  Each wrapper adds one where it launches its kernel
-and nowhere else; a run clears it and reads it back to show that its path
-went through the kernels.
+``fwm4_rk45_f32``, ``comb_rk_f64``, ``comb_rk45_f32``, ...; the SSFM
+sources by route, ``gnlse_ssfm_nl_f64``, ``vgnlse_ssfm_coherent_f32``,
+...).  Each wrapper adds one where it launches its kernel and nowhere else;
+a run clears it and reads it back to show that its path went through the
+kernels.
 """
 
 from __future__ import annotations

@@ -5,23 +5,25 @@ Counterpart of the JAX package's ``ops/pallas_gnlse.py`` (kernel K6) and of
 its scan path ``models/gnlse._gnlse_reduce_solver``.  The TPU kernel becomes
 the hand-written CUDA template ``csrc/gnlse_ssfm.cu``: float64 serves
 ``x64``/``df32``, float32 serves ``x32``, each with the exact Kerr rotation or
-the RK4 on the Raman/self-steepening operator.
+the RK4 on the Raman/self-steepening operator (its own kernel in the same
+source, ``gnlse_nl_kernel``: the RK4 sums in registers and wide radix-4
+transforms).
 
 - :func:`solve_gnlse_batch_cuda` checks its inputs, builds the linear
   factors with the plain version's own ``models/gnlse._lin_factor`` (one
   shared row when every envelope has the same flat loss and phase), launches
   one thread block per envelope on the current stream and counts the launch
-  in ``ops/_build.LAUNCHES``.  It takes CUDA tensors only, and raises for a
-  width the kernel does not take or a block that does not fit in the card's
-  shared memory.
+  in ``ops/_build.LAUNCHES`` by route: ``gnlse_ssfm_f64``/``_f32`` for Kerr,
+  ``gnlse_ssfm_nl_f64``/``_f32`` for the nonlinear terms.  It takes CUDA
+  tensors only, and raises for a width the kernel does not take or a block
+  that does not fit in the card's shared memory.
 - :func:`solve_gnlse_batch_torch` is the plain version,
   ``models/gnlse.gnlse_fixed``, with ``torch.fft`` transforms.  The CPU path
   and the comparisons on the card use it.
 
 Both return the peak over the saved samples, the state at the last saved
-grid point and ``ok``.  The kernel computes its transforms itself (a
-radix-2 Stockham FFT in shared memory), so the two agree to rounding, not
-bit for bit.
+grid point and ``ok``.  The kernel computes its transforms itself (Stockham
+FFTs in shared memory), so the two agree to rounding, not bit for bit.
 """
 
 from __future__ import annotations
@@ -43,8 +45,10 @@ from ..models.gnlse import NLTerms, _lin_factor, _scalar, gnlse_fixed
 WIDTH_QUANTUM = 128
 MAX_WIDTH = 128 * 16
 # Buffers of T complex values a block keeps in shared memory, and the
-# reduction slots beside them (csrc/gnlse_ssfm.cu, csrc/ssfm_rk45.cu).
-SHARED_BUFFERS = {("gnlse_ssfm", False): 2, ("gnlse_ssfm", True): 7, ("ssfm_rk45", False): 6}
+# reduction slots beside them (csrc/gnlse_ssfm.cu, csrc/ssfm_rk45.cu): Kerr
+# the state and its transform partner; nl the state and a transform pair
+# (its RK4 sums are registers).
+SHARED_BUFFERS = {("gnlse_ssfm", False): 2, ("gnlse_ssfm", True): 3, ("ssfm_rk45", False): 6}
 REDUCE_SLOTS = 32
 
 
@@ -194,12 +198,12 @@ def solve_gnlse_batch_cuda(A0, gamma, alpha, lin_phase, *, dz_m: float, n_steps:
     pk = torch.empty((B,), dtype=rdt, device=dev)
     y_last = torch.empty((B, T), dtype=A0.dtype, device=dev)
     ok = torch.empty((B,), dtype=torch.uint8, device=dev)
-    name = f"gnlse_ssfm_{_DTYPE_SUFFIX[rdt]}"
     err = _launcher(rdt)(
         y0.data_ptr(), Lh.data_ptr(), Lf.data_ptr(), stride, gamma.data_ptr(), tw.data_ptr(),
         hrc.data_ptr(), omega.data_ptr(), pk.data_ptr(), y_last.data_ptr(), ok.data_ptr(), B, T,
         int(n_steps), int(save_every), int(nl is not None), float(dz_m), f_r, inv_w0,
         torch.cuda.current_stream(dev).cuda_stream)
+    name = f"gnlse_ssfm{'_nl' if nl is not None else ''}_{_DTYPE_SUFFIX[rdt]}"
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     _build.LAUNCHES[name] += 1

@@ -8,26 +8,29 @@ hand-written CUDA template ``csrc/vgnlse_ssfm.cu``: float64 serves
 bodies (:func:`body_of`): the exact joint rotation (``'rotation'``, the
 cnlse and manakov couplings), the pointwise RK4 on the coherent operator
 (``'coherent'``, the isotropic coupling), or the RK4 on the isotropic-Raman
-and self-steepening operator (``'nl'``, any coupling with ``nl=``).
+and self-steepening operator (``'nl'``, any coupling with ``nl=``; its own
+kernel in the same source, ``vgnlse_nl_kernel``: the RK4 sums in registers
+and wide radix-4 transforms).
 
 - :func:`solve_vgnlse_batch_cuda` checks its inputs, builds the linear
   factors with the plain version's own ``models/vgnlse._lin_factor_v`` (one
   shared ``(2, T)`` plane when every instance has the same loss and phase),
   launches one thread block per instance on the current stream and counts
-  the launch in ``ops/_build.LAUNCHES``.  It takes CUDA tensors only, and
-  raises for a width it does not take or a block that does not fit in the
-  card's shared memory.
+  the launch in ``ops/_build.LAUNCHES`` by body: ``vgnlse_ssfm_f64``/``_f32``
+  for the rotation, ``vgnlse_ssfm_coherent_*`` and ``vgnlse_ssfm_nl_*``.
+  It takes CUDA tensors only, and raises for a width it does not take or a
+  block that does not fit in the card's shared memory.
 - :func:`solve_vgnlse_batch_torch` is the plain version,
   ``models/vgnlse.vgnlse_fixed``, with ``torch.fft`` transforms.  The CPU
   path and the comparisons on the card use it.
 
 Widths the kernel takes: T a multiple of 128 up to 2,048 (the JAX kernel's),
 whose block fits in the card's shared memory (:func:`shared_bytes`): on an
-H100 (232,448 bytes a block) every such T for the rotation and coherent
-bodies, in fp64 and fp32; the ``nl`` body up to T = 1,024 in fp64 (229,632
-bytes) and up to 2,048 in fp32.  ``models/vgnlse.solve_vgnlse_batch`` sends
-any other call to the plain version under ``engine='auto'`` and raises
-under ``engine='cuda'``, decided before any launch.
+H100 (232,448 bytes a block) every such T for every body, in fp64 and fp32
+(the widest, fp64 ``nl`` at T = 2,048, takes 196,864 bytes).
+``models/vgnlse.solve_vgnlse_batch`` sends any other call to the plain
+version under ``engine='auto'`` and raises under ``engine='cuda'``, decided
+before any launch.
 
 Both return the per-polarization peak over the saved samples, the state at
 the last saved grid point and ``ok``.  The kernel computes its transforms
@@ -49,9 +52,11 @@ from ..models.gnlse import NLTerms, _scalar
 from ..models.vgnlse import _lin_factor_v, vgnlse_fixed
 
 # The nonlinear bodies of csrc/vgnlse_ssfm.cu (its Body enum), and the
-# buffers of T complex values a block of each keeps in shared memory.
+# buffers of T complex values a block of each keeps in shared memory: the
+# state and its transform partner, both polarizations; nl the state and a
+# transform pair (its RK4 sums are registers).
 BODIES = {"rotation": 0, "coherent": 1, "nl": 2}
-SHARED_BUFFERS = {"rotation": 4, "coherent": 4, "nl": 14}
+SHARED_BUFFERS = {"rotation": 4, "coherent": 4, "nl": 6}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -205,12 +210,12 @@ def solve_vgnlse_batch_cuda(A0, gamma, alpha, b_xpm, lin_phase, coherent: float 
     pk = torch.empty((B, 2), dtype=rdt, device=dev)
     y_last = torch.empty((B, 2, T), dtype=A0.dtype, device=dev)
     ok = torch.empty((B,), dtype=torch.uint8, device=dev)
-    name = f"vgnlse_ssfm_{_DTYPE_SUFFIX[rdt]}"
     err = _launcher(rdt)(
         y0.data_ptr(), Lh.data_ptr(), Lf.data_ptr(), stride, gamma.data_ptr(), tw.data_ptr(),
         hrc.data_ptr(), omega.data_ptr(), pk.data_ptr(), y_last.data_ptr(), ok.data_ptr(), B, T,
         int(n_steps), int(save_every), BODIES[body], float(dz_m), float(b_xpm),
         float(coherent), f_r, inv_w0, torch.cuda.current_stream(dev).cuda_stream)
+    name = f"vgnlse_ssfm{'' if body == 'rotation' else '_' + body}_{_DTYPE_SUFFIX[rdt]}"
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     _build.LAUNCHES[name] += 1

@@ -1,27 +1,40 @@
 #!/usr/bin/env python3
-"""Rehearse the LLE and vector split-step kernels on the CPU, before a card
-is at hand.
+"""Rehearse the split-step kernels (K6 nl, K7, K8's LLE route, K9) on the CPU,
+before a card is at hand, with a block's threads run as host threads.
 
-Run from the root of a checkout on a machine with g++ (no card, no nvcc):
+Run from the root of a checkout on a machine with g++ (C++20; no card, no
+nvcc):
 
     python3 ssfm_host_rehearsal.py
 
 It compiles ``csrc/gnlse_ssfm.cu``, ``csrc/ssfm_rk45.cu`` and
-``csrc/vgnlse_ssfm.cu`` as host C++ into ``build/host_rehearsal/``: a stub
-``cuda_runtime.h`` defines the CUDA
-qualifiers away, a block runs as one thread (``__syncthreads`` a no-op,
-``__syncthreads_and(p)`` = p, ``__shfl_down_sync`` 0, ``__ldg`` a load),
-``extern __shared__`` becomes a static buffer and each ``<<<...>>>`` launch
-a loop over ``blockIdx.x``; ``-ffp-contract=off`` as torch's CPU kernels
-round.  It then calls the LLE launchers (K7 ``lle_ssfm_*``, K8's LLE route
-``ssfm_rk45_lle_*``) through ctypes with the arguments their wrappers pass,
-on 5 soliton-ansatz cavities of 256 samples (a complex pump, one cavity
-overflowing), shared and per-cavity phase, and prints each against its
-plain version; then the vector launchers (K9 ``vgnlse_ssfm_*``) on 5
-two-polarization sech pulses of 256 and 384 samples (each body: rotation,
-coherent, Raman/steepening; shared and per-instance factor planes; one
-instance overflowing; a trailing partial chunk).  It cannot see what only
-the card's compiler refuses.
+``csrc/vgnlse_ssfm.cu`` as host C++ into ``build/host_rehearsal/``.  A stub
+``cuda_runtime.h`` defines the CUDA qualifiers away and runs each block of a
+``<<<grid, block, ...>>>`` launch as ``block`` ``std::thread``s, one block
+after another: ``threadIdx`` is thread-local, ``__syncthreads`` waits at a
+C++20 ``std::barrier`` of the block's threads, ``__syncthreads_and`` ANDs
+its argument over them at that barrier, ``__shfl_down_sync`` exchanges
+through a shared array between two barriers (every caller in these sources
+is the whole block), ``__ldg`` is a load and ``extern __shared__`` one
+static buffer; ``-ffp-contract=off`` as torch's CPU kernels round.  So the
+threads' ownership of samples and the barriers between passes are
+rehearsed: a missing barrier shows as a wrong or varying result.  It then
+calls the launchers through ctypes with the arguments their wrappers pass
+and prints each against its plain version:
+
+- K6 nl (``gnlse_ssfm_*`` with ``use_nl``): 5 sech envelopes at T = 256,
+  384 (r = 3) and 640 (r = 5), Raman and steepening, Raman only and
+  steepening only, one envelope overflowing, 12 steps and 14 (a trailing
+  partial chunk at ``save_every=4``), fp64 and fp32;
+- K9 (``vgnlse_ssfm_*``): 5 two-polarization pulses, the nl body at T =
+  256, 384 and 640, the rotation and coherent bodies at 256 and 384, shared
+  and per-instance factor planes, one instance overflowing, 12 and 14 steps;
+- K7 (``lle_ssfm_*``) and K8's LLE route (``ssfm_rk45_lle_*``) on 5
+  soliton-ansatz cavities of 256 samples (a complex pump, one cavity
+  overflowing), shared and per-cavity phase.
+
+It cannot see what only the card's compiler refuses, nor the card's
+scheduling.
 
 ``--readings`` prints instead the CPU readings of the plain vector version
 at ``chip_smoke.py``'s vector configuration (8 instances): the plain fp32
@@ -40,6 +53,7 @@ import torch
 
 import psa_torch as psa
 from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.models.gnlse import save_segments
+from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_gnlse as cg
 from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_lle as cl
 from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_ssfm_adaptive as csa
 from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_vgnlse as cv
@@ -48,21 +62,59 @@ from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops.cuda_gnlse import twiddl
 
 OUT = Path(__file__).resolve().parent / "build" / "host_rehearsal"
 STUB = """#pragma once
+#include <atomic>
+#include <barrier>
 #include <cmath>
-#include <cstdint>
 #include <cstddef>
+#include <cstdint>
+#include <thread>
+#include <vector>
 using std::isfinite;
 #define __global__
 #define __device__
 #define __host__
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
+#define __forceinline__ inline
 #define __align__(n) alignas(n)
 struct HDim { int x; };
-inline HDim blockIdx{0}, threadIdx{0}, blockDim{1};
-alignas(64) inline unsigned char host_smem[300000];
-inline void __syncthreads() {}
-inline int __syncthreads_and(int p) { return p; }
-template <typename T> inline T __shfl_down_sync(unsigned, T, int) { return T(0); }
+inline thread_local HDim threadIdx{0};
+inline HDim blockIdx{0}, blockDim{1};
+alignas(64) inline unsigned char host_smem[400000];
+struct HostBlock {
+    std::atomic<int> acc{1};  // the AND of __syncthreads_and's arguments
+    int res = 1;
+    double xch[1024];         // __shfl_down_sync's exchange
+};
+inline HostBlock hb;
+struct BarrierDone {
+    void operator()() noexcept { hb.res = hb.acc.load(); hb.acc.store(1); }
+};
+inline std::barrier<BarrierDone>* hbar = nullptr;
+inline void __syncthreads() { hbar->arrive_and_wait(); }
+inline int __syncthreads_and(int p) {
+    if (!p) hb.acc.store(0);
+    hbar->arrive_and_wait();
+    return hb.res;
+}
+template <typename T> inline T __shfl_down_sync(unsigned, T v, int o) {
+    const int t = threadIdx.x;
+    hb.xch[t] = double(v);
+    __syncthreads();
+    const T r = (t & 31) + o < 32 ? T(hb.xch[t + o]) : v;
+    __syncthreads();
+    return r;
+}
+template <class F> inline void host_launch(int grid, int block, F f) {
+    blockDim.x = block;
+    for (int b = 0; b < grid; ++b) {
+        blockIdx.x = b;
+        std::barrier<BarrierDone> bar(block);
+        hbar = &bar;
+        std::vector<std::thread> ts;
+        for (int t = 0; t < block; ++t) ts.emplace_back([&f, t] { threadIdx.x = t; f(); });
+        for (auto& th : ts) th.join();
+    }
+}
 struct double2 { double x, y; };
 struct float2 { float x, y; };
 inline double2 __ldg(const double2* p) { return *p; }
@@ -74,26 +126,74 @@ enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
 template <typename F> inline int cudaFuncSetAttribute(F, int, int) { return 0; }
 inline int cudaGetLastError() { return 0; }
 """
+LAUNCH = re.compile(r"([\w:]+(?:<[^<>;]*>)?)\s*<<<(.*?)>>>\((.*?)\);", re.S)
 
 
-def build(name):
-    """Compile csrc/<name>.cu as host C++; return the loaded library."""
-    (OUT / "inc").mkdir(parents=True, exist_ok=True)
-    (OUT / "inc" / "cuda_runtime.h").write_text(STUB)
-    src = (CSRC_DIR / f"{name}.cu").read_text()
+def split_top(text):
+    """Split ``text`` at the commas outside brackets."""
+    parts, depth, cur = [], 0, ""
+    for ch in text:
+        depth += ch in "(<[{"
+        depth -= ch in ")>]}"
+        if ch == "," and depth == 0:
+            parts.append(cur.strip())
+            cur = ""
+        else:
+            cur += ch
+    return parts + [cur.strip()]
+
+
+def host_source(src):
+    """A .cu source as host C++: the shared buffer static, each launch a
+    host_launch of its grid and block."""
     src = src.replace("extern __shared__ __align__(16) unsigned char smem[];",
                       "unsigned char* smem = host_smem;")
-    src = re.sub(r"(\w+_kernel<T, \w+>)\s*<<<.*?>>>\(",
-                 r"for (blockIdx.x = 0; blockIdx.x < B; ++blockIdx.x) \1(", src, flags=re.S)
-    cpp, lib = OUT / f"{name}.cpp", OUT / f"lib{name}.so"
-    cpp.write_text(src)
-    subprocess.run(["g++", "-std=c++17", "-O2", "-ffp-contract=off", "-fPIC", "-shared",
-                    f"-I{OUT / 'inc'}", f"-I{CSRC_DIR}", str(cpp), "-o", str(lib)], check=True)
+
+    def launch(m):
+        grid, block = split_top(m.group(2))[:2]
+        return f"host_launch({grid}, {block}, [&] {{ {m.group(1)}({m.group(3)}); }});"
+
+    return LAUNCH.sub(launch, src)
+
+
+def build(name, out=OUT):
+    """Compile csrc/<name>.cu as host C++ in ``out``; return the loaded
+    library."""
+    (out / "inc").mkdir(parents=True, exist_ok=True)
+    (out / "inc" / "cuda_runtime.h").write_text(STUB)
+    cpp, lib = out / f"{name}.cpp", out / f"lib{name}.so"
+    cpp.write_text(host_source((CSRC_DIR / f"{name}.cu").read_text()))
+    subprocess.run(["g++", "-std=c++20", "-O2", "-ffp-contract=off", "-fPIC", "-shared",
+                    "-pthread", f"-I{out / 'inc'}", f"-I{CSRC_DIR}", str(cpp), "-o", str(lib)],
+                   check=True)
     return ctypes.CDLL(str(lib))
 
 
 def ptr(t):
     return ctypes.c_void_p(t.data_ptr())
+
+
+def k6(lib, y0, gamma, alpha, ph, nl, dz, n_steps, save_every):
+    """One call of gnlse_ssfm_* with the arguments of
+    cuda_gnlse.solve_gnlse_batch_cuda."""
+    B, T = y0.shape
+    rdt = y0.real.dtype
+    Lh, Lf, stride = cg.factor_planes(alpha, ph, dz, y0)
+    tw = twiddles(T, "cpu")
+    if nl is None:
+        hrc, om, f_r, inv_w0 = tw, tw, 0.0, 0.0
+    else:
+        hrc = torch.complex(nl.hr_re, -nl.hr_im).contiguous()
+        om, f_r, inv_w0 = nl.omega.contiguous(), float(nl.f_r), float(nl.inv_w0)
+    pk, y, ok = torch.empty(B, dtype=rdt), torch.empty_like(y0), torch.empty(B, dtype=torch.uint8)
+    fn = getattr(lib, f"gnlse_ssfm_{'f64' if rdt == torch.float64 else 'f32'}")
+    d = ctypes.c_double
+    err = fn(ptr(y0), ptr(Lh), ptr(Lf), stride, ptr(gamma), ptr(tw), ptr(hrc), ptr(om), ptr(pk),
+             ptr(y), ptr(ok), B, T, n_steps, save_every, int(nl is not None), d(dz), d(f_r),
+             d(inv_w0), None)
+    if err:
+        raise RuntimeError(f"gnlse_ssfm returned {err}")
+    return pk, y, ok.bool()
 
 
 def k7(lib, psi0, det, F, ph, dt, n_steps, save_every):
@@ -166,16 +266,46 @@ def vector_pulses(grid, B, theta=0.4):
     return np.stack([np.cos(theta) * A, np.sin(theta) * A], axis=1).astype(np.complex128)
 
 
+def scalar_nl(lib6):
+    """K6 nl against its plain version, fp64 and fp32."""
+    gn = psa.gnlse
+    disp = psa.DispersionParams.from_betas(1.2e15, beta2=-2e-26)
+    P0 = gn.soliton_peak_power(-2e-26, 2e-3, 1e-12)
+    for n in (256, 384, 640):
+        grid = gn.TimeGrid.for_pulse(1e-12, n_samples=n)
+        A0 = np.sqrt(np.linspace(0.5, 1.5, 5) * P0)[:, None] / np.cosh(grid.t()[None, :] / 1e-12)
+        co = gn.make_gnlse_coeffs(grid, disp, gamma_W_m=2e-3, alpha_1_m=5e-5)
+        for f_r, w0 in ((0.18, 1.2e15), (0.18, None), (0.0, 1.2e15)):
+            nl = gn.make_nl_terms(grid, f_raman=f_r, omega0=w0)
+            for rdt, cdt in ((torch.float64, torch.complex128), (torch.float32, torch.complex64)):
+                gamma, alpha, ph = gn.lane_coeffs(co, 5, n, rdt, "cpu")
+                alpha = alpha.clone()
+                alpha[2] = -4e6 if rdt == torch.float64 else -4e4  # overflows in a chunk
+                nl_t = gn._cast_nl(nl, rdt, "cpu")
+                y0 = torch.as_tensor(A0.astype(np.complex128)).to(cdt)
+                for n_steps in (12, 14):
+                    pk, y, ok = k6(lib6, y0, gamma, alpha, ph, nl_t, 0.02, n_steps, 4)
+                    r = cg.solve_gnlse_batch_torch(y0, gamma, alpha, ph, dz_m=0.02,
+                                                   n_steps=n_steps, save_every=4, nl=nl_t)
+                    g = r.ok
+                    e_pk = float(((pk[g] - r.peak_max[g]) / r.peak_max[g]).abs().max())
+                    print(f"K6 nl n={n} f_R={f_r} {'steep' if w0 else 'no steep'} "
+                          f"{str(rdt)[6:]} {n_steps} steps: ok {ok.tolist() == r.ok.tolist()} "
+                          f"({int(ok.sum())}/5), bad frozen {torch.equal(y[2], y0[2])}, A_end "
+                          f"{normwise(y[g], r.A_end[g]):.2e}, peak {e_pk:.2e}", flush=True)
+
+
 def vector(lib9):
     """K9 against its plain version, every body, fp64 and fp32."""
     vg = psa.vgnlse
     disp = psa.DispersionParams.from_betas(1.2e15, beta2=-2e-26)
-    for n in (256, 384):
+    cases = (("manakov", None), ("cnlse", None), ("isotropic", None),
+             ("manakov", (0.18, 1.2e15)), ("isotropic", (0.18, None)))
+    for n in (256, 384, 640):
         grid = vg.TimeGrid.for_pulse(1e-12, n_samples=n)
         A0 = vector_pulses(grid, 5)
         A0[2] *= 1e3                                  # with the loss below: overflows
-        for coupling, nl_case in (("manakov", None), ("cnlse", None), ("isotropic", None),
-                                  ("manakov", (0.18, 1.2e15)), ("isotropic", (0.18, None))):
+        for coupling, nl_case in cases if n < 640 else cases[3:]:
             co = vg.make_vgnlse_coeffs(grid, disp, gamma_W_m=2e-3, alpha_1_m=5e-5,
                                        coupling=coupling, dbeta0_1_m=8.0, dbeta1_s_m=1e-13)
             nl = None if nl_case is None else psa.gnlse.make_nl_terms(
@@ -201,7 +331,7 @@ def vector(lib9):
                           f"{n_steps} steps {'per-instance' if rows else 'shared'} planes: ok "
                           f"{ok.tolist() == r.ok.tolist()} ({int(ok.sum())}/5), bad frozen "
                           f"{torch.equal(y[2], y0[2])}, A_end {normwise(y[g], r.A_end[g]):.2e}, "
-                          f"peak {e_pk:.2e}")
+                          f"peak {e_pk:.2e}", flush=True)
 
 
 def readings():
@@ -249,8 +379,9 @@ def main():
     if "--readings" in sys.argv:
         readings()
         return
-    vector(build("vgnlse_ssfm"))
     lib7, lib8 = build("gnlse_ssfm"), build("ssfm_rk45")
+    scalar_nl(lib7)
+    vector(build("vgnlse_ssfm"))
     grid = psa.lle.TimeGrid(n_samples=256, t_window_s=20.0)
     dets = np.linspace(3.5, 4.5, 5)
     co = psa.lle.make_lle_coeffs(grid, detuning=dets, pump=2.2 * np.exp(0.3j), d2=-1.0)

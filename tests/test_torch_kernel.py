@@ -380,9 +380,9 @@ def _pulse_inputs(B, n, rdt, device, bad=None, bad_scale=None):
 
 @pytest.mark.parametrize("rdt", [torch.float64, torch.float32], ids=["f64", "f32"])
 @pytest.mark.parametrize("case", sorted(NL_CASES))
-@pytest.mark.parametrize("n,n_steps", [(128, 12), (384, 14), (1024, 14), (2048, 13)])
+@pytest.mark.parametrize("n,n_steps", [(128, 12), (384, 14), (640, 14), (1024, 14), (2048, 13)])
 def test_gnlse_kernel_matches_plain_version(card, rdt, case, n, n_steps):
-    """Every width class (r = 1 and r = 3 groups, the widest block), with a
+    """Every width class (r = 1, 3 and 5 groups, the widest block), with a
     blown-up envelope and, for 13 and 14 steps at save_every=4, a trailing
     partial chunk."""
     grid, t = _pulse_inputs(9, n, rdt, card, bad=4)
@@ -390,7 +390,7 @@ def test_gnlse_kernel_matches_plain_version(card, rdt, case, n, n_steps):
     nl = None if nl is None else tg._cast_nl(tg.make_nl_terms(grid, f_raman=nl[0], omega0=nl[1]),
                                              rdt, card)
     kw = dict(dz_m=0.02, n_steps=n_steps, save_every=4, nl=nl)
-    name = f"gnlse_ssfm_{'f64' if rdt == torch.float64 else 'f32'}"
+    name = f"gnlse_ssfm{'_nl' if nl is not None else ''}_{'f64' if rdt == torch.float64 else 'f32'}"
     launches = _build.LAUNCHES[name]
     rk = cg.solve_gnlse_batch_cuda(*t, **kw)
     rp = cg.solve_gnlse_batch_torch(*t, **kw)
@@ -459,7 +459,7 @@ def test_solve_gnlse_batch_auto_runs_the_kernels(card):
     A0 = t[0].cpu().numpy()
     nl = tg.make_nl_terms(grid, f_raman=0.18, omega0=1.2e15)
     for integrator, precision, use_nl, name in (("rk4", "df32", False, "gnlse_ssfm_f64"),
-                                                ("rk4", "x32", True, "gnlse_ssfm_f32"),
+                                                ("rk4", "x32", True, "gnlse_ssfm_nl_f32"),
                                                 ("rk45", "x64", False, "ssfm_rk45_f64"),
                                                 ("rk4ip", "x64", False, None),
                                                 ("rk45", "x64", True, None)):
@@ -617,23 +617,20 @@ def _vector_inputs(B, n, rdt, device, coupling, nl_case=None, bad=None, rows=Fal
 
 @pytest.mark.parametrize("rdt", [torch.float64, torch.float32], ids=["f64", "f32"])
 @pytest.mark.parametrize("body", sorted(VBODIES))
-@pytest.mark.parametrize("n,n_steps,rows", [(128, 12, False), (384, 14, True),
+@pytest.mark.parametrize("n,n_steps,rows", [(128, 12, False), (384, 14, True), (640, 14, False),
                                             (1024, 13, False), (2048, 14, True)])
 def test_vgnlse_kernel_matches_plain_version(card, rdt, body, n, n_steps, rows):
-    """Every body and width class (r = 1 and r = 3 groups, the widest
+    """Every body and width class (r = 1, 3 and 5 groups, the widest
     block), shared and per-instance planes, a blown-up instance and, for 13
-    and 14 steps at save_every=4, a trailing partial chunk.  The fp64 nl
-    block at n = 2048 does not fit in shared memory: the wrapper refuses it
-    with the numbers."""
+    and 14 steps at save_every=4, a trailing partial chunk.  Every block
+    fits in shared memory, the fp64 nl block at n = 2048 too."""
     coupling, nl_case = VBODIES[body]
     t, co, nl = _vector_inputs(9, n, rdt, card, coupling, nl_case, bad=4, rows=rows)
     kw = dict(dz_m=0.02, n_steps=n_steps, save_every=4, nl=nl)
-    if cv.width_problem(n, rdt, card, cv.body_of(co.coherent, nl)) is not None:
-        assert rdt == torch.float64 and nl is not None and n == 2048
-        with pytest.raises(ValueError, match="bytes of shared memory"):
-            cv.solve_vgnlse_batch_cuda(*t, co.coherent, **kw)
-        return
-    name = f"vgnlse_ssfm_{'f64' if rdt == torch.float64 else 'f32'}"
+    kind = cv.body_of(co.coherent, nl)
+    assert cv.width_problem(n, rdt, card, kind) is None
+    name = (f"vgnlse_ssfm{'' if kind == 'rotation' else '_' + kind}_"
+            f"{'f64' if rdt == torch.float64 else 'f32'}")
     launches = _build.LAUNCHES[name]
     rk = cv.solve_vgnlse_batch_cuda(*t, co.coherent, **kw)
     rp = cv.solve_vgnlse_batch_torch(*t, co.coherent, **kw)
@@ -656,6 +653,7 @@ def test_vgnlse_kernel_shared_memory_matches_the_source(card):
                     cv.shared_bytes(n, rdt, body)
     assert cv.width_problem(1024, torch.float64, card, "nl") is None
     assert cv.width_problem(2048, torch.float32, card, "nl") is None
+    assert cv.width_problem(2048, torch.float64, card, "nl") is None
 
 
 @pytest.mark.parametrize("rdt", [torch.float64, torch.float32], ids=["f64", "f32"])
@@ -682,7 +680,7 @@ def test_solve_vgnlse_batch_auto_runs_the_kernel(card):
     grid = tv.TimeGrid.for_pulse(1e-12, n_samples=256)
     nl = tg.make_nl_terms(grid, f_raman=0.18, omega0=1.2e15)
     for integrator, precision, use_nl, name in (("rk4", "df32", False, "vgnlse_ssfm_f64"),
-                                                ("rk4", "x32", True, "vgnlse_ssfm_f32"),
+                                                ("rk4", "x32", True, "vgnlse_ssfm_nl_f32"),
                                                 ("rk45", "x64", False, None),
                                                 ("rk4ip", "x64", True, None)):
         cfg = T.custom_simulation_config(z_max=0.5, dz=0.05, save_every=3, integrator=integrator,

@@ -172,12 +172,13 @@ def test_twiddles_and_factor_planes():
 
 def test_shared_memory_sizes_and_refusal():
     assert cg.shared_bytes("gnlse_ssfm", 1024, torch.float64) == 8 * (32 + 4 * 1024)
-    assert cg.shared_bytes("gnlse_ssfm", 1024, torch.float32, nl=True) == 4 * (32 + 14 * 1024)
+    assert cg.shared_bytes("gnlse_ssfm", 1024, torch.float32, nl=True) == 4 * (32 + 6 * 1024)
+    assert cg.shared_bytes("gnlse_ssfm", 640, torch.float64, nl=True) == 8 * (32 + 6 * 640)
     assert cg.shared_bytes("ssfm_rk45", 2048, torch.float64) == 8 * (32 + 12 * 2048)
     limit = 232_448                                        # a Hopper block's opt-in limit
     assert cg.shared_memory_problem("gnlse_ssfm", 2048, torch.float64, True, limit) is None
-    msg = cg.shared_memory_problem("gnlse_ssfm", 2048, torch.float64, True, 200_000)
-    assert "229632 bytes" in msg and "allows 200000" in msg
+    msg = cg.shared_memory_problem("gnlse_ssfm", 2048, torch.float64, True, 90_000)
+    assert "98560 bytes" in msg and "allows 90000" in msg
 
 
 # ---------------------------------------------------------------------------
@@ -199,6 +200,7 @@ def fake_card(monkeypatch):
     ("rk4", False, False, 1024, "gnlse_ssfm", None),
     ("rk4", True, True, 384, "gnlse_ssfm", None),
     ("rk4", True, False, 2048, "gnlse_ssfm", None),
+    ("rk4", True, False, 640, "gnlse_ssfm", None),
     ("rk45", False, False, 1024, "ssfm_rk45", None),
     ("rk4ip", False, False, 1024, None, "fixed-step Strang split"),
     ("rk4ip45", False, False, 1024, None, "fixed-step Strang split"),
@@ -225,7 +227,8 @@ def test_route_table(fake_card, integrator, nl, spectral, n, want, msg):
 
 
 def test_route_refuses_a_block_too_large_for_the_card(fake_card, monkeypatch):
-    monkeypatch.setattr(_Props, "shared_memory_per_block_optin", 200_000)
+    # between the fp32 nl block at 2048 (98,432 bytes) and the fp64 one (98,560)
+    monkeypatch.setattr(_Props, "shared_memory_per_block_optin", 98_500)
     args = ("rk4", object(), torch.zeros(2, dtype=torch.float64), 2048, torch.float64, fake_card)
     assert tg.kernel_route(*args, "auto") is None
     with pytest.raises(ValueError, match="bytes of shared memory"):

@@ -177,19 +177,24 @@ def test_factor_planes_are_the_plain_versions():
 @pytest.mark.parametrize("body,n,rdt,want", [
     ("rotation", 256, torch.float64, 8 * (32 + 8 * 256)),
     ("coherent", 2048, torch.float64, 8 * (32 + 8 * 2048)),
-    ("nl", 1024, torch.float64, 229_632),
-    ("nl", 2048, torch.float32, 4 * (32 + 28 * 2048)),
-    ("nl", 2048, torch.float64, 8 * (32 + 28 * 2048)),
+    ("nl", 1024, torch.float64, 98_560),
+    ("nl", 2048, torch.float32, 4 * (32 + 12 * 2048)),
+    ("nl", 2048, torch.float64, 8 * (32 + 12 * 2048)),
+    ("nl", 640, torch.float64, 8 * (32 + 12 * 640)),
 ])
 def test_shared_memory_sizes(body, n, rdt, want):
     """Four buffers of T complex values (the state and its transform
-    partner, both polarizations) for the rotation and coherent bodies,
-    fourteen for nl; a Hopper block's opt-in limit is 232,448 bytes."""
+    partner, both polarizations) for the rotation and coherent bodies, six
+    for nl (the state and a transform pair; its RK4 sums are registers); a
+    Hopper block's opt-in limit is 232,448 bytes."""
     assert cv.shared_bytes(n, rdt, body) == want
     msg = cv.shared_memory_problem(n, rdt, body, 232_448)
     assert (msg is None) == (want <= 232_448)
     if msg is not None:
         assert f"{want} bytes" in msg and "allows 232448" in msg
+    # a card one byte short refuses the block with the numbers
+    msg = cv.shared_memory_problem(n, rdt, body, want - 1)
+    assert f"{want} bytes" in msg and f"allows {want - 1}" in msg
 
 
 # ---------------------------------------------------------------------------
@@ -212,7 +217,8 @@ def fake_card(monkeypatch):
     ("rk4", 1 / 3, False, 2048, torch.float64, "vgnlse_ssfm", None),
     ("rk4", 0.0, True, 1024, torch.float64, "vgnlse_ssfm", None),
     ("rk4", 1 / 3, True, 2048, torch.float32, "vgnlse_ssfm", None),
-    ("rk4", 0.0, True, 2048, torch.float64, None, "bytes of shared memory"),
+    ("rk4", 0.0, True, 2048, torch.float64, "vgnlse_ssfm", None),
+    ("rk4", 1 / 3, True, 640, torch.float64, "vgnlse_ssfm", None),
     ("rk4", 0.0, False, 200, torch.float64, None, "multiple of 128"),
     ("rk4", 0.0, False, 4096, torch.float32, None, "too wide"),
     ("rk4ip", 0.0, False, 1024, torch.float64, None, "rk4 only"),
