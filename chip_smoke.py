@@ -44,7 +44,7 @@ Phases (any failure raises, and the script exits non-zero):
     gamma grid, 1,000 steps over 500 m, ``save_every=100``) with one comb
     made to blow up and a run with a trailing partial interval (1,005
     steps): fp64 rk4/ab4/abm4 within 1e-11 and fp32 rk4 within 1e-4 of each
-    comb's largest value (normwise: a weak line carries the DFT sums'
+    comb's largest value (normwise: a weak line carries the cubic sum's
     rounding relative to the pumps), equal ``ok``, the bad comb frozen and
     finite;
 12. comb kernel K5 (``csrc/comb_rk45.cu``) vs its plain version, same
@@ -63,8 +63,9 @@ Phases (any failure raises, and the script exits non-zero):
 14. times (median of 5 warm reps) of the four comb kernel entries and of
     ``solve_comb_batch`` end to end; the plain versions once each, in
     phases 11 and 12.  Each comb kernel's bound counts the cubic sum as two
-    FFTs, the least work it needs; the dense-DFT count the kernels perform
-    is printed beside it as the dense bound;
+    FFTs, the least work it needs (K4 computes it so, through its own
+    FFTs); the dense-DFT count K5 performs is printed beside K5's as its
+    dense bound;
 15. GNLSE kernel K6 (``csrc/gnlse_ssfm.cu``) vs its plain version on the
     card at the ``bench_gnlse.py`` configuration (2,048 sech envelopes of
     1,024 samples, 1,000 steps over 10 m, ``save_every=100``) with one
@@ -207,19 +208,19 @@ RK45_TOL = {torch.float64: (1e-10, 1e-13), torch.float32: (1e-6, 1e-10)}
 COMB_N, COMB_B, COMB_STEPS, COMB_SAVE, COMB_Z = 64, 4096, 1000, 100, 500.0
 COMB_TOL = {torch.float64: (1e-9, 1e-12), torch.float32: (1e-6, 1e-10)}
 # The comb kernels' bound counts the least work the function needs: the
-# cubic sum through two length-L FFTs (the port's 'fft' coupling), at the
-# peak of each type outside the tensor cores (PEAK_FLOPS).  The kernels sum
-# dense DFTs instead (8*N*L multiply-adds per RHS); that count, at the 67
-# TFLOP/s a tensor-core design could reach in both types (FP64 tensor cores;
-# FP32 without TF32, which drifts, BENCH_COMB.md), is printed beside it as
-# the dense bound, the target of such a design.
+# cubic sum through two length-L FFTs (the port's 'fft' coupling, which K4
+# computes in its own body), at the peak of each type outside the tensor
+# cores (PEAK_FLOPS).  K5 sums dense DFTs instead (8*N*L multiply-adds per
+# RHS); that count, at the 67 TFLOP/s a tensor-core design could reach in
+# both types (FP64 tensor cores; FP32 without TF32, which drifts,
+# BENCH_COMB.md), is printed beside K5's bound as its dense bound.
 COMB_DENSE_PEAK_FLOPS = 67e12
 
 
 def comb_rhs_flop(n, L, dense=False):
     """One comb RHS: the cubic sum (two radix-2 FFTs of 5*L*log2(L) flop,
-    or the kernels' dense DFTs, 16*N*L), 5 per bin for F|F|^2, 7 per
-    component for the linear terms and the sum."""
+    or K5's dense DFTs, 16*N*L), 5 per bin for F|F|^2, 7 per component for
+    the linear terms and the sum."""
     transforms = 16 * n * L if dense else 10 * L * (L.bit_length() - 1)
     return transforms + 5 * L + 14 * n
 
@@ -2004,22 +2005,24 @@ def main():
     n_saves = COMB_STEPS // COMB_SAVE
     dense_ms, comb_flop = {}, {}
 
-    def comb_bounds(name, rdt, flop_of, nbytes):
-        """The bound (FFT count) and the dense bound of one comb kernel."""
-        comb_flop[name] = (flop_of(False), flop_of(True))
+    def comb_bounds(name, rdt, flop_of, nbytes, dense=False):
+        """The bound (FFT count) of one comb kernel and, for K5, which sums
+        dense DFTs, its dense bound."""
+        comb_flop[name] = (flop_of(False), flop_of(True) if dense else None)
         bound(name, rdt, comb_flop[name][0], nbytes)
-        dense_ms[name] = 1e3 * max(comb_flop[name][1] / COMB_DENSE_PEAK_FLOPS,
-                                   nbytes / PEAK_BYTES)
+        if dense:
+            dense_ms[name] = 1e3 * max(comb_flop[name][1] / COMB_DENSE_PEAK_FLOPS,
+                                       nbytes / PEAK_BYTES)
 
     for rdt in (torch.float64, torch.float32):
         name = f"comb_rk_{suffix(rdt)}"
         t = comb_lanes(psa, rdt, dev)
         ms[name] = 1e3 * timed(lambda: cc.solve_comb_batch_cuda(*t, **comb_kw, integrator="rk4"))
-        # inputs: A0 (2N), gamma, alpha, beta (N), the twiddles; outputs:
-        # P_max (N), A_end (2N), ok (1 byte)
+        # inputs: A0 (2N), gamma, alpha, beta (N), the float64 twiddles;
+        # outputs: P_max (N), A_end (2N), ok (1 byte)
         comb_bounds(name, rdt, lambda dense: COMB_B * (
             COMB_STEPS * comb_step_flop(COMB_N, L, "rk4", rdt, dense) + n_saves * 3 * COMB_N),
-            COMB_B * ((6 * COMB_N + 2) * rdt.itemsize + 1) + 2 * L * rdt.itemsize)
+            COMB_B * ((6 * COMB_N + 2) * rdt.itemsize + 1) + 2 * L * 8)
     for rdt in (torch.float64, torch.float32):
         name = f"comb_rk45_{suffix(rdt)}"
         rtol, atol = COMB_TOL[rdt]
@@ -2032,7 +2035,8 @@ def main():
         # outputs add the two int32 counters
         comb_bounds(name, rdt, lambda dense: attempts * comb_attempt_flop(COMB_N, L, dense)
                     + COMB_B * (comb_rhs_flop(COMB_N, L, dense) + n_saves * 3 * COMB_N),
-                    COMB_B * ((6 * COMB_N + 2) * rdt.itemsize + 9) + 2 * L * rdt.itemsize)
+                    COMB_B * ((6 * COMB_N + 2) * rdt.itemsize + 9) + 2 * L * rdt.itemsize,
+                    dense=True)
         steps[name + "_timed"] = (attempts / COMB_B, int((r.n_accepted + r.n_rejected).max()))
     comb_e2e, library_ms = {}, {}
     for precision, integ, name, _bar in comb_paths:
@@ -2045,19 +2049,20 @@ def main():
             cfg, coc, A0c, coupling="fft", engine="torch", device="cuda"))
     log(f"comb times on {card} (median of {REPS} warm reps, host clock with synchronize; "
         f"bound: FFT count at FP64 {PEAK_FLOPS[torch.float64] / 1e12:g} / FP32 "
-        f"{PEAK_FLOPS[torch.float32] / 1e12:g} TFLOP/s; dense bound: dense-DFT count at "
+        f"{PEAK_FLOPS[torch.float32] / 1e12:g} TFLOP/s; K5's dense bound: dense-DFT count at "
         f"{COMB_DENSE_PEAK_FLOPS / 1e12:g} TFLOP/s; {PEAK_BYTES / 1e12:g} TB/s):")
     for name in ("comb_rk_f64", "comb_rk_f32", "comb_rk45_f64", "comb_rk45_f32"):
         extra = ""
+        if name in dense_ms:
+            extra = (f"; dense bound {dense_ms[name]:.3f} ms ({comb_flop[name][1]:.4g} flop; the "
+                     f"kernel at {100 * dense_ms[name] / ms[name]:.2f}%)")
         if name + "_timed" in steps:
             mean, mx = steps[name + "_timed"]
-            extra = f"; attempted steps per comb mean {mean:.1f}, max {mx}"
+            extra += f"; attempted steps per comb mean {mean:.1f}, max {mx}"
         log(f"  {name} {COMB_B} combs: {ms[name]:.3f} ms = "
             f"{COMB_B * COMB_STEPS / ms[name] * 1e3:.1f} comb-steps/s; bound {bound_ms[name]:.3f} "
             f"ms ({bound_by[name]}; {comb_flop[name][0]:.4g} flop, {bytes_of[name]} bytes; "
-            f"the kernel at {100 * bound_ms[name] / ms[name]:.2f}% of it); dense bound "
-            f"{dense_ms[name]:.3f} ms ({comb_flop[name][1]:.4g} flop; the kernel at "
-            f"{100 * dense_ms[name] / ms[name]:.2f}%)"
+            f"the kernel at {100 * bound_ms[name] / ms[name]:.2f}% of it)"
             f"{extra}; solve_comb_batch with the fft coupling in plain torch (the library call) "
             f"{library_ms[name]:.3f} ms; plain version on the card "
             f"(one run, phase 11/12) {plain_ms[name]:.1f} ms")

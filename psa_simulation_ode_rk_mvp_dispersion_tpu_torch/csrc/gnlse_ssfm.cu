@@ -142,8 +142,8 @@ struct NlStepper {
 
     // y <- IDFT(L * DFT(y)), L applied in the forward transform's last pass.
     __device__ __forceinline__ void lin(const Cx<T>* L) {
-        Cx<T>* f = ssfm::wide_fft<T, false, 1>(full, y, b1, ssfm::MulBy<T>{L, c.n});
-        Cx<T>* r = ssfm::wide_fft<T, true, 1>(full, f, f == y ? b1 : y, ssfm::Scale{c.inv_n});
+        Cx<T>* f = ssfm::wide_fft<T, false, 1, S>(full, y, b1, ssfm::MulBy<T>{L, c.n});
+        Cx<T>* r = ssfm::wide_fft<T, true, 1, S>(full, f, f == y ? b1 : y, ssfm::Scale{c.inv_n});
         if (r != y) {
             b1 = y;
             y = r;
@@ -166,10 +166,10 @@ struct NlStepper {
                     p[j] = v.re * v.re + v.im * v.im;
                 }
             }
-            Cx<T>* z = ssfm::wide_fft<T, false, 1>(half, b1, b2, ssfm::NoPost{});
+            Cx<T>* z = ssfm::wide_fft<T, false, 1, S>(half, b1, b2, ssfm::NoPost{});
             ssfm::raman_spectrum(half, z, hrc);
             R = reinterpret_cast<const T*>(
-                ssfm::wide_fft<T, true, 1>(half, z, z == b1 ? b2 : b1, ssfm::Scale{c.inv_n}));
+                ssfm::wide_fft<T, true, 1, S>(half, z, z == b1 ? b2 : b1, ssfm::Scale{c.inv_n}));
         }
         Cx<T>* w = R == reinterpret_cast<const T*>(b1) ? b2 : b1;
 #pragma unroll
@@ -188,10 +188,10 @@ struct NlStepper {
         }
         if (!steep) return;
         // W - (i/omega_0) IDFT(i omega DFT(W)) = IDFT((1 + omega/omega_0) DFT(W))
-        Cx<T>* f = ssfm::wide_fft<T, false, 1>(full, w, w == b1 ? b2 : b1,
+        Cx<T>* f = ssfm::wide_fft<T, false, 1, S>(full, w, w == b1 ? b2 : b1,
                                                ssfm::Steep<T>{omega, double(inv_w0)});
         const Cx<T>* V =
-            ssfm::wide_fft<T, true, 1>(full, f, f == b1 ? b2 : b1, ssfm::Scale{c.inv_n});
+            ssfm::wide_fft<T, true, 1, S>(full, f, f == b1 ? b2 : b1, ssfm::Scale{c.inv_n});
 #pragma unroll
         for (int i = 0; i < S; ++i) {
             const int j = at(i);

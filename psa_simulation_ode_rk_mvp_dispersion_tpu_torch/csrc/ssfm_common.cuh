@@ -174,17 +174,20 @@ __device__ void kerr(const Block<T>& c, Cx<T>* a, T g, T h) {
     }
 }
 
-// Sum over the block of one value a thread, in a fixed order: a shuffle tree
-// in each warp, then the warps' sums in warp order.  Every thread gets it.
+// The same two operations on one sample, for csrc/ssfm_rk45.cu's passes.
+// The block loops above keep their own expressions: built on a shared
+// helper, K7 rounded differently on the card (FMA contraction), and K6 Kerr
+// and K7 are held to give the same outputs whatever K8 does.
 template <typename T>
-__device__ T block_sum(const Block<T>& c, T v) {
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-    __syncthreads();
-    if ((c.tid & 31) == 0) c.red[c.tid >> 5] = v;
-    __syncthreads();
-    T s = c.red[0];
-    for (int w = 1; w < (c.nt >> 5); ++w) s += c.red[w];
-    return s;
+__device__ __forceinline__ Cx<T> affine_of(const Cx<T>& x, const Cx<T>& dp, const Cx<T>& dF) {
+    return Cx<T>{(x.re * dp.re - x.im * dp.im) + dF.re, (x.re * dp.im + x.im * dp.re) + dF.im};
+}
+template <typename T>
+__device__ __forceinline__ Cx<T> kerr_of(const Cx<T>& x, T g, T h) {
+    const T ang = (g * (x.re * x.re + x.im * x.im)) * h;
+    T s, co;
+    sin_cos(ang, &s, &co);
+    return Cx<T>{x.re * co - x.im * s, x.re * s + x.im * co};
 }
 
 // max(a, b) that keeps a NaN, as torch.maximum and amax do.
@@ -279,15 +282,20 @@ struct Scale {
         return Cx<double>{v.re * s, v.im * s};
     }
 };
-// v * f[sq * len + k], the product in mul_factor's order.
+// w v in double, the product in mul_factor's order.
+template <typename T>
+__device__ __forceinline__ Cx<double> times(const Cx<T>& w, const Cx<double>& v) {
+    return Cx<double>{double(w.re) * v.re - double(w.im) * v.im,
+                      double(w.re) * v.im + double(w.im) * v.re};
+}
+
+// v * f[sq * len + k].
 template <typename T>
 struct MulBy {
     const Cx<T>* f;
     int len;
     __device__ Cx<double> operator()(int sq, int k, const Cx<double>& v) const {
-        const Cx<T> w = f[sq * len + k];
-        return Cx<double>{double(w.re) * v.re - double(w.im) * v.im,
-                          double(w.re) * v.im + double(w.im) * v.re};
+        return times(f[sq * len + k], v);
     }
 };
 
@@ -330,43 +338,53 @@ __device__ inline void butterfly(double* xr, double* xi) {
 // become one of R ns.  Butterfly j of group g reads points j + q m/R (the
 // first pass in natural order, q r + g, the others group-major g m + .),
 // turns point q by W_{R ns}^{q (j mod ns)} and writes output q at
-// g m + (j - j mod ns) R + j mod ns + q ns.
-template <typename T, bool INV, int R, int P, class Post>
+// g m + (j - j mod ns) R + j mod ns + q ns.  S is the samples a thread of
+// one sequence (S nt >= len): a thread takes butterflies tid + i nt,
+// i < ceil(P S / R), in a loop that unrolls; m/R is a power of two, so a
+// butterfly's group and index are a shift and a mask.
+template <typename T, bool INV, int R, int P, int S, class Post>
 __device__ __forceinline__ void wide_pass(const Plan& f, const Cx<T>* src, Cx<T>* dst, int ns,
                                           bool last, const Post& post) {
-    const int mR = f.m / R, per = f.r * mR, step = f.ntab / (R * ns);
-    for (int u = f.tid; u < P * per; u += f.nt) {
-        const int sq = P == 1 ? 0 : u / per;
-        const int t = u - sq * per;
-        const int g = t / mR, j = t - g * mR, k = j & (ns - 1);
-        const Cx<T>* in = src + sq * f.len;
-        Cx<T>* out = dst + sq * f.len;
-        double xr[R], xi[R];
+    constexpr int kLogR = R == 2 ? 1 : 2;
+    constexpr int kButterflies = (P * S + R - 1) / R;
+    const int lmR = f.lm - kLogR, mR = 1 << lmR, per = f.r << lmR;
+    const int step = f.ntab / (R * ns);
 #pragma unroll
-        for (int q = 0; q < R; ++q) {
-            const int i = j + q * mR;
-            const Cx<T> v = ns == 1 ? in[i * f.r + g] : in[g * f.m + i];
-            xr[q] = double(v.re);
-            xi[q] = double(v.im);
-        }
-        if (ns > 1) {
+    for (int b = 0; b < kButterflies; ++b) {
+        const int u = f.tid + b * f.nt;
+        if (u < P * per) {
+            const int sq = P == 1 ? 0 : u / per;
+            const int t = u - sq * per;
+            const int g = t >> lmR, j = t & (mR - 1), k = j & (ns - 1);
+            const Cx<T>* in = src + sq * f.len;
+            Cx<T>* out = dst + sq * f.len;
+            double xr[R], xi[R];
 #pragma unroll
-            for (int q = 1; q < R; ++q) {
-                const Cx<double> w = ldg(&f.tw[q * k * step]);
-                const double wi = INV ? w.im : -w.im;
-                const double tr = xr[q] * w.re - xi[q] * wi;
-                const double ti = xr[q] * wi + xi[q] * w.re;
-                xr[q] = tr;
-                xi[q] = ti;
+            for (int q = 0; q < R; ++q) {
+                const int i = j + q * mR;
+                const Cx<T> v = ns == 1 ? in[i * f.r + g] : in[g * f.m + i];
+                xr[q] = double(v.re);
+                xi[q] = double(v.im);
             }
-        }
-        butterfly<R, INV>(xr, xi);
-        const int o = g * f.m + (j - k) * R + k;
+            if (ns > 1) {
 #pragma unroll
-        for (int q = 0; q < R; ++q) {
-            Cx<double> v{xr[q], xi[q]};
-            if (last) v = post(sq, o + q * ns, v);
-            out[o + q * ns] = Cx<T>{T(v.re), T(v.im)};
+                for (int q = 1; q < R; ++q) {
+                    const Cx<double> w = ldg(&f.tw[q * k * step]);
+                    const double wi = INV ? w.im : -w.im;
+                    const double tr = xr[q] * w.re - xi[q] * wi;
+                    const double ti = xr[q] * wi + xi[q] * w.re;
+                    xr[q] = tr;
+                    xi[q] = ti;
+                }
+            }
+            butterfly<R, INV>(xr, xi);
+            const int o = g * f.m + (j - k) * R + k;
+#pragma unroll
+            for (int q = 0; q < R; ++q) {
+                Cx<double> v{xr[q], xi[q]};
+                if (last) v = post(sq, o + q * ns, v);
+                out[o + q * ns] = Cx<T>{T(v.re), T(v.im)};
+            }
         }
     }
 }
@@ -375,7 +393,8 @@ __device__ __forceinline__ void wide_pass(const Plan& f, const Cx<T>* src, Cx<T>
 // Post scales) of P sequences of f.len samples held one after the other,
 // natural order in and out.  a is overwritten and b is scratch; the result is
 // in a or b, whichever the function returns.  Every pass ends at a barrier.
-template <typename T, bool INV, int P, class Post>
+// S: the samples a thread of one sequence, as for wide_pass.
+template <typename T, bool INV, int P, int S, class Post>
 __device__ __forceinline__ Cx<T>* wide_fft(const Plan& f, Cx<T>* a, Cx<T>* b, const Post& post) {
     const bool tail = f.r > 1;
     Cx<T>* src = a;
@@ -383,7 +402,7 @@ __device__ __forceinline__ Cx<T>* wide_fft(const Plan& f, Cx<T>* a, Cx<T>* b, co
     int ns = 1;
     __syncthreads();  // a complete
     if (f.lm & 1) {
-        wide_pass<T, INV, 2, P>(f, src, dst, 1, !tail && f.m == 2, post);
+        wide_pass<T, INV, 2, P, S>(f, src, dst, 1, !tail && f.m == 2, post);
         Cx<T>* s = src;
         src = dst;
         dst = s;
@@ -391,7 +410,7 @@ __device__ __forceinline__ Cx<T>* wide_fft(const Plan& f, Cx<T>* a, Cx<T>* b, co
         __syncthreads();
     }
     for (; ns < f.m; ns <<= 2) {
-        wide_pass<T, INV, 4, P>(f, src, dst, ns, !tail && (ns << 2) == f.m, post);
+        wide_pass<T, INV, 4, P, S>(f, src, dst, ns, !tail && (ns << 2) == f.m, post);
         Cx<T>* s = src;
         src = dst;
         dst = s;
@@ -465,6 +484,128 @@ __device__ __forceinline__ void raman_spectrum(const Plan& f, Cx<T>* z, const Cx
         z[k] = Cx<T>{T(er2 - oi2), T(ei2 + orr2)};                  // E + i O
         if (M - k != k) z[M - k] = Cx<T>{T(er2 + oi2), T(orr2 - ei2)};  // E* + i O*
     }
+}
+
+// ---------------------------------------------------------------------------
+// The slotted transform of csrc/ssfm_rk45.cu (K8): wide_fft's passes, but
+// the input is read from a buffer the transform leaves alone (the first
+// pass reads in, the others ping-pong between s0 and s1; in may be s1, not
+// s0), and the last pass hands each output to the caller's Post with its
+// slot instead of storing it.  Thread tid owns the same outputs of the last
+// pass in every transform of one plan:
+//   r = 1 (the last pass is radix-4 at ns = len/4): slot s is output
+//     tid + (s/4) nt + (s%4) len/4, for the butterflies tid + (s/4) nt
+//     below len/4;
+//   r > 1 (the last pass is the r-term tail): slot s is output tid + s nt,
+//     s < S, below len.
+// S, the samples a thread (4 or 8), is a template constant and every slot
+// loop unrolls, so that the caller keeps per-sample values (factors, a state)
+// in registers of the thread that owns the sample.  Post(s, k, v, out)
+// gets the slot, the output index, the value in double and the buffer that
+// is free for the outputs (the one of s0, s1 the last pass does not read),
+// and stores what it wants.  A barrier follows the last pass when Sync.
+// ---------------------------------------------------------------------------
+
+// The output index of slot s.
+__device__ __forceinline__ int slot_sample(const Plan& f, int s) {
+    return f.r == 1 ? f.tid + (s >> 2) * f.nt + (s & 3) * (f.len >> 2) : f.tid + s * f.nt;
+}
+
+// Whether slot s of this thread holds an output.
+template <int S>
+__device__ __forceinline__ bool slot_valid(const Plan& f, int s) {
+    return f.r == 1 ? f.tid + (s >> 2) * f.nt < (f.len >> 2) : (s < S && f.tid + s * f.nt < f.len);
+}
+
+// The last radix-4 pass (r = 1, ns = len/4), as wide_pass computes it.
+template <typename T, bool INV, int S, class Post>
+__device__ __forceinline__ void slot_last4(const Plan& f, const Cx<T>* src, Cx<T>* out,
+                                           const Post& post) {
+    constexpr int kButterflies = S / 4;
+    const int q4 = f.len >> 2, step = f.ntab == f.len ? 1 : f.ntab / f.len;
+#pragma unroll
+    for (int i = 0; i < kButterflies; ++i) {
+        const int j = f.tid + i * f.nt;
+        if (j < q4) {
+            double xr[4], xi[4];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                const Cx<T> v = src[j + q * q4];
+                xr[q] = double(v.re);
+                xi[q] = double(v.im);
+            }
+#pragma unroll
+            for (int q = 1; q < 4; ++q) {
+                const Cx<double> w = ldg(&f.tw[q * j * step]);
+                const double wi = INV ? w.im : -w.im;
+                const double tr = xr[q] * w.re - xi[q] * wi;
+                const double ti = xr[q] * wi + xi[q] * w.re;
+                xr[q] = tr;
+                xi[q] = ti;
+            }
+            butterfly<4, INV>(xr, xi);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) post(4 * i + q, j + q * q4, Cx<double>{xr[q], xi[q]}, out);
+        }
+    }
+}
+
+// The r-term tail (r > 1), as wide_fft computes it.
+template <typename T, bool INV, int S, class Post>
+__device__ __forceinline__ void slot_tail(const Plan& f, const Cx<T>* src, Cx<T>* out,
+                                          const Post& post) {
+    const int tws = f.ntab / f.len;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+        const int k = f.tid + s * f.nt;
+        if (k < f.len) {
+            const int d = k & (f.m - 1), inc = k * tws;
+            double ar = 0.0, ai = 0.0;
+            int idx = 0;  // (g k tws) mod ntab
+            for (int g = 0; g < f.r; ++g) {
+                const Cx<T> y = src[g * f.m + d];
+                const Cx<double> w = ldg(&f.tw[idx]);
+                const double wi = INV ? w.im : -w.im;
+                ar += double(y.re) * w.re - double(y.im) * wi;
+                ai += double(y.re) * wi + double(y.im) * w.re;
+                idx += inc;
+                if (idx >= f.ntab) idx -= f.ntab;
+            }
+            post(s, k, Cx<double>{ar, ai}, out);
+        }
+    }
+}
+
+// The DFT (INV false) or the unscaled inverse DFT (INV true) of in, natural
+// order in and out; returns the buffer Post was handed.  Every pass but
+// the last ends at a barrier, the last one when Sync.
+template <typename T, bool INV, int S, bool Sync, class Post>
+__device__ __forceinline__ Cx<T>* slot_fft(const Plan& f, const Cx<T>* in, Cx<T>* s0, Cx<T>* s1,
+                                           const Post& post) {
+    static_assert(S == 4 || S == 8, "a thread owns whole radix-4 butterflies");
+    const Cx<T>* src = in;
+    Cx<T>* dst = s0;
+    int ns = 1;
+    if (f.lm & 1) {
+        wide_pass<T, INV, 2, 1, S>(f, src, dst, 1, false, NoPost{});
+        __syncthreads();
+        src = dst;
+        dst = dst == s0 ? s1 : s0;
+        ns = 2;
+    }
+    const int stop = f.r > 1 ? f.m : f.m >> 2;  // the radix-4 passes before the last
+    for (; ns < stop; ns <<= 2) {
+        wide_pass<T, INV, 4, 1, S>(f, src, dst, ns, false, NoPost{});
+        __syncthreads();
+        src = dst;
+        dst = dst == s0 ? s1 : s0;
+    }
+    if (f.r > 1)
+        slot_tail<T, INV, S>(f, src, dst, post);
+    else
+        slot_last4<T, INV, S>(f, src, dst, post);
+    if (Sync) __syncthreads();
+    return dst;
 }
 
 }  // namespace ssfm

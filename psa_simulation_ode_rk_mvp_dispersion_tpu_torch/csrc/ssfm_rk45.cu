@@ -6,9 +6,10 @@
 //
 // Replaces both routes of the JAX package's TPU kernel
 //   ops/pallas_ssfm_adaptive.py::_kernel_body   (K8)
-// with one template, ssfm_rk45_kernel<T, Affine>, T in {double, float}:
-// float64 serves x64, float32 serves x32; Affine false is the GNLSE route,
-// true the LLE route.
+// with one template, ssfm_rk45_kernel<T, Affine, S, Narrow>, T in {double,
+// float}: float64 serves x64, float32 serves x32; Affine false is the GNLSE
+// route, true the LLE route; S the samples a thread and Narrow the launch
+// bounds (below).
 //
 // What it computes (the contract of models/gnlse.gnlse_adaptive with method
 // 'strang' and no nonlinear terms, which
@@ -49,12 +50,42 @@
 // The JAX kernel's no-shrink-on-accept deadband (a guard against its bf16
 // transform noise) is not copied: this is the scan's controller.
 //
-// What bounds it: arithmetic, 9 transforms of about 5 n log2 n flop each and
-// O(n) pointwise work (2 n sincos for the factor, 5 affine passes for the
-// LLE) an attempt, on a state of n samples.  The state, the three attempt
-// buffers and the two factors live in shared memory (6 buffers; at n = 2048
-// in fp64, 196,864 bytes); the twiddles and the phase rate are read through
-// the read-only cache.
+// What bounds it: latency, not arithmetic (on an H100 an attempt at the LLE
+// width takes about as long in fp32 as in fp64, 17 and 19 us).  An attempt
+// is 9 transforms of about 5 n log2 n flop each and O(n) pointwise work on a
+// state of n samples, one envelope a block, a chain of passes each ending at
+// a barrier, and at the LLE width (n = 256) a block has only 2 warps to hide
+// each pass's latency.  So the design cuts the passes and barriers:
+//   - the transforms are ssfm_common.cuh's slot_fft: wide_fft's radix-4
+//     Stockham passes (one radix-2 pass first when log2 m is odd, the
+//     r-odd tail), float64 twiddles and double butterflies, one barrier a
+//     pass; at n = 256 that is 4 passes a transform, not 8;
+//   - the pointwise work is folded into the last pass of each transform,
+//     whose outputs the same thread owns in every transform: the factor
+//     products Lc F and Lq F in the forward transforms', the 1/n, the LLE
+//     affine write and the Kerr rotation in the inverse ones'.  So the
+//     factors Lq of a thread's samples are registers, formed once an
+//     attempt (Lc = Lq^2 is formed where it is used), and the coarse state
+//     yc stays in registers from the coarse step's last pass to the error
+//     sums;
+//   - the error sums (|yf - yc|^2, |yf|^2, |y|^2), the finite flag and the
+//     candidate's power come out of the fine step's last pass and go
+//     through one fused reduction: for each value a shuffle tree in each
+//     warp, then the warps' sums in warp order, the flag ANDed at the one
+//     barrier.
+// At n = 256 an attempt has 36 barriers: 9 transforms of 4 passes, the
+// last pass's barrier of the fine step being the reduction's.
+// The samples a thread (S) is a template constant: 4 up to n = 1,024 (64
+// threads a cavity at the LLE width, 256 at n = 1,024), 8 above.  At the
+// LLE width 64 threads a cavity beat 128 and 32 on an H100 (PERF.md).
+// A block of at most 128 threads (Narrow) leaves a thread every register
+// it asks for: at the LLE width 512 cavities are about 4 blocks of 64
+// threads an SM, which 255 registers a thread allow; a wider block asks for
+// two blocks an SM (128 registers) at 4 samples a thread, one at 8.  The
+// state and three buffers live in shared memory (the transform pair and the
+// fine spectrum; the candidate lands in the pair and becomes the state by a
+// pointer swap): at n = 2,048 in fp64 131,328 bytes.  The twiddles and the
+// phase rate are read through the read-only cache.
 //
 // Global layout (row-major, one row per envelope, complex as (re, im)):
 //   y0 (B, n); gamma, alpha (B,) (GNLSE) or det (B,) and pump (B,) complex
@@ -75,10 +106,10 @@ namespace {
 
 using ssfm::Block;
 using ssfm::Cx;
-using ssfm::dft;
 
-constexpr int kBuffers = 6;
+constexpr int kBuffers = 4;
 constexpr int kReduceSlots = 32;
+constexpr int kSums = 4;  // |yf - yc|^2, |yf|^2, |y|^2, |candidate|^2
 
 // a / b by the scaled (Smith) division of torch's complex type.
 template <typename T>
@@ -91,39 +122,60 @@ __device__ Cx<T> cdiv(const Cx<T>& a, const Cx<T>& b) {
     return Cx<T>{(a.re * rat + a.im) * scl, (a.im * rat - a.re) * scl};
 }
 
-template <typename T, bool Affine>
+// One envelope's adaptive integration.  Slot s of a thread is sample
+// ssfm::slot_sample(f, s) in every transform's last pass.
+template <typename T, bool Affine, int S>
 struct Doubling {
-    Block<T> c;
-    Cx<T>* y;        // the state
-    Cx<T>* w[3];     // attempt buffers
-    Cx<T>*lq, *lc;   // exp(L h/4), exp(L h/2)
-    const T* ph;     // (n,) phase rate of this envelope
+    static constexpr int kSlots = S;
+    Block<T> c;        // the block's view for the finite check and the peak
+    ssfm::Plan f;      // the n-point transform
+    Cx<T>* y;          // the state
+    Cx<T>*fa, *fb;     // the transform pair
+    Cx<T>* fc;         // the fine spectrum Lq DFT(y)
+    const T* ph;       // (n,) phase rate of this envelope
     T g, nha, rtol, atol;
-    T det;           // Affine: the detuning and the pump of this cavity
+    T det;             // Affine: the detuning and the pump of this cavity
     Cx<T> F;
     T dt;
     bool ok;
     int n_acc, n_rej;
+    Cx<T> lq[kSlots], yc[kSlots];  // exp(L h/4), the coarse state
 
-    // y <- IDFT(L DFT(y)) on a and the scratch b, then, Affine, y dp + dF;
-    // returns where it landed.
-    __device__ Cx<T>* lin(Cx<T>* a, Cx<T>* b, const Cx<T>* L, const Cx<T>& dp,
-                          const Cx<T>& dF) {
-        Cx<T>* f = dft<T, false>(c, a, b);
-        ssfm::mul_factor(c, f, L);
-        return inv(f, f == a ? b : a, dp, dF);
+    // exp(L h/2) = exp(L h/4)^2 of slot s, formed where it is used.
+    __device__ __forceinline__ Cx<T> lc(int s) const {
+        const Cx<T> q = lq[s];
+        return Cx<T>{q.re * q.re - q.im * q.im, q.re * q.im + q.im * q.re};
     }
 
-    // The inverse transform of a (scratch b), then, Affine, y dp + dF.
-    __device__ Cx<T>* inv(Cx<T>* a, Cx<T>* b, const Cx<T>& dp, const Cx<T>& dF) {
-        Cx<T>* r = dft<T, true>(c, a, b);
-        if constexpr (Affine) ssfm::affine(c, r, dp, dF);
-        return r;
+    // w v in double, rounded once.
+    static __device__ __forceinline__ Cx<T> times(const Cx<T>& w, const Cx<double>& v) {
+        const Cx<double> p = ssfm::times(w, v);
+        return Cx<T>{T(p.re), T(p.im)};
+    }
+
+    // An inverse transform's output: v / n in double, rounded, then,
+    // Affine, y dp + dF.
+    __device__ __forceinline__ Cx<T> lin_out(const Cx<double>& v, const Cx<T>& dp,
+                                             const Cx<T>& dF) const {
+        const Cx<T> x{T(v.re * c.inv_n), T(v.im * c.inv_n)};
+        if constexpr (Affine) return ssfm::affine_of(x, dp, dF);
+        return x;
+    }
+
+    __device__ __forceinline__ Cx<T> kerr(const Cx<T>& x, T s) const {
+        return ssfm::kerr_of(x, g, s);
+    }
+
+    // One transform of in through the pair (in may be one of them).
+    template <bool INV, bool Sync = true, class Post>
+    __device__ __forceinline__ Cx<T>* xf(const Cx<T>* in, const Post& post) {
+        Cx<T>* s0 = in == fa ? fb : fa;
+        return ssfm::slot_fft<T, INV, S, Sync>(f, in, s0, s0 == fa ? fb : fa, post);
     }
 
     // The drive offset F (e^{Lam0 s} - 1)/Lam0, Lam0 = -(1 + i det), in the
     // plain version's order (models/lle._drive_offset).
-    __device__ Cx<T> drive(T s) const {
+    __device__ __forceinline__ Cx<T> drive(T s) const {
         T sn, cs;
         ssfm::sin_cos(-det * s, &sn, &cs);
         const T e = exp(-s);
@@ -133,7 +185,7 @@ struct Doubling {
     }
 
     // Advance over [za, zb].
-    __device__ void advance(T za, T zb, int max_steps) {
+    __device__ __forceinline__ void advance(T za, T zb, int max_steps) {
         const int n = c.n;
         const T span = (zb - za) + T(1);
         const T dt_min = T(1e-12) * span;
@@ -152,65 +204,89 @@ struct Doubling {
                 dF_h = drive(hh);
             }
             const T decay = exp(nha * h4);
-            for (int j = c.tid; j < n; j += c.nt) {
-                T s, co;
-                ssfm::sin_cos(ph[j] * h4, &s, &co);
-                const Cx<T> q{decay * co, decay * s};
-                lq[j] = q;
-                lc[j] = Cx<T>{q.re * q.re - q.im * q.im, q.re * q.im + q.im * q.re};
-                w[0][j] = y[j];
+#pragma unroll
+            for (int s = 0; s < kSlots; ++s) {
+                if (ssfm::slot_valid<S>(f, s)) {
+                    T sn, co;
+                    ssfm::sin_cos(ph[ssfm::slot_sample(f, s)] * h4, &sn, &co);
+                    lq[s] = Cx<T>{decay * co, decay * sn};
+                }
             }
-            // the shared forward transform; the fine spectrum into w[2]
-            Cx<T>* f = dft<T, false>(c, w[0], w[1]);
-            Cx<T>* o = f == w[0] ? w[1] : w[0];
-            for (int j = c.tid; j < n; j += c.nt) {
-                const Cx<T> F = f[j], a = lq[j], b = lc[j];
-                w[2][j] = Cx<T>{a.re * F.re - a.im * F.im, a.re * F.im + a.im * F.re};
-                f[j] = Cx<T>{b.re * F.re - b.im * F.im, b.re * F.im + b.im * F.re};
-            }
-            // coarse: yc = lin(Lc, K_h(IDFT(Lc F)))
-            Cx<T>* u = inv(f, o, dp_h, dF_h);
-            Cx<T>* uo = u == f ? o : f;
-            ssfm::kerr(c, u, g, h);
-            Cx<T>* yc = lin(u, uo, lc, dp_h, dF_h);
-            Cx<T>* fr = yc == u ? uo : u;
+            // the shared forward transform: Lc F for the coarse step, Lq F
+            // into fc for the fine pair
+            Cx<T>* const fq = fc;
+            Cx<T>* u = xf<false>(y, [&](int s, int k, const Cx<double>& v, Cx<T>* o) {
+                o[k] = times(lc(s), v);
+                fq[k] = times(lq[s], v);
+            });
+            // coarse: yc = lin(Lc, K_h(IDFT(Lc F))), into registers
+            u = xf<true>(u, [&](int, int k, const Cx<double>& v, Cx<T>* o) {
+                o[k] = kerr(lin_out(v, dp_h, dF_h), h);
+            });
+            u = xf<false>(u, [&](int s, int k, const Cx<double>& v, Cx<T>* o) {
+                o[k] = times(lc(s), v);
+            });
+            xf<true>(u, [&](int s, int, const Cx<double>& v, Cx<T>*) {
+                yc[s] = lin_out(v, dp_h, dF_h);
+            });
             // fine: yf = lin(Lq, K_{h/2}(lin(Lc, K_{h/2}(IDFT(Lq F)))))
-            Cx<T>* v = inv(w[2], fr, dp_q, dF_q);
-            Cx<T>* vo = v == w[2] ? fr : w[2];
-            ssfm::kerr(c, v, g, hh);
-            Cx<T>* v2 = lin(v, vo, lc, dp_h, dF_h);
-            ssfm::kerr(c, v2, g, hh);
-            Cx<T>* yf = lin(v2, v2 == v ? vo : v, lq, dp_q, dF_q);
-
-            T d2 = T(0), sf = T(0), sy = T(0);
+            u = xf<true>(fc, [&](int, int k, const Cx<double>& v, Cx<T>* o) {
+                o[k] = kerr(lin_out(v, dp_q, dF_q), hh);
+            });
+            u = xf<false>(u, [&](int s, int k, const Cx<double>& v, Cx<T>* o) {
+                o[k] = times(lc(s), v);
+            });
+            u = xf<true>(u, [&](int, int k, const Cx<double>& v, Cx<T>* o) {
+                o[k] = kerr(lin_out(v, dp_h, dF_h), hh);
+            });
+            u = xf<false>(u, [&](int s, int k, const Cx<double>& v, Cx<T>* o) {
+                o[k] = times(lq[s], v);
+            });
+            // yf, its sums against yc and y, and the candidate (4 yf - yc)/3
+            // in place of yf
+            T sum[kSums] = {T(0), T(0), T(0), T(0)};
             int fin = 1;
-            for (int j = c.tid; j < n; j += c.nt) {
-                const Cx<T> a = yf[j], b = yc[j], p = y[j];
+            Cx<T>* cand = xf<true, false>(u, [&](int s, int k, const Cx<double>& v, Cx<T>* o) {
+                const Cx<T> a = lin_out(v, dp_q, dF_q), b = yc[s], p = y[k];
                 const T dr = a.re - b.re, di = a.im - b.im;
-                d2 += dr * dr + di * di;
-                sf += a.re * a.re + a.im * a.im;
-                sy += p.re * p.re + p.im * p.im;
+                sum[0] += dr * dr + di * di;
+                sum[1] += a.re * a.re + a.im * a.im;
+                sum[2] += p.re * p.re + p.im * p.im;
                 fin &= (isfinite(a.re) && isfinite(a.im) && isfinite(b.re) && isfinite(b.im))
                            ? 1 : 0;
+                const Cx<T> yn{(T(4) * a.re - b.re) / T(3), (T(4) * a.im - b.im) / T(3)};
+                o[k] = yn;
+                sum[3] += yn.re * yn.re + yn.im * yn.im;
+            });
+            // the fused reduction: a shuffle tree in each warp, the warps'
+            // sums in warp order, one barrier (which also ANDs the flag)
+#pragma unroll
+            for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+                for (int q = 0; q < kSums; ++q)
+                    sum[q] += __shfl_down_sync(0xffffffffu, sum[q], o);
+            }
+            const int nw = c.nt >> 5;
+            if ((c.tid & 31) == 0) {
+#pragma unroll
+                for (int q = 0; q < kSums; ++q) c.red[q * 8 + (c.tid >> 5)] = sum[q];
             }
             const bool states_finite = __syncthreads_and(fin) != 0;
-            const T d = sqrt(ssfm::block_sum(c, d2) / T(n));
-            const T mf = ssfm::block_sum(c, sf) / T(n);
-            const T my = ssfm::block_sum(c, sy) / T(n);
-            const T s = sqrt(ssfm::nan_max(mf, my));
-            T denom = atol + rtol * s;
+#pragma unroll
+            for (int q = 0; q < kSums; ++q) {
+                T t = c.red[q * 8];
+                for (int w = 1; w < nw; ++w) t += c.red[q * 8 + w];
+                sum[q] = t;
+            }
+            const T d = sqrt(sum[0] / T(n));
+            const T mf = sum[1] / T(n);
+            const T my = sum[2] / T(n);
+            const T sc = sqrt(ssfm::nan_max(mf, my));
+            T denom = atol + rtol * sc;
             const T tiny = sizeof(T) == 8 ? T(2.2250738585072014e-308) : T(1.17549435e-38f);
             denom = denom < tiny ? tiny : denom;
             const T enorm = d / denom;
-            // the candidate (4 yf - yc)/3, in place of yc
-            T sn = T(0);
-            for (int j = c.tid; j < n; j += c.nt) {
-                const Cx<T> a = yf[j], b = yc[j];
-                const Cx<T> yn{(T(4) * a.re - b.re) / T(3), (T(4) * a.im - b.im) / T(3)};
-                yc[j] = yn;
-                sn += yn.re * yn.re + yn.im * yn.im;
-            }
-            const bool escape = ssfm::block_sum(c, sn) / T(n) > T(1e30);
+            const bool escape = sum[3] / T(n) > T(1e30);
             const bool finite = states_finite && isfinite(enorm);
             const bool accept = finite && enorm <= T(1) && !escape;
             T factor = T(0.5);
@@ -223,9 +299,11 @@ struct Doubling {
             if ((!accept && h <= dt_min) || escape) ok = false;
             if (accept) {
                 z = z + h;
-                for (int i = 0; i < 3; ++i)
-                    if (w[i] == yc) w[i] = y;
-                y = yc;
+                if (cand == fa)
+                    fa = y;
+                else
+                    fb = y;
+                y = cand;
                 ++n_acc;
             } else {
                 ++n_rej;
@@ -235,8 +313,17 @@ struct Doubling {
     }
 };
 
-template <typename T, bool Affine>
-__global__ void __launch_bounds__(ssfm::kMaxThreads)
+// The launch bounds: a Narrow block (at most 128 threads) any registers; a
+// wide one (up to 256) two blocks an SM at 4 samples a thread (at most 128
+// registers), one at 8.
+template <int S, bool Narrow>
+struct Bounds {
+    static constexpr int kThreads = Narrow ? 128 : ssfm::kMaxThreads;
+    static constexpr int kBlocks = Narrow || S == 8 ? 1 : 2;
+};
+
+template <typename T, bool Affine, int S, bool Narrow>
+__global__ void __launch_bounds__(Bounds<S, Narrow>::kThreads, Bounds<S, Narrow>::kBlocks)
 ssfm_rk45_kernel(const Cx<T>* __restrict__ y0, const T* __restrict__ gamma,
                  const T* __restrict__ alpha, const T* __restrict__ det,
                  const Cx<T>* __restrict__ pump, const T* __restrict__ ph, int ph_stride,
@@ -247,7 +334,7 @@ ssfm_rk45_kernel(const Cx<T>* __restrict__ y0, const T* __restrict__ gamma,
                  double atol, int max_steps) {
     extern __shared__ __align__(16) unsigned char smem[];
     const int b = blockIdx.x;
-    Doubling<T, Affine> s;
+    Doubling<T, Affine, S> s;
     s.c.tw = tw;
     s.c.red = reinterpret_cast<T*>(smem);
     s.c.n = n;
@@ -255,11 +342,12 @@ ssfm_rk45_kernel(const Cx<T>* __restrict__ y0, const T* __restrict__ gamma,
     s.c.tid = threadIdx.x;
     s.c.nt = blockDim.x;
     s.c.inv_n = 1.0 / n;
+    s.f = ssfm::plan(tw, n, 1, s.c.tid, s.c.nt);
     Cx<T>* buf = reinterpret_cast<Cx<T>*>(smem + kReduceSlots * sizeof(T));
     s.y = buf;
-    for (int i = 0; i < 3; ++i) s.w[i] = buf + (i + 1) * n;
-    s.lq = buf + 4 * n;
-    s.lc = buf + 5 * n;
+    s.fa = buf + n;
+    s.fb = buf + 2 * n;
+    s.fc = buf + 3 * n;
     s.ph = ph + static_cast<size_t>(b) * ph_stride;
     if constexpr (Affine) {
         s.g = T(1);
@@ -296,23 +384,33 @@ ssfm_rk45_kernel(const Cx<T>* __restrict__ y0, const T* __restrict__ gamma,
     }
 }
 
+// The samples a thread at width n: 4 up to n = 1,024, 8 above.
+int default_slots(int n) { return n <= 4 * ssfm::kMaxThreads ? 4 : 8; }
+
+// Threads a block at width n with S samples a thread (n/S rounded up to
+// whole warps), or 0 when that block does not cover n within kMaxThreads.
+int block_threads(int n, int S) {
+    const int nt = ((n + S - 1) / S + 31) / 32 * 32;
+    return nt > ssfm::kMaxThreads ? 0 : nt;
+}
+
 size_t shared_bytes(int n, size_t elem) {
     return elem * (kReduceSlots + 2 * static_cast<size_t>(kBuffers) * n);
 }
 
-template <typename T, bool Affine>
-int launch(const void* y0, const void* gamma, const void* alpha, const void* det,
-           const void* pump, const void* ph, int ph_stride, const void* tw, void* pk,
-           void* y_last, void* ok, void* n_acc, void* n_rej, int B, int n, int n_chunks,
-           double seg, double z_end, int has_tail, double dt0, double rtol, double atol,
-           int max_steps, void* stream) {
+template <typename T, bool Affine, int S, bool Narrow>
+int launch_slots(int threads, const void* y0, const void* gamma, const void* alpha,
+                 const void* det, const void* pump, const void* ph, int ph_stride,
+                 const void* tw, void* pk, void* y_last, void* ok, void* n_acc, void* n_rej,
+                 int B, int n, int n_chunks, double seg, double z_end, int has_tail, double dt0,
+                 double rtol, double atol, int max_steps, void* stream) {
     const size_t smem = shared_bytes(n, sizeof(T));
-    cudaError_t err = cudaFuncSetAttribute(ssfm_rk45_kernel<T, Affine>,
+    cudaError_t err = cudaFuncSetAttribute(ssfm_rk45_kernel<T, Affine, S, Narrow>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    ssfm_rk45_kernel<T, Affine>
-        <<<B, ssfm::threads_for(n), smem, static_cast<cudaStream_t>(stream)>>>(
+    ssfm_rk45_kernel<T, Affine, S, Narrow>
+        <<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const Cx<T>*>(y0), static_cast<const T*>(gamma),
         static_cast<const T*>(alpha), static_cast<const T*>(det),
         static_cast<const Cx<T>*>(pump), static_cast<const T*>(ph), ph_stride,
@@ -320,6 +418,27 @@ int launch(const void* y0, const void* gamma, const void* alpha, const void* det
         static_cast<uint8_t*>(ok), static_cast<int32_t*>(n_acc), static_cast<int32_t*>(n_rej),
         n, n_chunks, seg, z_end, has_tail, dt0, rtol, atol, max_steps);
     return static_cast<int>(cudaGetLastError());
+}
+
+// The width's block: S = default_slots(n), Narrow when it has at most 128
+// threads.
+template <typename T, bool Affine>
+int launch(const void* y0, const void* gamma, const void* alpha, const void* det,
+           const void* pump, const void* ph, int ph_stride, const void* tw, void* pk,
+           void* y_last, void* ok, void* n_acc, void* n_rej, int B, int n, int n_chunks,
+           double seg, double z_end, int has_tail, double dt0, double rtol, double atol,
+           int max_steps, void* stream) {
+    const int S = default_slots(n);
+    const int threads = block_threads(n, S);
+    if (threads == 0) return static_cast<int>(cudaErrorInvalidValue);
+#define SSFM_RK45_ARGS                                                                          \
+    threads, y0, gamma, alpha, det, pump, ph, ph_stride, tw, pk, y_last, ok, n_acc, n_rej, B, n, \
+        n_chunks, seg, z_end, has_tail, dt0, rtol, atol, max_steps, stream
+    if (S == 8) return launch_slots<T, Affine, 8, false>(SSFM_RK45_ARGS);
+    if (threads <= Bounds<4, true>::kThreads)
+        return launch_slots<T, Affine, 4, true>(SSFM_RK45_ARGS);
+    return launch_slots<T, Affine, 4, false>(SSFM_RK45_ARGS);
+#undef SSFM_RK45_ARGS
 }
 
 }  // namespace

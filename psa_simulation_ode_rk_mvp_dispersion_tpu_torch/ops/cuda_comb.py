@@ -4,13 +4,16 @@ and the plain PyTorch version of the same function.
 Counterpart of the JAX package's ``ops/pallas_comb.py`` (kernel K4) and of
 its scan path ``models/nwave._comb_batch_solver``.  The TPU kernel becomes
 the hand-written CUDA template ``csrc/comb_rk.cu``: float64 serves
-``x64``/``df32``, float32 serves ``x32``, each with RK4, AB4 and ABM4.
+``x64``/``df32``, float32 serves ``x32``, each with RK4, AB4 and ABM4.  It
+evaluates the cubic sum through its own FFTs (``csrc/comb_common.cuh``'s
+FFT coupling) at :func:`kernel_fft_len` points.
 
 - :func:`solve_comb_batch_cuda` checks its inputs, lays them out as one row
-  per instance (``[Re A | Im A]``), launches one thread block per comb on the
-  current stream and counts the launch in ``ops/_build.LAUNCHES``.  It takes
-  CUDA tensors only, and raises for a comb whose block does not fit in the
-  card's shared memory.
+  per instance (``[Re A | Im A]``), launches one thread block per comb (one
+  warp up to N = 64 lines) on the current stream and counts the launch in
+  ``ops/_build.LAUNCHES``.  It takes CUDA tensors only, and raises for a
+  comb wider than the kernel takes (N > 2,048) or whose block does not fit
+  in the card's shared memory.
 - :func:`solve_comb_batch_torch` is the plain version:
   ``ops/integrators.integrate_reduce`` over the ``(B, N)`` complex state with
   the dense-DFT coupling (``models/nwave.make_rhs_nwave('dft')``), whose
@@ -19,8 +22,8 @@ the hand-written CUDA template ``csrc/comb_rk.cu``: float64 serves
 
 Both return ``P_max`` over the saved samples (row 0 included), the state at
 the last saved point, ``z = (n_steps // save_every) * save_every * dz``, and
-``ok``.  The DFT sums run in another order in ``torch.matmul`` than in the
-kernel, so the two agree to rounding, not bit for bit.
+``ok``.  The kernel's FFTs and ``torch.matmul``'s dense sums round
+differently, so the two agree to rounding, not bit for bit.
 """
 
 from __future__ import annotations
@@ -88,10 +91,24 @@ def solve_comb_batch_torch(A0, gamma, alpha, beta_lin, *, dz_m: float, n_steps: 
     return CombBatchResult(P_max=pmax, A_end=y_last, ok=ok)
 
 
+# The widest transform K4 takes: 4,096 points, N <= 2,048 lines (8 lines a
+# thread of 256; csrc/comb_rk.cu).
+K4_MAX_FFT_LEN = 4096
+
+
+def kernel_fft_len(n_waves: int) -> int:
+    """K4's transform length: ``max(128, _fft_len(N))``.  Any length of at
+    least 2N - 1 gives the same cubic sum on the N lines; 128 makes a comb
+    of up to 64 lines one warp whose first and last passes are its own
+    lines."""
+    return max(128, _fft_len(n_waves))
+
+
 @functools.lru_cache(maxsize=16)
 def twiddles(L: int, dtype: torch.dtype, device: str) -> torch.Tensor:
     """The comb kernels' ``(L, 2)`` table of ``(cos, sin)(2 pi k / L)``, from
-    :func:`models.nwave.dft_roots` rounded to ``dtype``."""
+    :func:`models.nwave.dft_roots` rounded to ``dtype`` (K5 in its own type;
+    K4 in float64 in both, its butterflies run in double)."""
     c, s = dft_roots(L)
     return torch.as_tensor(np.stack([c, s], axis=1), device=device).to(dtype).contiguous()
 
@@ -120,7 +137,8 @@ def _launcher(rdt: torch.dtype, integrator: str):
 def solve_comb_batch_cuda(A0, gamma, alpha, beta_lin, *, dz_m: float, n_steps: int,
                           save_every: int, integrator: str = "rk4",
                           check_nan: bool = True) -> CombBatchResult:
-    """Solve B combs with the CUDA kernel, one thread block per comb.
+    """Solve B combs with the CUDA kernel, one thread block per comb (one
+    warp of 32 threads up to N = 64 lines).
 
     ``A0`` is a ``(B, N)`` complex128 (fp64 kernel) or complex64 (fp32
     kernel) CUDA tensor; ``gamma``/``alpha`` ``(B,)`` and ``beta_lin``
@@ -133,10 +151,14 @@ def solve_comb_batch_cuda(A0, gamma, alpha, beta_lin, *, dz_m: float, n_steps: i
         raise ValueError(f"integrator must be one of {METHODS}, got {integrator!r}")
     if A0.device.type != "cuda":
         raise ValueError(f"solve_comb_batch_cuda needs CUDA tensors, got a tensor on {A0.device}")
-    L = _fft_len(N)
+    L = kernel_fft_len(N)
     dev = A0.device
     check_shared_memory(_build.load_library("comb_rk"), "comb_rk", N, L, rdt, dev)
-    tw = twiddles(L, rdt, str(dev))
+    if L > K4_MAX_FFT_LEN:
+        raise ValueError(f"a comb of N={N} lines needs a {L}-point transform; the comb kernel "
+                         f"takes up to {K4_MAX_FFT_LEN} (N <= {K4_MAX_FFT_LEN // 2}): use "
+                         "engine='torch' for it")
+    tw = twiddles(L, torch.float64, str(dev))
     y0 = torch.cat([A0.real, A0.imag], dim=1).contiguous()        # (B, 2N)
     pmax = torch.empty((B, N), dtype=rdt, device=dev)
     y_last = torch.empty((B, 2 * N), dtype=rdt, device=dev)

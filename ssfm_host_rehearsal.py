@@ -1,26 +1,29 @@
 #!/usr/bin/env python3
-"""Rehearse the split-step kernels (K6 nl, K7, K8's LLE route, K9) on the CPU,
-before a card is at hand, with a block's threads run as host threads.
+"""Rehearse the split-step kernels (K6 nl, K7, K8, K9) and the comb kernel K4
+on the CPU, before a card is at hand, with a block's threads run as host
+threads.
 
 Run from the root of a checkout on a machine with g++ (C++20; no card, no
 nvcc):
 
     python3 ssfm_host_rehearsal.py
 
-It compiles ``csrc/gnlse_ssfm.cu``, ``csrc/ssfm_rk45.cu`` and
-``csrc/vgnlse_ssfm.cu`` as host C++ into ``build/host_rehearsal/``.  A stub
-``cuda_runtime.h`` defines the CUDA qualifiers away and runs each block of a
-``<<<grid, block, ...>>>`` launch as ``block`` ``std::thread``s, one block
-after another: ``threadIdx`` is thread-local, ``__syncthreads`` waits at a
-C++20 ``std::barrier`` of the block's threads, ``__syncthreads_and`` ANDs
-its argument over them at that barrier, ``__shfl_down_sync`` exchanges
-through a shared array between two barriers (every caller in these sources
-is the whole block), ``__ldg`` is a load and ``extern __shared__`` one
-static buffer; ``-ffp-contract=off`` as torch's CPU kernels round.  So the
-threads' ownership of samples and the barriers between passes are
-rehearsed: a missing barrier shows as a wrong or varying result.  It then
-calls the launchers through ctypes with the arguments their wrappers pass
-and prints each against its plain version:
+It compiles ``csrc/gnlse_ssfm.cu``, ``csrc/ssfm_rk45.cu``,
+``csrc/vgnlse_ssfm.cu`` and ``csrc/comb_rk.cu`` as host C++ into
+``build/host_rehearsal/``.  A stub ``cuda_runtime.h`` defines the CUDA
+qualifiers away and runs each block of a ``<<<grid, block, ...>>>`` launch as
+``block`` ``std::thread``s, one block after another: ``threadIdx`` is
+thread-local, ``__syncthreads`` waits at a C++20 ``std::barrier`` of the
+block's threads, ``__syncthreads_and`` ANDs its argument over them at that
+barrier; each group of 32 threads is a warp with a barrier of its own:
+``__syncwarp`` waits there, ``__all_sync`` ANDs over the warp, and
+``__shfl_down_sync`` and ``__shfl_xor_sync`` exchange through the warp's
+array between two warp barriers; ``__ldg`` is a load and ``extern
+__shared__`` one static buffer; ``-ffp-contract=off`` as torch's CPU kernels
+round.  So the threads' ownership of samples and the barriers between passes
+are rehearsed: a missing barrier shows as a wrong or varying result.  It
+then calls the launchers through ctypes with the arguments their wrappers
+pass and prints each against its plain version:
 
 - K6 nl (``gnlse_ssfm_*`` with ``use_nl``): 5 sech envelopes at T = 256,
   384 (r = 3) and 640 (r = 5), Raman and steepening, Raman only and
@@ -31,7 +34,11 @@ and prints each against its plain version:
   and per-instance factor planes, one instance overflowing, 12 and 14 steps;
 - K7 (``lle_ssfm_*``) and K8's LLE route (``ssfm_rk45_lle_*``) on 5
   soliton-ansatz cavities of 256 samples (a complex pump, one cavity
-  overflowing), shared and per-cavity phase.
+  overflowing), shared and per-cavity phase;
+- K8's GNLSE route (``ssfm_rk45_*``) on 5 sech envelopes at T = 256 and 384,
+  one 1e12 times too strong;
+- K4 (``comb_*``): rk4, ab4 and abm4 at N = 16, 33, 64 (one warp a comb)
+  and 100 (a block of 64 threads), one comb blowing up, fp64 and fp32.
 
 It cannot see what only the card's compiler refuses, nor the card's
 scheduling.
@@ -53,6 +60,7 @@ import torch
 
 import psa_torch as psa
 from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.models.gnlse import save_segments
+from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_comb as cc
 from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_gnlse as cg
 from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_lle as cl
 from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_ssfm_adaptive as csa
@@ -67,6 +75,7 @@ STUB = """#pragma once
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+#include <memory>
 #include <thread>
 #include <vector>
 using std::isfinite;
@@ -83,7 +92,6 @@ alignas(64) inline unsigned char host_smem[400000];
 struct HostBlock {
     std::atomic<int> acc{1};  // the AND of __syncthreads_and's arguments
     int res = 1;
-    double xch[1024];         // __shfl_down_sync's exchange
 };
 inline HostBlock hb;
 struct BarrierDone {
@@ -96,20 +104,57 @@ inline int __syncthreads_and(int p) {
     hbar->arrive_and_wait();
     return hb.res;
 }
-template <typename T> inline T __shfl_down_sync(unsigned, T v, int o) {
-    const int t = threadIdx.x;
-    hb.xch[t] = double(v);
-    __syncthreads();
-    const T r = (t & 31) + o < 32 ? T(hb.xch[t + o]) : v;
-    __syncthreads();
+// One warp: its barrier (__syncwarp), the AND of __all_sync's arguments and
+// the shuffles' exchange, lane-indexed.
+struct HostWarp;
+struct WarpDone {
+    HostWarp* w;
+    void operator()() noexcept;
+};
+struct HostWarp {
+    std::atomic<int> acc{1};
+    int res = 1;
+    double xch[32];
+    std::barrier<WarpDone>* bar = nullptr;
+};
+inline HostWarp hwarp[32];
+inline void WarpDone::operator()() noexcept { w->res = w->acc.load(); w->acc.store(1); }
+inline void __syncwarp(unsigned = 0xffffffffu) { hwarp[threadIdx.x >> 5].bar->arrive_and_wait(); }
+inline int __all_sync(unsigned, int p) {
+    HostWarp& w = hwarp[threadIdx.x >> 5];
+    if (!p) w.acc.store(0);
+    w.bar->arrive_and_wait();
+    return w.res;
+}
+template <typename T, class Src> inline T host_shfl(T v, Src src) {
+    const int l = threadIdx.x & 31;
+    HostWarp& w = hwarp[threadIdx.x >> 5];
+    w.xch[l] = double(v);
+    __syncwarp();
+    const int from = src(l);
+    const T r = from >= 0 && from < 32 ? T(w.xch[from]) : v;
+    __syncwarp();
     return r;
+}
+template <typename T> inline T __shfl_down_sync(unsigned, T v, int o) {
+    return host_shfl(v, [o](int l) { return l + o; });
+}
+template <typename T> inline T __shfl_xor_sync(unsigned, T v, int m) {
+    return host_shfl(v, [m](int l) { return l ^ m; });
 }
 template <class F> inline void host_launch(int grid, int block, F f) {
     blockDim.x = block;
+    const int warps = (block + 31) / 32;
     for (int b = 0; b < grid; ++b) {
         blockIdx.x = b;
         std::barrier<BarrierDone> bar(block);
         hbar = &bar;
+        std::vector<std::unique_ptr<std::barrier<WarpDone>>> wbar;
+        for (int w = 0; w < warps; ++w) {
+            const int size = block - 32 * w < 32 ? block - 32 * w : 32;
+            wbar.emplace_back(new std::barrier<WarpDone>(size, WarpDone{&hwarp[w]}));
+            hwarp[w].bar = wbar.back().get();
+        }
         std::vector<std::thread> ts;
         for (int t = 0; t < block; ++t) ts.emplace_back([&f, t] { threadIdx.x = t; f(); });
         for (auto& th : ts) th.join();
@@ -213,19 +258,49 @@ def k7(lib, psi0, det, F, ph, dt, n_steps, save_every):
 
 def k8(lib, psi0, det, F, ph, dt, n_steps, save_every, rtol, atol, max_steps=20_000):
     """One call of ssfm_rk45_lle_* with the arguments of its wrapper."""
-    B, T = psi0.shape
-    rdt = psi0.real.dtype
+    return _k8(lib, "ssfm_rk45_lle", psi0, det, F, ph, dt, n_steps, save_every, rtol, atol,
+               max_steps)
+
+
+def k8_gnlse(lib, y0, gamma, alpha, ph, dz, n_steps, save_every, rtol, atol, max_steps=20_000):
+    """One call of ssfm_rk45_* (the GNLSE route) with the arguments of its
+    wrapper."""
+    return _k8(lib, "ssfm_rk45", y0, gamma, alpha, ph, dz, n_steps, save_every, rtol, atol,
+               max_steps)
+
+
+def _k8(lib, route, y0, p0, p1, ph, dt, n_steps, save_every, rtol, atol, max_steps):
+    B, T = y0.shape
+    rdt = y0.real.dtype
     n_chunks, seg, z_end, has_tail = save_segments(dt, n_steps, save_every)
-    pk, y, ok = torch.empty(B, dtype=rdt), torch.empty_like(psi0), torch.empty(B, dtype=torch.uint8)
+    pk, y, ok = torch.empty(B, dtype=rdt), torch.empty_like(y0), torch.empty(B, dtype=torch.uint8)
     na, nr = torch.empty(B, dtype=torch.int32), torch.empty(B, dtype=torch.int32)
-    fn = getattr(lib, f"ssfm_rk45_lle_{'f64' if rdt == torch.float64 else 'f32'}")
+    fn = getattr(lib, f"{route}_{'f64' if rdt == torch.float64 else 'f32'}")
     d = ctypes.c_double
-    err = fn(ptr(psi0), ptr(det), ptr(F), ptr(ph), 0 if ph.ndim == 1 else T,
+    err = fn(ptr(y0), ptr(p0), ptr(p1), ptr(ph), 0 if ph.ndim == 1 else T,
              ptr(twiddles(T, "cpu")), ptr(pk), ptr(y), ptr(ok), ptr(na), ptr(nr), B, T, n_chunks,
              d(seg), d(z_end), int(has_tail), d(dt), d(rtol), d(atol), max_steps, None)
     if err:
-        raise RuntimeError(f"ssfm_rk45_lle returned {err}")
+        raise RuntimeError(f"{route} returned {err}")
     return pk, y, ok.bool(), na, nr
+
+
+def k4(lib, A0, gamma, alpha, beta, dz, n_steps, save_every, method="rk4", check_nan=True):
+    """One call of comb_<method>_* with the arguments of
+    cuda_comb.solve_comb_batch_cuda."""
+    B, N = A0.shape
+    rdt = A0.real.dtype
+    L = cc.kernel_fft_len(N)
+    tw = cc.twiddles(L, torch.float64, "cpu")
+    y0 = torch.cat([A0.real, A0.imag], dim=1).contiguous()
+    pmax, y_last = torch.empty((B, N), dtype=rdt), torch.empty((B, 2 * N), dtype=rdt)
+    ok = torch.empty(B, dtype=torch.uint8)
+    fn = getattr(lib, f"comb_{method}_{'f64' if rdt == torch.float64 else 'f32'}")
+    err = fn(ptr(gamma), ptr(alpha), ptr(beta), ptr(tw), ptr(y0), ptr(pmax), ptr(y_last), ptr(ok),
+             B, N, L, n_steps, save_every, int(check_nan), ctypes.c_double(dz), None)
+    if err:
+        raise RuntimeError(f"comb_{method} returned {err}")
+    return pmax, torch.complex(y_last[:, :N], y_last[:, N:]), ok.bool()
 
 
 def k9(lib, y0, gamma, alpha, b, ph, coherent, nl, dz, n_steps, save_every):
@@ -334,6 +409,62 @@ def vector(lib9):
                           f"peak {e_pk:.2e}", flush=True)
 
 
+def gnlse_rk45(lib8):
+    """K8's GNLSE route against its plain version, fp64 and fp32."""
+    gn = psa.gnlse
+    disp = psa.DispersionParams.from_betas(1.2e15, beta2=-2e-26)
+    P0 = gn.soliton_peak_power(-2e-26, 2e-3, 1e-12)
+    for n in (256, 384):
+        grid = gn.TimeGrid.for_pulse(1e-12, n_samples=n)
+        A0 = np.sqrt(np.linspace(0.5, 1.5, 5) * P0)[:, None] / np.cosh(grid.t()[None, :] / 1e-12)
+        A0[2] *= 1e12
+        co = gn.make_gnlse_coeffs(grid, disp, gamma_W_m=2e-3, alpha_1_m=5e-5)
+        for rdt, cdt in ((torch.float64, torch.complex128), (torch.float32, torch.complex64)):
+            rtol, atol = (1e-9, 1e-12) if rdt == torch.float64 else (1e-5, 1e-9)
+            gamma, alpha, ph = gn.lane_coeffs(co, 5, n, rdt, "cpu")
+            y0 = torch.as_tensor(A0.astype(np.complex128)).to(cdt)
+            for n_steps in (40, 43):
+                pk, y, ok, na, nr = k8_gnlse(lib8, y0, gamma, alpha, ph, 0.05, n_steps, 10, rtol,
+                                             atol)
+                r = csa.solve_gnlse_batch_rk45_torch(y0, gamma, alpha, ph, dz_m=0.05,
+                                                     n_steps=n_steps, save_every=10, rtol=rtol,
+                                                     atol=atol)
+                g = r.ok
+                same = torch.equal(na, r.n_accepted) and torch.equal(nr, r.n_rejected)
+                print(f"K8-GNLSE n={n} {str(rdt)[6:]} {n_steps} steps: ok "
+                      f"{ok.tolist() == r.ok.tolist()}, counters equal {same}, A_end "
+                      f"{normwise(y[g], r.A_end[g]):.2e}", flush=True)
+
+
+def comb(lib4):
+    """K4 against its plain version, every method, fp64 and fp32."""
+    nw = psa.nwave
+    oc = 2 * np.pi * 193.1e12
+    for N in (16, 33, 64, 100):
+        grid = nw.CombGrid.centered(oc, 2 * np.pi * 50e9, N)
+        beta = nw.comb_beta_lin(grid, psa.DispersionParams.from_betas(oc, beta2=-1e-27,
+                                                                       beta3=1.2e-41))
+        A0 = np.broadcast_to(nw.seed_comb(grid, pump_lines={N // 4: 0.5, 3 * N // 4: 0.5},
+                                          noise_floor_W=1e-9), (5, N)).copy()
+        g = np.linspace(5e-3, 15e-3, 5)
+        A0[2] *= 1e3
+        g[2] = 1e3
+        for rdt, cdt in ((torch.float64, torch.complex128), (torch.float32, torch.complex64)):
+            t = (torch.as_tensor(A0).to(cdt),
+                 *(torch.as_tensor(np.ascontiguousarray(v), dtype=rdt)
+                   for v in (g, np.full(5, 5e-5), np.broadcast_to(beta, (5, N)))))
+            dz = 5.0 if N <= 64 else 2.5  # AB4 is unstable at 5 m on 100 lines
+            for method in ("rk4", "ab4", "abm4"):
+                pk, A, ok = k4(lib4, *t, dz, 105, 10, method)
+                r = cc.solve_comb_batch_torch(*t, dz_m=dz, n_steps=105, save_every=10,
+                                              integrator=method)
+                gd = r.ok
+                print(f"K4 N={N} {method} {str(rdt)[6:]} 105 steps: ok "
+                      f"{ok.tolist() == r.ok.tolist()}, bad frozen {torch.equal(A[2], t[0][2])}, "
+                      f"A_end {normwise(A[gd], r.A_end[gd]):.2e}, P_max "
+                      f"{normwise(pk[gd], r.P_max[gd]):.2e}", flush=True)
+
+
 def readings():
     """The plain vector version at chip_smoke.py's configuration on 8 of its
     1,024 instances (T = 1,024, 1,000 steps of 0.01 m, save_every=100,
@@ -411,9 +542,11 @@ def main():
                                                    save_every=10, rtol=rtol, atol=atol)
                 g = r.ok
                 same = torch.equal(na, r.n_accepted) and torch.equal(nr, r.n_rejected)
-                print(f"K8-LLE {label} {n_steps} steps: ok {ok.tolist() == r.ok.tolist()}, "
-                      f"counters equal {same}, bad cavity rejected {int(nr[2])} times, A_end "
-                      f"{normwise(y[g], r.A_end[g]):.2e}")
+                print(f"K8-LLE {label} {n_steps} steps: ok "
+                      f"{ok.tolist() == r.ok.tolist()}, counters equal {same}, bad cavity "
+                      f"rejected {int(nr[2])} times, A_end {normwise(y[g], r.A_end[g]):.2e}")
+    gnlse_rk45(lib8)
+    comb(build("comb_rk"))
 
 
 if __name__ == "__main__":

@@ -174,7 +174,7 @@ def test_shared_memory_sizes_and_refusal():
     assert cg.shared_bytes("gnlse_ssfm", 1024, torch.float64) == 8 * (32 + 4 * 1024)
     assert cg.shared_bytes("gnlse_ssfm", 1024, torch.float32, nl=True) == 4 * (32 + 6 * 1024)
     assert cg.shared_bytes("gnlse_ssfm", 640, torch.float64, nl=True) == 8 * (32 + 6 * 640)
-    assert cg.shared_bytes("ssfm_rk45", 2048, torch.float64) == 8 * (32 + 12 * 2048)
+    assert cg.shared_bytes("ssfm_rk45", 2048, torch.float64) == 8 * (32 + 8 * 2048)
     limit = 232_448                                        # a Hopper block's opt-in limit
     assert cg.shared_memory_problem("gnlse_ssfm", 2048, torch.float64, True, limit) is None
     msg = cg.shared_memory_problem("gnlse_ssfm", 2048, torch.float64, True, 90_000)

@@ -1,10 +1,11 @@
-"""The nl bodies of csrc/gnlse_ssfm.cu (K6) and csrc/vgnlse_ssfm.cu (K9),
-compiled as host C++ with each block's threads run as host threads
-(``ssfm_host_rehearsal.py``: ``__syncthreads`` a ``std::barrier``), against
-their plain versions on the CPU.  The CUDA kernels themselves run only on the
-card (``tests/test_torch_kernel.py``); this holds their source's arithmetic,
-the threads' ownership of samples and the barriers between the wide
-transform's passes to the plain versions here.  Needs g++ with C++20."""
+"""The nl bodies of csrc/gnlse_ssfm.cu (K6) and csrc/vgnlse_ssfm.cu (K9), and
+both routes of csrc/ssfm_rk45.cu (K8), compiled as host C++ with each block's
+threads run as host threads (``ssfm_host_rehearsal.py``: ``__syncthreads`` a
+``std::barrier``), against their plain versions on the CPU.  The CUDA kernels
+themselves run only on the card (``tests/test_torch_kernel.py``); this holds
+their source's arithmetic, the threads' ownership of samples and the barriers
+between the wide transform's passes to the plain versions here.  Needs g++
+with C++20."""
 
 import shutil
 
@@ -14,8 +15,10 @@ import torch
 
 import ssfm_host_rehearsal as host
 from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.models import gnlse as tg
+from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.models import lle as tl
 from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.models import vgnlse as tv
 from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_gnlse as cg
+from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_ssfm_adaptive as csa
 from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_vgnlse as cv
 from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops.dispersion import DispersionParams
 
@@ -31,7 +34,7 @@ def libs(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("the host build of the kernels needs g++")
     out = tmp_path_factory.mktemp("host_kernels")
-    return {name: host.build(name, out) for name in ("gnlse_ssfm", "vgnlse_ssfm")}
+    return {name: host.build(name, out) for name in ("gnlse_ssfm", "vgnlse_ssfm", "ssfm_rk45")}
 
 
 def _pulses(n, B):
@@ -108,3 +111,60 @@ def test_vgnlse_nl_body_with_an_empty_polarization_is_the_gnlse_nl_body(libs):
     assert not bool(kv[1][:, 1].abs().any()) and bool(kv[2].all())
     err = ((kv[1][:, 0] - ks[1]).abs().amax(-1) / ks[1].abs().amax(-1)).max()
     assert float(err) <= 1e-13
+
+
+def _check_rk45(k, p, bad, rdt):
+    """K8 against its plain version: the same ok, the bad lane failed, in
+    fp64 the same counters on every lane."""
+    assert k[2].tolist() == p.ok.tolist() and not bool(k[2][bad])
+    if rdt == torch.float64:
+        assert torch.equal(k[3], p.n_accepted) and torch.equal(k[4], p.n_rejected)
+    good = p.ok
+    err = ((k[1][good] - p.A_end[good]).abs().amax(-1) / p.A_end[good].abs().amax(-1)).max()
+    assert float(err) <= TOL45[rdt]
+    torch.testing.assert_close(k[0][good], p.peak_max[good], rtol=TOL45[rdt], atol=0)
+
+
+# K8: fp64 to rounding; fp32 against the plain fp32 version at the card
+# test's bar (tests/test_torch_kernel.py): the two may take other steps
+TOL45 = {torch.float64: 1e-12, torch.float32: 1e-4}
+RK45_TOL = {torch.float64: (1e-8, 1e-11), torch.float32: (1e-5, 1e-8)}
+
+
+@pytest.mark.parametrize("rdt", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("n", [256, 384])
+def test_ssfm_rk45_lle_route_matches_plain_version(libs, rdt, n):
+    """K8's LLE route, r = 1 and r = 3, soliton-ansatz cavities with a
+    complex pump, one cavity overflowing (rejected to dt_min), 3 steps at
+    save_every=2 (a trailing span)."""
+    grid = tl.TimeGrid(n_samples=n, t_window_s=20.0)
+    dets = np.linspace(3.6, 4.4, 3)
+    co = tl.make_lle_coeffs(grid, detuning=dets, pump=2.0 * np.exp(0.3j), d2=-1.0)
+    psi0 = np.stack([tl.soliton_ansatz(grid, d, 2.0, -1.0) for d in dets])
+    psi0[1] *= 1e160 if rdt == torch.float64 else 1e25
+    det, F, ph = tl.lane_coeffs(co, 3, n, rdt, "cpu")
+    y0 = torch.as_tensor(psi0).to(CDT[rdt])
+    rtol, atol = RK45_TOL[rdt]
+    kw = dict(dt=0.004, n_steps=3, save_every=2, rtol=rtol, atol=atol)
+    k = host.k8(libs["ssfm_rk45"], y0, det, F, ph, kw["dt"], 3, 2, rtol, atol)
+    p = csa.solve_lle_batch_rk45_torch(y0, det, F, ph, **kw)
+    _check_rk45(k, p, 1, rdt)
+    assert int(k[3][1]) == 0 and int(k[4][1]) > 0
+
+
+@pytest.mark.parametrize("rdt", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("n", [256, 384])
+def test_ssfm_rk45_gnlse_route_matches_plain_version(libs, rdt, n):
+    """K8's GNLSE route, r = 1 and r = 3, per-envelope phase rows, one
+    envelope 1e12 times too strong, 12 steps at save_every=5."""
+    grid, A0 = _pulses(n, 3)
+    A0[1] *= 1e12
+    co = tg.make_gnlse_coeffs(grid, DISP, gamma_W_m=2e-3, alpha_1_m=5e-5)
+    g, a, ph = tg.lane_coeffs(co, 3, n, rdt, "cpu")
+    ph = (ph[None] * torch.linspace(0.9, 1.1, 3, dtype=rdt)[:, None]).contiguous()
+    y0 = torch.as_tensor(A0).to(CDT[rdt])
+    rtol, atol = (1e-9, 1e-12) if rdt == torch.float64 else (1e-5, 1e-9)
+    kw = dict(dz_m=0.05, n_steps=12, save_every=5, rtol=rtol, atol=atol)
+    k = host.k8_gnlse(libs["ssfm_rk45"], y0, g, a, ph, 0.05, 12, 5, rtol, atol)
+    p = csa.solve_gnlse_batch_rk45_torch(y0, g, a, ph, **kw)
+    _check_rk45(k, p, 1, rdt)
