@@ -52,7 +52,8 @@ Phases (any failure raises, and the script exits non-zero):
     (``bench_comb.py:305-306``), with a bad comb: fp64 step counters equal
     on >= 99% of combs, results within 1e-9 there and 10 x rtol on all;
     fp32 equal ``ok`` and ``P_max`` and ``A_end`` within 1e-3 (its counters
-    mostly differ: the DFT sums' order moves the float32 error estimate),
+    mostly differ: the kernel's FFTs and the plain version's dense sums round
+    the float32 error estimate differently),
     beside the reading of the plain version with gamma 0.1% off;
 13. the comb main path: ``nwave.solve_comb_batch`` at the full bench size at
     ``df32`` (``device`` left out), ``x32``, rk45 ``x64`` and rk45 ``x32``,
@@ -63,9 +64,8 @@ Phases (any failure raises, and the script exits non-zero):
 14. times (median of 5 warm reps) of the four comb kernel entries and of
     ``solve_comb_batch`` end to end; the plain versions once each, in
     phases 11 and 12.  Each comb kernel's bound counts the cubic sum as two
-    FFTs, the least work it needs (K4 computes it so, through its own
-    FFTs); the dense-DFT count K5 performs is printed beside K5's as its
-    dense bound;
+    FFTs, the least work it needs (both kernels compute it so, through their
+    own FFTs);
 15. GNLSE kernel K6 (``csrc/gnlse_ssfm.cu``) vs its plain version on the
     card at the ``bench_gnlse.py`` configuration (2,048 sech envelopes of
     1,024 samples, 1,000 steps over 10 m, ``save_every=100``) with one
@@ -96,7 +96,7 @@ Phases (any failure raises, and the script exits non-zero):
     (median of 2 for nl); the plain versions once each, in phases 15 and
     16.  The bounds count the least flop, transforms included, the Raman
     pairs as real-input transforms;
-19. LLE kernel K7 (the affine instantiation of ``csrc/gnlse_ssfm.cu``) vs
+19. LLE kernel K7 (``csrc/lle_ssfm.cu``) vs
     its plain version on the card at the ``bench_lle.py`` configuration
     (4,096 soliton-ansatz cavities of 256 samples, Delta in [3.6, 4.4],
     F = 2, d2 = -1, 2,000 steps of 0.01, ``save_every=200``) with one
@@ -208,36 +208,31 @@ RK45_TOL = {torch.float64: (1e-10, 1e-13), torch.float32: (1e-6, 1e-10)}
 COMB_N, COMB_B, COMB_STEPS, COMB_SAVE, COMB_Z = 64, 4096, 1000, 100, 500.0
 COMB_TOL = {torch.float64: (1e-9, 1e-12), torch.float32: (1e-6, 1e-10)}
 # The comb kernels' bound counts the least work the function needs: the
-# cubic sum through two length-L FFTs (the port's 'fft' coupling, which K4
-# computes in its own body), at the peak of each type outside the tensor
-# cores (PEAK_FLOPS).  K5 sums dense DFTs instead (8*N*L multiply-adds per
-# RHS); that count, at the 67 TFLOP/s a tensor-core design could reach in
-# both types (FP64 tensor cores; FP32 without TF32, which drifts,
-# BENCH_COMB.md), is printed beside K5's bound as its dense bound.
-COMB_DENSE_PEAK_FLOPS = 67e12
+# cubic sum through two length-L FFTs (the port's 'fft' coupling, which both
+# kernels compute in their own bodies), at the peak of each type outside the
+# tensor cores (PEAK_FLOPS).
 
 
-def comb_rhs_flop(n, L, dense=False):
-    """One comb RHS: the cubic sum (two radix-2 FFTs of 5*L*log2(L) flop,
-    or K5's dense DFTs, 16*N*L), 5 per bin for F|F|^2, 7 per component for
-    the linear terms and the sum."""
-    transforms = 16 * n * L if dense else 10 * L * (L.bit_length() - 1)
-    return transforms + 5 * L + 14 * n
+def comb_rhs_flop(n, L):
+    """One comb RHS: the cubic sum (two radix-2 FFTs of 5*L*log2(L) flop),
+    5 per bin for F|F|^2, 7 per component for the linear terms and the
+    sum."""
+    return 10 * L * (L.bit_length() - 1) + 5 * L + 14 * n
 
 
-def comb_step_flop(n, L, method, rdt, dense=False):
+def comb_step_flop(n, L, method, rdt):
     """One fixed step: its RHS evaluations, the stage sums and the update
     (compensated in float32) per component of the 2N-value state."""
     update = 4 if rdt == torch.float32 else 1
     per_component = {"rk4": 12, "ab4": 7, "abm4": 16}[method] + update
     n_rhs = {"rk4": 4, "ab4": 1, "abm4": 2}[method]
-    return n_rhs * comb_rhs_flop(n, L, dense) + 2 * n * per_component
+    return n_rhs * comb_rhs_flop(n, L) + 2 * n * per_component
 
 
-def comb_attempt_flop(n, L, dense=False):
+def comb_attempt_flop(n, L):
     """One DP45 attempt: 6 RHS, 26 stage and error terms of 2 flop per
     component, and ~16 flop per line for the error norm."""
-    return 6 * comb_rhs_flop(n, L, dense) + 2 * n * 52 + 16 * n
+    return 6 * comb_rhs_flop(n, L) + 2 * n * 52 + 16 * n
 
 
 # The GNLSE configuration of bench_gnlse.py:36-47, 109-123: sech pulses of
@@ -2000,19 +1995,14 @@ def main():
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 13 done")
 
     # --- 14. comb times ------------------------------------------------------------
-    L = nw._fft_len(COMB_N)
+    L = cc.kernel_fft_len(COMB_N)
     comb_kw = dict(dz_m=COMB_Z / COMB_STEPS, n_steps=COMB_STEPS, save_every=COMB_SAVE)
     n_saves = COMB_STEPS // COMB_SAVE
-    dense_ms, comb_flop = {}, {}
+    comb_flop = {}
 
-    def comb_bounds(name, rdt, flop_of, nbytes, dense=False):
-        """The bound (FFT count) of one comb kernel and, for K5, which sums
-        dense DFTs, its dense bound."""
-        comb_flop[name] = (flop_of(False), flop_of(True) if dense else None)
-        bound(name, rdt, comb_flop[name][0], nbytes)
-        if dense:
-            dense_ms[name] = 1e3 * max(comb_flop[name][1] / COMB_DENSE_PEAK_FLOPS,
-                                       nbytes / PEAK_BYTES)
+    def comb_bounds(name, rdt, flop, nbytes):
+        comb_flop[name] = flop
+        bound(name, rdt, flop, nbytes)
 
     for rdt in (torch.float64, torch.float32):
         name = f"comb_rk_{suffix(rdt)}"
@@ -2020,8 +2010,8 @@ def main():
         ms[name] = 1e3 * timed(lambda: cc.solve_comb_batch_cuda(*t, **comb_kw, integrator="rk4"))
         # inputs: A0 (2N), gamma, alpha, beta (N), the float64 twiddles;
         # outputs: P_max (N), A_end (2N), ok (1 byte)
-        comb_bounds(name, rdt, lambda dense: COMB_B * (
-            COMB_STEPS * comb_step_flop(COMB_N, L, "rk4", rdt, dense) + n_saves * 3 * COMB_N),
+        comb_bounds(name, rdt, COMB_B * (
+            COMB_STEPS * comb_step_flop(COMB_N, L, "rk4", rdt) + n_saves * 3 * COMB_N),
             COMB_B * ((6 * COMB_N + 2) * rdt.itemsize + 1) + 2 * L * 8)
     for rdt in (torch.float64, torch.float32):
         name = f"comb_rk45_{suffix(rdt)}"
@@ -2032,11 +2022,10 @@ def main():
         attempts = float((r.n_accepted + r.n_rejected).double().sum())
         ms[name] = 1e3 * timed(lambda: cca.solve_comb_batch_rk45_cuda(*t, **kw45))
         # this run's attempts; each comb adds its first RHS and the saves;
-        # outputs add the two int32 counters
-        comb_bounds(name, rdt, lambda dense: attempts * comb_attempt_flop(COMB_N, L, dense)
-                    + COMB_B * (comb_rhs_flop(COMB_N, L, dense) + n_saves * 3 * COMB_N),
-                    COMB_B * ((6 * COMB_N + 2) * rdt.itemsize + 9) + 2 * L * rdt.itemsize,
-                    dense=True)
+        # outputs add the two int32 counters; the twiddles are float64
+        comb_bounds(name, rdt, attempts * comb_attempt_flop(COMB_N, L)
+                    + COMB_B * (comb_rhs_flop(COMB_N, L) + n_saves * 3 * COMB_N),
+                    COMB_B * ((6 * COMB_N + 2) * rdt.itemsize + 9) + 2 * L * 8)
         steps[name + "_timed"] = (attempts / COMB_B, int((r.n_accepted + r.n_rejected).max()))
     comb_e2e, library_ms = {}, {}
     for precision, integ, name, _bar in comb_paths:
@@ -2049,19 +2038,15 @@ def main():
             cfg, coc, A0c, coupling="fft", engine="torch", device="cuda"))
     log(f"comb times on {card} (median of {REPS} warm reps, host clock with synchronize; "
         f"bound: FFT count at FP64 {PEAK_FLOPS[torch.float64] / 1e12:g} / FP32 "
-        f"{PEAK_FLOPS[torch.float32] / 1e12:g} TFLOP/s; K5's dense bound: dense-DFT count at "
-        f"{COMB_DENSE_PEAK_FLOPS / 1e12:g} TFLOP/s; {PEAK_BYTES / 1e12:g} TB/s):")
+        f"{PEAK_FLOPS[torch.float32] / 1e12:g} TFLOP/s; {PEAK_BYTES / 1e12:g} TB/s):")
     for name in ("comb_rk_f64", "comb_rk_f32", "comb_rk45_f64", "comb_rk45_f32"):
         extra = ""
-        if name in dense_ms:
-            extra = (f"; dense bound {dense_ms[name]:.3f} ms ({comb_flop[name][1]:.4g} flop; the "
-                     f"kernel at {100 * dense_ms[name] / ms[name]:.2f}%)")
         if name + "_timed" in steps:
             mean, mx = steps[name + "_timed"]
             extra += f"; attempted steps per comb mean {mean:.1f}, max {mx}"
         log(f"  {name} {COMB_B} combs: {ms[name]:.3f} ms = "
             f"{COMB_B * COMB_STEPS / ms[name] * 1e3:.1f} comb-steps/s; bound {bound_ms[name]:.3f} "
-            f"ms ({bound_by[name]}; {comb_flop[name][0]:.4g} flop, {bytes_of[name]} bytes; "
+            f"ms ({bound_by[name]}; {comb_flop[name]:.4g} flop, {bytes_of[name]} bytes; "
             f"the kernel at {100 * bound_ms[name] / ms[name]:.2f}% of it)"
             f"{extra}; solve_comb_batch with the fft coupling in plain torch (the library call) "
             f"{library_ms[name]:.3f} ms; plain version on the card "
@@ -2081,7 +2066,7 @@ def main():
     sources = {"fwm4_rk": f"{PKG}/csrc/fwm4_rk.cu", "fwm4_rk45": f"{PKG}/csrc/fwm4_rk45.cu",
                "comb_rk": f"{PKG}/csrc/comb_rk.cu", "comb_rk45": f"{PKG}/csrc/comb_rk45.cu",
                "gnlse_ssfm": f"{PKG}/csrc/gnlse_ssfm.cu", "ssfm_rk45": f"{PKG}/csrc/ssfm_rk45.cu",
-               "lle_ssfm": f"{PKG}/csrc/gnlse_ssfm.cu", "ssfm_rk45_lle": f"{PKG}/csrc/ssfm_rk45.cu",
+               "lle_ssfm": f"{PKG}/csrc/lle_ssfm.cu", "ssfm_rk45_lle": f"{PKG}/csrc/ssfm_rk45.cu",
                "vgnlse_ssfm": f"{PKG}/csrc/vgnlse_ssfm.cu",
                "gnlse_ssfm_nl": f"{PKG}/csrc/gnlse_ssfm.cu",
                "vgnlse_ssfm_coherent": f"{PKG}/csrc/vgnlse_ssfm.cu",

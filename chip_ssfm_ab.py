@@ -23,7 +23,7 @@ timed``):
   steepening only (f_R = 0) and with Raman only (no steepening), whose
   differences from the full nl time are the Raman pairs' and the
   steepening pairs' share; fp64 and fp32;
-- K7 (the affine instantiation), 4,096 cavities of 256 samples, 2,000 steps;
+- K7 (``csrc/lle_ssfm.cu``), 4,096 cavities of 256 samples, 2,000 steps;
 - K8 (``csrc/ssfm_rk45.cu``): the LLE route on 512 cavities of 256 samples,
   2,000 steps at rtol 1e-8 (fp64) and 1e-5 (fp32); the GNLSE route on 512
   envelopes of 1,024 samples, 1,000 steps at rtol 1e-9 and 1e-5;

@@ -16,8 +16,8 @@ kernels: ``csrc/fwm4_rk.cu``
 (``ops/cuda_solver.py``), ``csrc/fwm4_rk45.cu`` (``ops/cuda_adaptive.py``),
 ``csrc/comb_rk.cu`` (``ops/cuda_comb.py``), ``csrc/comb_rk45.cu``
 (``ops/cuda_comb_adaptive.py``), ``csrc/gnlse_ssfm.cu``
-(``ops/cuda_gnlse.py``; its affine instantiation for the LLE,
-``ops/cuda_lle.py``), ``csrc/ssfm_rk45.cu``
+(``ops/cuda_gnlse.py``), ``csrc/lle_ssfm.cu`` (``ops/cuda_lle.py``),
+``csrc/ssfm_rk45.cu``
 (``ops/cuda_ssfm_adaptive.py``, GNLSE and LLE routes) and
 ``csrc/vgnlse_ssfm.cu`` (``ops/cuda_vgnlse.py``).
 

@@ -4,9 +4,10 @@
 //
 // Replaces the JAX package's TPU kernel
 //   ops/pallas_gnlse.py::_kernel_body   (K6, the fused GNLSE SSFM kernel)
-// and its affine build driven by ops/pallas_lle.py (K7, the LLE cavity)
-// with one template, gnlse_ssfm_kernel<T, Affine>, T in {double, float}:
-// float64 serves x64/df32, float32 serves x32; Affine false is K6, true K7.
+// with two templates, T in {double, float}: float64 serves x64/df32, float32
+// serves x32; gnlse_ssfm_kernel<T> the Kerr rotation, gnlse_nl_kernel<T, S>
+// the nonlinear terms.  Its affine build (K7, the LLE cavity) is
+// csrc/lle_ssfm.cu.
 //
 // What it computes (the contract of models/gnlse.gnlse_fixed with method
 // 'strang', which ops/cuda_gnlse.solve_gnlse_batch_torch runs, and of
@@ -22,14 +23,6 @@
 //       N = i gamma (W - (i/omega_0) IDFT(i omega DFT(W))),
 //     where the Raman transforms drop out when f_R = 0 and the steepening
 //     ones when 1/omega_0 = 0;
-//   - Affine (K7, the contract of models/lle.lle_fixed with method
-//     'strang', which ops/cuda_lle.solve_lle_batch_torch runs): gamma = 1,
-//     no nonlinear terms, L = exp((-1 + i phi_d) s), and each linear
-//     substep ends with the affine write y <- y dp + dF, the detuning
-//     rotation dp = exp(-i Delta s) and the drive offset
-//     dF = F (e^{Lam0 s} - 1)/Lam0, Lam0 = -(1 + i Delta), of the cavity
-//     for s = dz/2 (with Lh) or dz (with Lf), which the wrapper builds in
-//     float64; a separate pointwise pass over shared memory;
 //   - ok starts as "y0 is finite"; after each chunk a non-finite state
 //     clears ok and the envelope keeps its last good state (which it then
 //     keeps for good: the rest of the run cannot change its outputs, so the
@@ -47,8 +40,11 @@
 // chunk) to device memory.  The linear factors, the twiddles, conj(H_R) and
 // omega are read from device memory through the cache, so that the shared
 // memory holds only state-sized buffers.
-//   - Kerr and K7 (gnlse_ssfm_kernel): csrc/ssfm_common.cuh's radix-2
-//     Stockham passes (dft); 2 buffers, y and its transform partner.
+//   - Kerr (gnlse_ssfm_kernel): csrc/ssfm_common.cuh's radix-2 Stockham
+//     passes (dft); 2 buffers, y and its transform partner.  It keeps them
+//     so that K9's rotation body (csrc/vgnlse_ssfm.cu), which shares dft and
+//     the rotation, gives its outputs bit for bit on an empty polarization;
+//     the two move onto csrc/lle_ssfm.cu's slotted body together.
 //   - nl (gnlse_nl_kernel): 3 buffers, y and the transform pair; the RK4
 //     sums k1 + 2(k2 + k3) and the stage derivative stay in registers of
 //     the thread that owns the samples (sample j = tid + i nt, the same in
@@ -70,8 +66,7 @@
 // Global layout (row-major, one row per envelope, complex as (re, im)):
 //   y0 (B, n); lh, lf (n,) with fac_stride 0 or (B, n) with fac_stride n;
 //   gamma (B,); tw (n,) = (cos, sin)(2 pi k / n) in float64; hrc (n,) = conj(H_R);
-//   omega (n,); Affine: aff (B, 4) complex = (dp_h, dF_h, dp_f, dF_f), gamma,
-//   hrc and omega unread; outputs peak (B,), y_last (B, n), ok (B,) uint8.
+//   omega (n,); outputs peak (B,), y_last (B, n), ok (B,) uint8.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (ops/_build.py); bound with ctypes through the
@@ -93,34 +88,32 @@ constexpr int kNlBuffers = 3;
 constexpr int kReduceSlots = 32;
 
 // One envelope's integration: its buffers, factors and coefficients.
-template <typename T, bool Affine>
+template <typename T>
 struct Stepper {
     Block<T> c;
     Cx<T>*y, *x;  // the state and its transform partner
     const Cx<T>*lh, *lf;
     T g, h;
-    Cx<T> dp_h, dF_h, dp_f, dF_f;  // Affine only
 
-    // y <- IDFT(L * DFT(y)), then, Affine, y <- y dp + dF.
-    __device__ void lin(const Cx<T>* L, const Cx<T>& dp, const Cx<T>& dF) {
+    // y <- IDFT(L * DFT(y)).
+    __device__ void lin(const Cx<T>* L) {
         Cx<T>* f = dft<T, false>(c, y, x);
         Cx<T>* o = f == y ? x : y;
         ssfm::mul_factor(c, f, L);
         Cx<T>* r = dft<T, true>(c, f, o);
         x = r == f ? o : f;
         y = r;
-        if constexpr (Affine) ssfm::affine(c, y, dp, dF);
     }
 
     // k fused symmetric steps: Lh, (NL, Lf)^(k-1), NL, Lh.
     __device__ void steps(int kk) {
-        lin(lh, dp_h, dF_h);
+        lin(lh);
         for (int i = 1; i < kk; ++i) {
             ssfm::kerr(c, y, g, h);
-            lin(lf, dp_f, dF_f);
+            lin(lf);
         }
         ssfm::kerr(c, y, g, h);
-        lin(lh, dp_h, dF_h);
+        lin(lh);
     }
 };
 
@@ -289,32 +282,23 @@ __device__ Block<T> block_of(const Cx<double>* tw, unsigned char* smem, int n) {
     return c;
 }
 
-template <typename T, bool Affine>
+template <typename T>
 __global__ void __launch_bounds__(ssfm::kMaxThreads)
 gnlse_ssfm_kernel(const Cx<T>* __restrict__ y0, const Cx<T>* __restrict__ lh,
                   const Cx<T>* __restrict__ lf, int fac_stride, const T* __restrict__ gamma,
-                  const Cx<T>* __restrict__ aff, const Cx<double>* __restrict__ tw,
-                  T* __restrict__ pk_out, Cx<T>* __restrict__ y_last,
-                  uint8_t* __restrict__ ok_out, int n, int n_steps, int save_every, double dz) {
+                  const Cx<double>* __restrict__ tw, T* __restrict__ pk_out,
+                  Cx<T>* __restrict__ y_last, uint8_t* __restrict__ ok_out, int n, int n_steps,
+                  int save_every, double dz) {
     extern __shared__ __align__(16) unsigned char smem[];
     const int b = blockIdx.x;
-    Stepper<T, Affine> st;
+    Stepper<T> st;
     st.c = block_of<T>(tw, smem, n);
     Cx<T>* buf = reinterpret_cast<Cx<T>*>(smem + kReduceSlots * sizeof(T));
     st.y = buf;
     st.x = buf + n;
     st.lh = lh + static_cast<size_t>(b) * fac_stride;
     st.lf = lf + static_cast<size_t>(b) * fac_stride;
-    if constexpr (Affine) {
-        st.g = T(1);
-        const Cx<T>* a = aff + 4 * static_cast<size_t>(b);
-        st.dp_h = a[0];
-        st.dF_h = a[1];
-        st.dp_f = a[2];
-        st.dF_f = a[3];
-    } else {
-        st.g = gamma[b];
-    }
+    st.g = gamma[b];
     st.h = T(dz);
     integrate<T>(st, y0, pk_out, y_last, ok_out, n_steps, save_every);
 }
@@ -375,11 +359,11 @@ int launch_kernel(K kernel, int B, int n, size_t smem, void* stream, Args... arg
     return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool Affine>
+template <typename T>
 int launch(const void* y0, const void* lh, const void* lf, int fac_stride, const void* gamma,
-           const void* aff, const void* tw, const void* hrc, const void* omega, void* pk,
-           void* y_last, void* ok, int B, int n, int n_steps, int save_every, int use_nl,
-           double dz, double f_r, double inv_w0, void* stream) {
+           const void* tw, const void* hrc, const void* omega, void* pk, void* y_last, void* ok,
+           int B, int n, int n_steps, int save_every, int use_nl, double dz, double f_r,
+           double inv_w0, void* stream) {
     const size_t smem = shared_bytes(n, sizeof(T), use_nl);
     const auto* y0_ = static_cast<const Cx<T>*>(y0);
     const auto* lh_ = static_cast<const Cx<T>*>(lh);
@@ -390,9 +374,8 @@ int launch(const void* y0, const void* lh, const void* lf, int fac_stride, const
     auto* yl_ = static_cast<Cx<T>*>(y_last);
     auto* ok_ = static_cast<uint8_t*>(ok);
     if (!use_nl)
-        return launch_kernel(gnlse_ssfm_kernel<T, Affine>, B, n, smem, stream, y0_, lh_, lf_,
-                             fac_stride, g_, static_cast<const Cx<T>*>(aff), tw_, pk_, yl_, ok_,
-                             n, n_steps, save_every, dz);
+        return launch_kernel(gnlse_ssfm_kernel<T>, B, n, smem, stream, y0_, lh_, lf_,
+                             fac_stride, g_, tw_, pk_, yl_, ok_, n, n_steps, save_every, dz);
     const auto* hrc_ = static_cast<const Cx<T>*>(hrc);
     const auto* om_ = static_cast<const T*>(omega);
     switch (nl_slots(n)) {
@@ -424,22 +407,9 @@ extern "C" int gnlse_ssfm_shared_bytes(int n, int elem, int use_nl) {
                         void* pk, void* y_last, void* ok, int B, int n, int n_steps,             \
                         int save_every, int use_nl, double dz, double f_r, double inv_w0,        \
                         void* stream) {                                                          \
-        return launch<T, false>(y0, lh, lf, fac_stride, gamma, nullptr, tw, hrc, omega, pk,     \
-                                y_last, ok, B, n, n_steps, save_every, use_nl, dz, f_r, inv_w0, \
-                                stream);                                                        \
+        return launch<T>(y0, lh, lf, fac_stride, gamma, tw, hrc, omega, pk, y_last, ok, B, n, \
+                         n_steps, save_every, use_nl, dz, f_r, inv_w0, stream);                 \
     }
 
 GNLSE_SSFM_LAUNCHER(gnlse_ssfm_f64, double)
 GNLSE_SSFM_LAUNCHER(gnlse_ssfm_f32, float)
-
-// The LLE (K7): the affine instantiation, Kerr only, unit gamma.
-#define LLE_SSFM_LAUNCHER(NAME, T)                                                               \
-    extern "C" int NAME(const void* y0, const void* lh, const void* lf, int fac_stride,          \
-                        const void* aff, const void* tw, void* pk, void* y_last, void* ok,       \
-                        int B, int n, int n_steps, int save_every, double dt, void* stream) {    \
-        return launch<T, true>(y0, lh, lf, fac_stride, nullptr, aff, tw, nullptr, nullptr, pk,  \
-                               y_last, ok, B, n, n_steps, save_every, 0, dt, 0.0, 0.0, stream); \
-    }
-
-LLE_SSFM_LAUNCHER(lle_ssfm_f64, double)
-LLE_SSFM_LAUNCHER(lle_ssfm_f32, float)

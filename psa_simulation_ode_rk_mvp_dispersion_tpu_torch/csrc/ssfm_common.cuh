@@ -1,7 +1,8 @@
 // Building blocks shared by the split-step Fourier (SSFM) kernels
-// csrc/gnlse_ssfm.cu (K6, K7), csrc/ssfm_rk45.cu (K8) and csrc/vgnlse_ssfm.cu
-// (K9): one thread block holds one envelope of n complex samples (K9: its two
-// polarizations) in shared memory and transforms it with its own FFT.
+// csrc/gnlse_ssfm.cu (K6), csrc/lle_ssfm.cu (K7), csrc/ssfm_rk45.cu (K8) and
+// csrc/vgnlse_ssfm.cu (K9): one thread block holds one envelope of n complex
+// samples (K9: its two polarizations) in shared memory and transforms it with
+// its own FFT.
 //
 // The transform.  n = m * r with m a power of two (>= 2) and r odd (every n
 // that is a multiple of 128 up to 2048 is such a product, r <= 15).  With
@@ -149,17 +150,6 @@ __device__ void mul_factor(const Block<T>& c, Cx<T>* a, const Cx<T>* f) {
     }
 }
 
-// a[k] <- a[k] dp + dF for the block (the LLE's affine write after an
-// inverse transform: detuning rotation and drive offset), in the plain
-// version's order, the complex product and then the sum.
-template <typename T>
-__device__ void affine(const Block<T>& c, Cx<T>* a, const Cx<T>& dp, const Cx<T>& dF) {
-    for (int k = c.tid; k < c.n; k += c.nt) {
-        const Cx<T> x = a[k];
-        a[k] = Cx<T>{(x.re * dp.re - x.im * dp.im) + dF.re, (x.re * dp.im + x.im * dp.re) + dF.im};
-    }
-}
-
 // Exact Kerr rotation a[k] *= exp(i (g |a_k|^2) h), the angle (g P) h as the
 // plain version forms it; sincos is the accurate one (no fast math).
 template <typename T>
@@ -174,10 +164,12 @@ __device__ void kerr(const Block<T>& c, Cx<T>* a, T g, T h) {
     }
 }
 
-// The same two operations on one sample, for csrc/ssfm_rk45.cu's passes.
-// The block loops above keep their own expressions: built on a shared
-// helper, K7 rounded differently on the card (FMA contraction), and K6 Kerr
-// and K7 are held to give the same outputs whatever K8 does.
+// The LLE's affine write on one sample, x dp + dF (detuning rotation and
+// drive offset), in the plain version's order, the complex product and then
+// the sum; and the Kerr rotation of one sample, as kerr above forms it.  The
+// slotted transforms' last passes apply them (csrc/lle_ssfm.cu,
+// csrc/ssfm_rk45.cu).  The block loop kerr keeps its own expression: K6 Kerr
+// is held to give the same outputs whatever the slotted kernels do.
 template <typename T>
 __device__ __forceinline__ Cx<T> affine_of(const Cx<T>& x, const Cx<T>& dp, const Cx<T>& dF) {
     return Cx<T>{(x.re * dp.re - x.im * dp.im) + dF.re, (x.re * dp.im + x.im * dp.re) + dF.im};
@@ -487,12 +479,12 @@ __device__ __forceinline__ void raman_spectrum(const Plan& f, Cx<T>* z, const Cx
 }
 
 // ---------------------------------------------------------------------------
-// The slotted transform of csrc/ssfm_rk45.cu (K8): wide_fft's passes, but
-// the input is read from a buffer the transform leaves alone (the first
-// pass reads in, the others ping-pong between s0 and s1; in may be s1, not
-// s0), and the last pass hands each output to the caller's Post with its
-// slot instead of storing it.  Thread tid owns the same outputs of the last
-// pass in every transform of one plan:
+// The slotted transform of csrc/lle_ssfm.cu (K7) and csrc/ssfm_rk45.cu (K8):
+// wide_fft's passes, but the input is read from a buffer the transform
+// leaves alone (the first pass reads in, the others ping-pong between s0 and
+// s1; in may be s1, not s0), and the last pass hands each output to the
+// caller's Post with its slot instead of storing it.  Thread tid owns the
+// same outputs of the last pass in every transform of one plan:
 //   r = 1 (the last pass is radix-4 at ns = len/4): slot s is output
 //     tid + (s/4) nt + (s%4) len/4, for the butterflies tid + (s/4) nt
 //     below len/4;
@@ -505,6 +497,25 @@ __device__ __forceinline__ void raman_spectrum(const Plan& f, Cx<T>* z, const Cx
 // is free for the outputs (the one of s0, s1 the last pass does not read),
 // and stores what it wants.  A barrier follows the last pass when Sync.
 // ---------------------------------------------------------------------------
+
+// The samples a thread at width n: 4 up to n = 1,024, 8 above.
+inline int default_slots(int n) { return n <= 4 * kMaxThreads ? 4 : 8; }
+
+// Threads a block at width n with S samples a thread (n/S rounded up to
+// whole warps), or 0 when that block does not cover n within kMaxThreads.
+inline int block_threads(int n, int S) {
+    const int nt = ((n + S - 1) / S + 31) / 32 * 32;
+    return nt > kMaxThreads ? 0 : nt;
+}
+
+// The launch bounds of a slotted kernel: a Narrow block (at most 128
+// threads) any registers; a wide one (up to 256) two blocks an SM at 4
+// samples a thread (at most 128 registers), one at 8.
+template <int S, bool Narrow>
+struct Bounds {
+    static constexpr int kThreads = Narrow ? 128 : kMaxThreads;
+    static constexpr int kBlocks = Narrow || S == 8 ? 1 : 2;
+};
 
 // The output index of slot s.
 __device__ __forceinline__ int slot_sample(const Plan& f, int s) {

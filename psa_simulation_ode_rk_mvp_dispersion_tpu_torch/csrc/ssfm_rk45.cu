@@ -313,17 +313,9 @@ struct Doubling {
     }
 };
 
-// The launch bounds: a Narrow block (at most 128 threads) any registers; a
-// wide one (up to 256) two blocks an SM at 4 samples a thread (at most 128
-// registers), one at 8.
-template <int S, bool Narrow>
-struct Bounds {
-    static constexpr int kThreads = Narrow ? 128 : ssfm::kMaxThreads;
-    static constexpr int kBlocks = Narrow || S == 8 ? 1 : 2;
-};
-
 template <typename T, bool Affine, int S, bool Narrow>
-__global__ void __launch_bounds__(Bounds<S, Narrow>::kThreads, Bounds<S, Narrow>::kBlocks)
+__global__ void __launch_bounds__(ssfm::Bounds<S, Narrow>::kThreads,
+                                  ssfm::Bounds<S, Narrow>::kBlocks)
 ssfm_rk45_kernel(const Cx<T>* __restrict__ y0, const T* __restrict__ gamma,
                  const T* __restrict__ alpha, const T* __restrict__ det,
                  const Cx<T>* __restrict__ pump, const T* __restrict__ ph, int ph_stride,
@@ -384,16 +376,6 @@ ssfm_rk45_kernel(const Cx<T>* __restrict__ y0, const T* __restrict__ gamma,
     }
 }
 
-// The samples a thread at width n: 4 up to n = 1,024, 8 above.
-int default_slots(int n) { return n <= 4 * ssfm::kMaxThreads ? 4 : 8; }
-
-// Threads a block at width n with S samples a thread (n/S rounded up to
-// whole warps), or 0 when that block does not cover n within kMaxThreads.
-int block_threads(int n, int S) {
-    const int nt = ((n + S - 1) / S + 31) / 32 * 32;
-    return nt > ssfm::kMaxThreads ? 0 : nt;
-}
-
 size_t shared_bytes(int n, size_t elem) {
     return elem * (kReduceSlots + 2 * static_cast<size_t>(kBuffers) * n);
 }
@@ -420,22 +402,22 @@ int launch_slots(int threads, const void* y0, const void* gamma, const void* alp
     return static_cast<int>(cudaGetLastError());
 }
 
-// The width's block: S = default_slots(n), Narrow when it has at most 128
-// threads.
+// The width's block: S = ssfm::default_slots(n), Narrow when it has at most
+// 128 threads.
 template <typename T, bool Affine>
 int launch(const void* y0, const void* gamma, const void* alpha, const void* det,
            const void* pump, const void* ph, int ph_stride, const void* tw, void* pk,
            void* y_last, void* ok, void* n_acc, void* n_rej, int B, int n, int n_chunks,
            double seg, double z_end, int has_tail, double dt0, double rtol, double atol,
            int max_steps, void* stream) {
-    const int S = default_slots(n);
-    const int threads = block_threads(n, S);
+    const int S = ssfm::default_slots(n);
+    const int threads = ssfm::block_threads(n, S);
     if (threads == 0) return static_cast<int>(cudaErrorInvalidValue);
 #define SSFM_RK45_ARGS                                                                          \
     threads, y0, gamma, alpha, det, pump, ph, ph_stride, tw, pk, y_last, ok, n_acc, n_rej, B, n, \
         n_chunks, seg, z_end, has_tail, dt0, rtol, atol, max_steps, stream
     if (S == 8) return launch_slots<T, Affine, 8, false>(SSFM_RK45_ARGS);
-    if (threads <= Bounds<4, true>::kThreads)
+    if (threads <= ssfm::Bounds<4, true>::kThreads)
         return launch_slots<T, Affine, 4, true>(SSFM_RK45_ARGS);
     return launch_slots<T, Affine, 4, false>(SSFM_RK45_ARGS);
 #undef SSFM_RK45_ARGS

@@ -26,8 +26,8 @@ GNLSE family's ``lin_phase`` convention (``d2 < 0`` anomalous).
   are integrated and feed only ``ok``; a lane whose chunk ends non-finite
   keeps its last good state and clears ``ok``.
 - :func:`solve_lle_batch` and :func:`detuning_scan` run on a CUDA device
-  through the hand-written kernels ``csrc/gnlse_ssfm.cu`` (its affine
-  instantiation, Strang rk4, ``ops/cuda_lle.py``) and ``csrc/ssfm_rk45.cu``
+  through the hand-written kernels ``csrc/lle_ssfm.cu`` (Strang rk4,
+  ``ops/cuda_lle.py``) and ``csrc/ssfm_rk45.cu``
   (its affine instantiation, rk45, ``ops/cuda_ssfm_adaptive.py``);
   :func:`lle_kernel_route` picks the route from the arguments.  The ramp,
   the trajectories, the single run and rk4ip/rk4ip45 have no kernel in
@@ -537,7 +537,7 @@ def lle_kernel_route(integrator: str, T: int, rdt: torch.dtype, device: torch.de
     if device.type != "cuda" or engine == "torch":
         return None
     if integrator == "rk4":
-        why, name = cuda_gnlse.width_problem("gnlse_ssfm", T, rdt, device), "lle_ssfm"
+        why, name = cuda_gnlse.width_problem("lle_ssfm", T, rdt, device), "lle_ssfm"
     elif integrator == "rk45":
         why, name = cuda_gnlse.width_problem("ssfm_rk45", T, rdt, device), "ssfm_rk45_lle"
     else:
@@ -568,8 +568,8 @@ def solve_lle_batch(
     'cuda'):
 
     - ``'auto'``: on a CUDA device, Strang ``rk4`` runs the kernel
-      ``csrc/gnlse_ssfm.cu`` (affine; fp64 for ``x64``/``df32``, fp32 for
-      ``x32``) and ``rk45`` the kernel ``csrc/ssfm_rk45.cu`` (affine), each
+      ``csrc/lle_ssfm.cu`` (fp64 for ``x64``/``df32``, fp32 for ``x32``)
+      and ``rk45`` the kernel ``csrc/ssfm_rk45.cu`` (affine), each
       for T a multiple of 128 up to 2,048 whose block fits in shared
       memory; ``rk4ip``/``rk4ip45`` and other widths run the plain torch
       version.  On any other device the plain versions run.

@@ -473,9 +473,8 @@ def solve_comb_batch(
     - ``'auto'``: on a CUDA device the kernels -- ``csrc/comb_rk.cu`` for
       rk4/ab4/abm4, ``csrc/comb_rk45.cu`` for rk45; ``x64`` and ``df32`` in
       fp64, ``x32`` in fp32.  The three couplings compute the same sum;
-      ``comb_rk.cu`` evaluates it through FFTs in its own body and
-      ``comb_rk45.cu`` as dense DFT sums, so the kernels ignore
-      ``coupling``.  On any other device the plain torch versions run.
+      both kernels evaluate it through FFTs in their own bodies, so they
+      ignore ``coupling``.  On any other device the plain torch versions run.
     - ``'torch'``: the plain torch versions on ``device``, honouring
       ``coupling``.
     - ``'cuda'``: the kernels; a non-CUDA device raises.

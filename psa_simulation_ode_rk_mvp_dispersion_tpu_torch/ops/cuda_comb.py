@@ -91,33 +91,35 @@ def solve_comb_batch_torch(A0, gamma, alpha, beta_lin, *, dz_m: float, n_steps: 
     return CombBatchResult(P_max=pmax, A_end=y_last, ok=ok)
 
 
-# The widest transform K4 takes: 4,096 points, N <= 2,048 lines (8 lines a
-# thread of 256; csrc/comb_rk.cu).
-K4_MAX_FFT_LEN = 4096
+# The widest transform the comb kernels take: 4,096 points, N <= 2,048 lines
+# (8 lines a thread of 256; csrc/comb_rk.cu, csrc/comb_rk45.cu).
+MAX_FFT_LEN = 4096
 
 
 def kernel_fft_len(n_waves: int) -> int:
-    """K4's transform length: ``max(128, _fft_len(N))``.  Any length of at
-    least 2N - 1 gives the same cubic sum on the N lines; 128 makes a comb
-    of up to 64 lines one warp whose first and last passes are its own
-    lines."""
+    """The comb kernels' transform length: ``max(128, _fft_len(N))``.  Any
+    length of at least 2N - 1 gives the same cubic sum on the N lines; 128
+    makes a comb of up to 64 lines one warp whose first and last passes are
+    its own lines."""
     return max(128, _fft_len(n_waves))
 
 
 @functools.lru_cache(maxsize=16)
 def twiddles(L: int, dtype: torch.dtype, device: str) -> torch.Tensor:
-    """The comb kernels' ``(L, 2)`` table of ``(cos, sin)(2 pi k / L)``, from
-    :func:`models.nwave.dft_roots` rounded to ``dtype`` (K5 in its own type;
-    K4 in float64 in both, its butterflies run in double)."""
+    """The ``(L, 2)`` table of ``(cos, sin)(2 pi k / L)``, from
+    :func:`models.nwave.dft_roots` rounded to ``dtype``: the plain version's
+    dense matrices are built from the same roots; both comb kernels take it
+    in float64, their butterflies run in double."""
     c, s = dft_roots(L)
     return torch.as_tensor(np.stack([c, s], axis=1), device=device).to(dtype).contiguous()
 
 
-def check_shared_memory(lib: ctypes.CDLL, prefix: str, n: int, L: int, rdt: torch.dtype,
-                        device: torch.device) -> None:
-    """Raise if one block of the ``prefix`` kernel, at ``n`` lines, needs
-    more shared memory than the card ``device`` gives a block."""
-    need_fn = getattr(lib, f"{prefix}_shared_bytes")
+def kernel_length(prefix: str, n: int, rdt: torch.dtype, device: torch.device) -> int:
+    """The transform length of the ``prefix`` comb kernel (``comb_rk`` or
+    ``comb_rk45``) at ``n`` lines; raise if the kernel does not take it or
+    one block does not fit in the card's shared memory."""
+    L = kernel_fft_len(n)
+    need_fn = getattr(_build.load_library(prefix), f"{prefix}_shared_bytes")
     need_fn.argtypes, need_fn.restype = [ctypes.c_int] * 3, ctypes.c_int
     need = need_fn(n, L, torch.finfo(rdt).bits // 8)
     limit = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
@@ -125,6 +127,11 @@ def check_shared_memory(lib: ctypes.CDLL, prefix: str, n: int, L: int, rdt: torc
         raise ValueError(
             f"a comb of N={n} lines needs {need} bytes of shared memory per block in "
             f"{prefix}; this card allows {limit}: use engine='torch' for it")
+    if L > MAX_FFT_LEN:
+        raise ValueError(f"a comb of N={n} lines needs a {L}-point transform; the comb kernels "
+                         f"take up to {MAX_FFT_LEN} (N <= {MAX_FFT_LEN // 2}): use "
+                         "engine='torch' for it")
+    return L
 
 
 def _launcher(rdt: torch.dtype, integrator: str):
@@ -151,13 +158,8 @@ def solve_comb_batch_cuda(A0, gamma, alpha, beta_lin, *, dz_m: float, n_steps: i
         raise ValueError(f"integrator must be one of {METHODS}, got {integrator!r}")
     if A0.device.type != "cuda":
         raise ValueError(f"solve_comb_batch_cuda needs CUDA tensors, got a tensor on {A0.device}")
-    L = kernel_fft_len(N)
     dev = A0.device
-    check_shared_memory(_build.load_library("comb_rk"), "comb_rk", N, L, rdt, dev)
-    if L > K4_MAX_FFT_LEN:
-        raise ValueError(f"a comb of N={N} lines needs a {L}-point transform; the comb kernel "
-                         f"takes up to {K4_MAX_FFT_LEN} (N <= {K4_MAX_FFT_LEN // 2}): use "
-                         "engine='torch' for it")
+    L = kernel_length("comb_rk", N, rdt, dev)
     tw = twiddles(L, torch.float64, str(dev))
     y0 = torch.cat([A0.real, A0.imag], dim=1).contiguous()        # (B, 2N)
     pmax = torch.empty((B, N), dtype=rdt, device=dev)

@@ -4,11 +4,14 @@ wrapper, and the plain PyTorch version of the same function.
 Counterpart of the JAX package's ``ops/pallas_comb_adaptive.py`` (kernel K5)
 and of its scan path ``models/nwave._comb_batch_adaptive_solver``.  The TPU
 kernel becomes the hand-written CUDA template ``csrc/comb_rk45.cu``: float64
-serves ``x64``/``df32``, float32 serves ``x32``.
+serves ``x64``/``df32``, float32 serves ``x32``.  It evaluates the cubic sum
+through K4's FFT coupling (``csrc/comb_common.cuh``), its own radix-4 FFTs
+at ``ops/cuda_comb.kernel_fft_len`` points on a float64 table.
 
 - :func:`solve_comb_batch_rk45_cuda` checks its inputs, lays them out as one
-  row per comb, launches one thread block per comb on the current stream and
-  counts the launch in ``ops/_build.LAUNCHES``.  CUDA tensors only.
+  row per comb, launches one thread block per comb (one warp up to N = 64
+  lines) on the current stream and counts the launch in
+  ``ops/_build.LAUNCHES``.  CUDA tensors only.
 - :func:`solve_comb_batch_rk45_torch` is the plain version:
   ``ops/adaptive.integrate_adaptive_reduce`` over the ``(B, N)`` state with
   the dense-DFT coupling.
@@ -18,9 +21,14 @@ the JAX kernel's: the first step is ``dt0 = 0.1 x`` the first span where the
 JAX kernel starts from ``dz``, the first stage carries over from the last
 accepted step (6 RHS per attempt, where the JAX kernel evaluates 7), and the
 step factor is a ``pow``.  So against the JAX kernel the port is held only to
-that kernel's tolerance class, never to its step counts.  The kernel and the
-plain version sum the DFTs in different orders, so they take the same steps
-on nearly every fp64 comb and on most fp32 combs.
+that kernel's tolerance class, never to its step counts.  The kernel's FFTs
+and the plain version's dense sums round differently.  In fp64 the two take
+the same steps on nearly every comb.  In fp32 the kernel's coupling, every
+butterfly in double, gives a quieter error estimate than the dense float32
+sums: the kernel takes about a third of the plain version's attempts (82.4
+against 232.2 a comb at ``chip_smoke.py``'s size) and its steps differ on
+nearly every comb, so a comb that fails may fail at another step, with
+another last accepted state.
 """
 
 from __future__ import annotations
@@ -32,8 +40,8 @@ import torch
 
 from . import _build
 from .cuda_adaptive import kernel_segments, rk45_reduce
-from .cuda_comb import _DTYPE_SUFFIX, check_comb_lanes, check_shared_memory, twiddles
-from ..models.nwave import NWaveCoeffs, _fft_len, make_rhs_nwave
+from .cuda_comb import _DTYPE_SUFFIX, check_comb_lanes, kernel_length, twiddles
+from ..models.nwave import NWaveCoeffs, make_rhs_nwave
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,25 +90,24 @@ def solve_comb_batch_rk45_cuda(A0, gamma, alpha, beta_lin, *, dz_m: float, n_ste
                                save_every: int, rtol: float, atol: float,
                                max_steps: int = 10_000) -> CombAdaptiveResult:
     """Solve B combs adaptively with the CUDA kernel, one thread block per
-    comb, in one launch.
+    comb (one warp of 32 threads up to N = 64 lines), in one launch.
 
     ``A0`` is a ``(B, N)`` complex128 (fp64 kernel) or complex64 (fp32
     kernel) CUDA tensor; ``gamma``/``alpha`` ``(B,)`` and ``beta_lin``
     ``(B, N)`` of the matching real dtype on the same device.  ``max_steps``
-    bounds the attempts of one comb in one segment.  Returns without
-    synchronizing.
+    bounds the attempts of one comb in one segment.  It raises for a comb
+    wider than the kernel takes (N > 2,048) or whose block does not fit in
+    the card's shared memory.  Returns without synchronizing.
     """
     B, N, rdt = _check_inputs(A0, gamma, alpha, beta_lin, n_steps, save_every, rtol, atol,
                               max_steps)
     if A0.device.type != "cuda":
         raise ValueError(
             f"solve_comb_batch_rk45_cuda needs CUDA tensors, got a tensor on {A0.device}")
-    L = _fft_len(N)
     dev = A0.device
-    lib = _build.load_library("comb_rk45")
-    check_shared_memory(lib, "comb_rk45", N, L, rdt, dev)
+    L = kernel_length("comb_rk45", N, rdt, dev)
     n_chunks, seg_len, tail_len, dt0 = kernel_segments(dz_m, n_steps, save_every)
-    tw = twiddles(L, rdt, str(dev))
+    tw = twiddles(L, torch.float64, str(dev))
     y0 = torch.cat([A0.real, A0.imag], dim=1).contiguous()        # (B, 2N)
     pmax = torch.empty((B, N), dtype=rdt, device=dev)
     y_last = torch.empty((B, 2 * N), dtype=rdt, device=dev)

@@ -45,11 +45,13 @@ from ..models.gnlse import NLTerms, _lin_factor, _scalar, gnlse_fixed
 WIDTH_QUANTUM = 128
 MAX_WIDTH = 128 * 16
 # Buffers of T complex values a block keeps in shared memory, and the
-# reduction slots beside them (csrc/gnlse_ssfm.cu, csrc/ssfm_rk45.cu): Kerr
-# the state and its transform partner; nl the state and a transform pair
-# (its RK4 sums are registers); rk45 the state, a transform pair and the fine
+# reduction slots beside them (csrc/gnlse_ssfm.cu, csrc/lle_ssfm.cu,
+# csrc/ssfm_rk45.cu): Kerr and the LLE the state and its transform partner
+# (the LLE's factors are registers); nl the state and a transform pair (its
+# RK4 sums are registers); rk45 the state, a transform pair and the fine
 # spectrum (its factors and coarse state are registers).
-SHARED_BUFFERS = {("gnlse_ssfm", False): 2, ("gnlse_ssfm", True): 3, ("ssfm_rk45", False): 4}
+SHARED_BUFFERS = {("gnlse_ssfm", False): 2, ("gnlse_ssfm", True): 3, ("lle_ssfm", False): 2,
+                  ("ssfm_rk45", False): 4}
 REDUCE_SLOTS = 32
 
 

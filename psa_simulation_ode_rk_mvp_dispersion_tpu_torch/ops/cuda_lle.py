@@ -4,9 +4,9 @@ wrapper, and the plain PyTorch version of the same function.
 Counterpart of the JAX package's ``ops/pallas_lle.py`` (kernel K7: the K6
 kernel ``ops/pallas_gnlse.py::_kernel_body`` built with ``affine=True``) and
 of its scan path ``models/lle._lle_solver``.  The TPU kernel becomes the
-affine instantiation of the hand-written CUDA template
-``csrc/gnlse_ssfm.cu``: float64 serves ``x64``/``df32``, float32 serves
-``x32``.
+hand-written CUDA template ``csrc/lle_ssfm.cu`` (radix-4 transforms with the
+factor, the affine write and the Kerr rotation folded into their last
+passes): float64 serves ``x64``/``df32``, float32 serves ``x32``.
 
 - :func:`solve_lle_batch_cuda` checks its inputs, builds the dispersion and
   loss factors with the plain version's own ``models/lle._lle_lin_factor``
@@ -97,7 +97,7 @@ def affine_scalars(detuning, pump, dt: float) -> torch.Tensor:
 
 
 def _launcher(rdt: torch.dtype):
-    fn = getattr(_build.load_library("gnlse_ssfm"), f"lle_ssfm_{_DTYPE_SUFFIX[rdt]}")
+    fn = getattr(_build.load_library("lle_ssfm"), f"lle_ssfm_{_DTYPE_SUFFIX[rdt]}")
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 5
                    + [ctypes.c_int] * 4 + [ctypes.c_double, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -112,12 +112,13 @@ def solve_lle_batch_cuda(psi0, detuning, pump, lin_phase, *, dt: float, n_steps:
     ``psi0`` is a ``(B, T)`` complex128 (fp64 kernel) or complex64 (fp32
     kernel) CUDA tensor, T a multiple of 128 up to 2,048; ``detuning``
     ``(B,)`` real, ``pump`` ``(B,)`` complex, ``lin_phase`` ``(T,)`` or
-    ``(B, T)`` real, of the matching dtypes on the same device.  Returns
-    without synchronizing."""
+    ``(B, T)`` real, of the matching dtypes on the same device.  A block
+    holds 4 samples a thread up to T = 1,024 and 8 above.  Returns without
+    synchronizing."""
     B, T, rdt = check_cavities(psi0, detuning, pump, lin_phase, n_steps, save_every)
     if psi0.device.type != "cuda":
         raise ValueError(f"solve_lle_batch_cuda needs CUDA tensors, got a tensor on {psi0.device}")
-    why = width_problem("gnlse_ssfm", T, rdt, psi0.device)
+    why = width_problem("lle_ssfm", T, rdt, psi0.device)
     if why is not None:
         raise ValueError(why)
     dev = psi0.device

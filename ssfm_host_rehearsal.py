@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""Rehearse the split-step kernels (K6 nl, K7, K8, K9) and the comb kernel K4
-on the CPU, before a card is at hand, with a block's threads run as host
-threads.
+"""Rehearse the split-step kernels (K6 nl, K7, K8, K9) and the comb kernels
+(K4, K5) on the CPU, before a card is at hand, with a block's threads run as
+host threads.
 
 Run from the root of a checkout on a machine with g++ (C++20; no card, no
 nvcc):
 
     python3 ssfm_host_rehearsal.py
 
-It compiles ``csrc/gnlse_ssfm.cu``, ``csrc/ssfm_rk45.cu``,
-``csrc/vgnlse_ssfm.cu`` and ``csrc/comb_rk.cu`` as host C++ into
+It compiles ``csrc/gnlse_ssfm.cu``, ``csrc/lle_ssfm.cu``,
+``csrc/ssfm_rk45.cu``, ``csrc/vgnlse_ssfm.cu``, ``csrc/comb_rk.cu`` and
+``csrc/comb_rk45.cu`` as host C++ into
 ``build/host_rehearsal/``.  A stub ``cuda_runtime.h`` defines the CUDA
 qualifiers away and runs each block of a ``<<<grid, block, ...>>>`` launch as
 ``block`` ``std::thread``s, one block after another: ``threadIdx`` is
@@ -32,13 +33,21 @@ pass and prints each against its plain version:
 - K9 (``vgnlse_ssfm_*``): 5 two-polarization pulses, the nl body at T =
   256, 384 and 640, the rotation and coherent bodies at 256 and 384, shared
   and per-instance factor planes, one instance overflowing, 12 and 14 steps;
-- K7 (``lle_ssfm_*``) and K8's LLE route (``ssfm_rk45_lle_*``) on 5
-  soliton-ansatz cavities of 256 samples (a complex pump, one cavity
-  overflowing), shared and per-cavity phase;
+- K7 (``lle_ssfm_*``) on 5 soliton-ansatz cavities of 256, 384 (r = 3),
+  512, 1,024 and 2,048 (8 samples a thread) samples (a complex pump, one
+  cavity overflowing), shared and per-cavity phase, 20 and 23 steps at
+  ``save_every=4``; K8's LLE route (``ssfm_rk45_lle_*``) on the 256-sample
+  cavities;
 - K8's GNLSE route (``ssfm_rk45_*``) on 5 sech envelopes at T = 256 and 384,
   one 1e12 times too strong;
 - K4 (``comb_*``): rk4, ab4 and abm4 at N = 16, 33, 64 (one warp a comb)
-  and 100 (a block of 64 threads), one comb blowing up, fp64 and fp32.
+  and 100 (a block of 64 threads), one comb blowing up, fp64 and fp32;
+- K5 (``comb_rk45_*``) at the same widths, 105 steps at ``save_every=10``,
+  fp64 at rtol 1e-9 and fp32 at 1e-6, the step counters beside the plain
+  version's, the failed comb's accepted steps and state; in fp32 also both
+  solutions against the plain fp64 version at the same rtol; and the error
+  norm of the failed 16-line comb's attempt at the smallest step, float32
+  (dense DFT, FFT, the RHS in float64) and float64.
 
 It cannot see what only the card's compiler refuses, nor the card's
 scheduling.
@@ -61,11 +70,13 @@ import torch
 import psa_torch as psa
 from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.models.gnlse import save_segments
 from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_comb as cc
+from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_comb_adaptive as cca
 from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_gnlse as cg
 from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_lle as cl
 from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_ssfm_adaptive as csa
 from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_vgnlse as cv
 from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops._build import CSRC_DIR
+from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops.cuda_adaptive import kernel_segments
 from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops.cuda_gnlse import twiddles
 
 OUT = Path(__file__).resolve().parent / "build" / "host_rehearsal"
@@ -303,6 +314,28 @@ def k4(lib, A0, gamma, alpha, beta, dz, n_steps, save_every, method="rk4", check
     return pmax, torch.complex(y_last[:, :N], y_last[:, N:]), ok.bool()
 
 
+def k5(lib, A0, gamma, alpha, beta, dz, n_steps, save_every, rtol, atol, max_steps=10_000):
+    """One call of comb_rk45_* with the arguments of
+    cuda_comb_adaptive.solve_comb_batch_rk45_cuda; returns ``(P_max, A_end,
+    ok, n_accepted, n_rejected)``."""
+    B, N = A0.shape
+    rdt = A0.real.dtype
+    L = cc.kernel_fft_len(N)
+    n_chunks, seg_len, tail_len, dt0 = kernel_segments(dz, n_steps, save_every)
+    y0 = torch.cat([A0.real, A0.imag], dim=1).contiguous()
+    pmax, y_last = torch.empty((B, N), dtype=rdt), torch.empty((B, 2 * N), dtype=rdt)
+    ok = torch.empty(B, dtype=torch.uint8)
+    na, nr = torch.empty(B, dtype=torch.int32), torch.empty(B, dtype=torch.int32)
+    fn = getattr(lib, f"comb_rk45_{'f64' if rdt == torch.float64 else 'f32'}")
+    d = ctypes.c_double
+    err = fn(ptr(gamma), ptr(alpha), ptr(beta), ptr(cc.twiddles(L, torch.float64, "cpu")),
+             ptr(y0), ptr(pmax), ptr(y_last), ptr(ok), ptr(na), ptr(nr), B, N, L, n_chunks,
+             d(seg_len), d(tail_len), d(dt0), d(rtol), d(atol), max_steps, None)
+    if err:
+        raise RuntimeError(f"comb_rk45 returned {err}")
+    return pmax, torch.complex(y_last[:, :N], y_last[:, N:]), ok.bool(), na, nr
+
+
 def k9(lib, y0, gamma, alpha, b, ph, coherent, nl, dz, n_steps, save_every):
     """One call of vgnlse_ssfm_* with the arguments of
     cuda_vgnlse.solve_vgnlse_batch_cuda."""
@@ -436,8 +469,9 @@ def gnlse_rk45(lib8):
                       f"{normwise(y[g], r.A_end[g]):.2e}", flush=True)
 
 
-def comb(lib4):
-    """K4 against its plain version, every method, fp64 and fp32."""
+def comb(lib4, lib5):
+    """K4 against its plain version, every method, and K5 against its own,
+    fp64 and fp32."""
     nw = psa.nwave
     oc = 2 * np.pi * 193.1e12
     for N in (16, 33, 64, 100):
@@ -463,6 +497,58 @@ def comb(lib4):
                       f"{ok.tolist() == r.ok.tolist()}, bad frozen {torch.equal(A[2], t[0][2])}, "
                       f"A_end {normwise(A[gd], r.A_end[gd]):.2e}, P_max "
                       f"{normwise(pk[gd], r.P_max[gd]):.2e}", flush=True)
+            rtol, atol = (1e-9, 1e-12) if rdt == torch.float64 else (1e-6, 1e-10)
+            pk, A, ok, na, nr = k5(lib5, *t, 5.0, 105, 10, rtol, atol)
+            r = cca.solve_comb_batch_rk45_torch(*t, dz_m=5.0, n_steps=105, save_every=10,
+                                                rtol=rtol, atol=atol)
+            gd = r.ok
+            same = torch.equal(na, r.n_accepted) and torch.equal(nr, r.n_rejected)
+            print(f"K5 N={N} {str(rdt)[6:]} 105 steps: ok {ok.tolist() == r.ok.tolist()}, "
+                  f"counters equal {same}, A_end {normwise(A[gd], r.A_end[gd]):.2e}, P_max "
+                  f"{normwise(pk[gd], r.P_max[gd]):.2e}; failed comb: accepted {int(na[2])} "
+                  f"(plain {int(r.n_accepted[2])}), A_end {normwise(A[2:3], r.A_end[2:3]):.2e}",
+                  flush=True)
+            if rdt == torch.float32:
+                # both float32 solutions against the plain float64 one
+                t64 = tuple(v.to(torch.complex128 if v.is_complex() else torch.float64)
+                            for v in t)
+                q = cca.solve_comb_batch_rk45_torch(*t64, dz_m=5.0, n_steps=105, save_every=10,
+                                                    rtol=rtol, atol=atol)
+                ref = q.A_end[gd].to(A.dtype)
+                print(f"K5 N={N} float32 against the plain float64 version at rtol {rtol:g}: "
+                      f"kernel {normwise(A[gd], ref):.2e}, plain {normwise(r.A_end[gd], ref):.2e};"
+                      f" failed comb accepted {int(q.n_accepted[2])}", flush=True)
+
+
+def failed_comb_norm():
+    """The error norm of the 16-line failed comb's attempt at the smallest
+    step of a 50 m segment (``comb``'s comb 2 at rtol 1e-6 and atol 1e-10):
+    float32 with the plain version's dense-DFT and FFT couplings, float32
+    with the RHS formed in float64 and rounded once to float32 (as the
+    kernel's coupling rounds it), and float64.  A norm above 1 rejects the
+    step, which then fails the comb."""
+    nw = psa.nwave
+    oc = 2 * np.pi * 193.1e12
+    grid = nw.CombGrid.centered(oc, 2 * np.pi * 50e9, 16)
+    beta = nw.comb_beta_lin(grid, psa.DispersionParams.from_betas(oc, beta2=-1e-27,
+                                                                   beta3=1.2e-41))
+    A0 = 1e3 * nw.seed_comb(grid, pump_lines={4: 0.5, 12: 0.5}, noise_floor_W=1e-9)[None]
+    h = 1e-12 * (50.0 + 1.0)
+    f64 = nw.make_rhs_nwave("fft")
+    v64 = [torch.tensor(v, dtype=torch.float64) for v in ([1e3], [5e-5], beta[None])]
+    c64 = nw.NWaveCoeffs(*v64)
+    for label, rdt, rhs in (("float32, dense DFT", torch.float32, nw.make_rhs_nwave("dft")),
+                            ("float32, FFT", torch.float32, nw.make_rhs_nwave("fft")),
+                            ("float32, RHS in float64", torch.float32,
+                             lambda z, y, p: f64(z, y.to(torch.complex128), c64).to(y.dtype)),
+                            ("float64, dense DFT", torch.float64, nw.make_rhs_nwave("dft"))):
+        co = nw.NWaveCoeffs(*(v.to(rdt) for v in v64))
+        y = torch.as_tensor(A0).to(torch.complex64 if rdt == torch.float32 else torch.complex128)
+        hc = torch.tensor([[h]], dtype=rdt)
+        y5, err, _ = psa.ops.adaptive._dp45(rhs, 0.0, y, rhs(0.0, y, co), hc, co)
+        en = psa.ops.adaptive._error_norm(err, y, y5, atol=1e-10, rtol=1e-6, batch_ndim=1)
+        print(f"K5 failed comb, N=16, attempt at dt_min = {h:.3g} m: {label}: error norm "
+              f"{float(en[0]):.4g}", flush=True)
 
 
 def readings():
@@ -510,43 +596,49 @@ def main():
     if "--readings" in sys.argv:
         readings()
         return
-    lib7, lib8 = build("gnlse_ssfm"), build("ssfm_rk45")
-    scalar_nl(lib7)
+    lib6, lib7, lib8 = build("gnlse_ssfm"), build("lle_ssfm"), build("ssfm_rk45")
+    scalar_nl(lib6)
     vector(build("vgnlse_ssfm"))
-    grid = psa.lle.TimeGrid(n_samples=256, t_window_s=20.0)
-    dets = np.linspace(3.5, 4.5, 5)
-    co = psa.lle.make_lle_coeffs(grid, detuning=dets, pump=2.2 * np.exp(0.3j), d2=-1.0)
-    seeds = np.stack([psa.lle.soliton_ansatz(grid, d, 2.2, -1.0) for d in dets])
-    for rdt, cdt, bad in ((torch.float64, torch.complex128, 1e160),
-                          (torch.float32, torch.complex64, 1e25)):
-        for rows in (False, True):
-            psi0 = seeds.copy()
-            psi0[2] *= bad                   # |psi|^2 overflows the type
-            det, F, ph = psa.lle.lane_coeffs(co, 5, 256, rdt, "cpu")
-            if rows:
-                ph = (ph[None] * torch.linspace(0.8, 1.2, 5, dtype=rdt)[:, None]).contiguous()
-            y0 = torch.as_tensor(psi0).to(cdt)
-            label = f"{str(rdt)[6:]} {'per-cavity' if rows else 'shared'} phase"
-            for n_steps in (20, 23):
-                pk, y, ok = k7(lib7, y0, det, F, ph, 0.01, n_steps, 4)
-                r = cl.solve_lle_batch_torch(y0, det, F, ph, dt=0.01, n_steps=n_steps, save_every=4)
-                g = r.ok
-                print(f"K7 {label} {n_steps} steps: ok {ok.tolist() == r.ok.tolist()}, bad "
-                      f"cavity frozen {torch.equal(y[2], y0[2])}, A_end "
-                      f"{normwise(y[g], r.A_end[g]):.2e}, peak "
-                      f"{float(((pk[g] - r.peak_max[g]) / r.peak_max[g]).abs().max()):.2e}")
-            rtol, atol = (1e-8, 1e-11) if rdt == torch.float64 else (1e-5, 1e-8)
-            for n_steps in (40, 43):
-                pk, y, ok, na, nr = k8(lib8, y0, det, F, ph, 0.01, n_steps, 10, rtol, atol)
-                r = csa.solve_lle_batch_rk45_torch(y0, det, F, ph, dt=0.01, n_steps=n_steps,
-                                                   save_every=10, rtol=rtol, atol=atol)
-                g = r.ok
-                same = torch.equal(na, r.n_accepted) and torch.equal(nr, r.n_rejected)
-                print(f"K8-LLE {label} {n_steps} steps: ok "
-                      f"{ok.tolist() == r.ok.tolist()}, counters equal {same}, bad cavity "
-                      f"rejected {int(nr[2])} times, A_end {normwise(y[g], r.A_end[g]):.2e}")
+    for n in (256, 384, 512, 1024, 2048):
+        grid = psa.lle.TimeGrid(n_samples=n, t_window_s=20.0)
+        dets = np.linspace(3.5, 4.5, 5)
+        co = psa.lle.make_lle_coeffs(grid, detuning=dets, pump=2.2 * np.exp(0.3j), d2=-1.0)
+        seeds = np.stack([psa.lle.soliton_ansatz(grid, d, 2.2, -1.0) for d in dets])
+        for rdt, cdt, bad in ((torch.float64, torch.complex128, 1e160),
+                              (torch.float32, torch.complex64, 1e25)):
+            for rows in (False, True):
+                psi0 = seeds.copy()
+                psi0[2] *= bad                   # |psi|^2 overflows the type
+                det, F, ph = psa.lle.lane_coeffs(co, 5, n, rdt, "cpu")
+                if rows:
+                    ph = (ph[None] * torch.linspace(0.8, 1.2, 5, dtype=rdt)[:, None]).contiguous()
+                y0 = torch.as_tensor(psi0).to(cdt)
+                label = f"n={n} {str(rdt)[6:]} {'per-cavity' if rows else 'shared'} phase"
+                for n_steps in (20, 23):
+                    pk, y, ok = k7(lib7, y0, det, F, ph, 0.01, n_steps, 4)
+                    r = cl.solve_lle_batch_torch(y0, det, F, ph, dt=0.01, n_steps=n_steps,
+                                                 save_every=4)
+                    g = r.ok
+                    print(f"K7 {label} {n_steps} steps: ok "
+                          f"{ok.tolist() == r.ok.tolist()}, bad cavity frozen "
+                          f"{torch.equal(y[2], y0[2])}, A_end {normwise(y[g], r.A_end[g]):.2e}, "
+                          f"peak "
+                          f"{float(((pk[g] - r.peak_max[g]) / r.peak_max[g]).abs().max()):.2e}")
+                if n != 256:
+                    continue
+                rtol, atol = (1e-8, 1e-11) if rdt == torch.float64 else (1e-5, 1e-8)
+                for n_steps in (40, 43):
+                    pk, y, ok, na, nr = k8(lib8, y0, det, F, ph, 0.01, n_steps, 10, rtol, atol)
+                    r = csa.solve_lle_batch_rk45_torch(y0, det, F, ph, dt=0.01, n_steps=n_steps,
+                                                       save_every=10, rtol=rtol, atol=atol)
+                    g = r.ok
+                    same = torch.equal(na, r.n_accepted) and torch.equal(nr, r.n_rejected)
+                    print(f"K8-LLE {label} {n_steps} steps: ok "
+                          f"{ok.tolist() == r.ok.tolist()}, counters equal {same}, bad cavity "
+                          f"rejected {int(nr[2])} times, A_end {normwise(y[g], r.A_end[g]):.2e}")
     gnlse_rk45(lib8)
-    comb(build("comb_rk"))
+    comb(build("comb_rk"), build("comb_rk45"))
+    failed_comb_norm()
 
 
 if __name__ == "__main__":

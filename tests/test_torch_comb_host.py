@@ -1,10 +1,11 @@
-"""csrc/comb_rk.cu (K4), compiled as host C++ with each block's threads run as
-host threads (``ssfm_host_rehearsal.py``: ``__syncwarp`` a barrier of the
-warp's threads, ``__all_sync`` an AND over them), against its plain version
-on the CPU.  The CUDA kernel itself runs only on the card
-(``tests/test_torch_kernel.py``); this holds its source's FFT coupling, the
-threads' ownership of lines and the barriers between the passes to the plain
-version's dense DFT sums here.  Needs g++ with C++20."""
+"""csrc/comb_rk.cu (K4) and csrc/comb_rk45.cu (K5), compiled as host C++ with
+each block's threads run as host threads (``ssfm_host_rehearsal.py``:
+``__syncwarp`` a barrier of the warp's threads, ``__all_sync`` an AND over
+them), against their plain versions on the CPU.  The CUDA kernels themselves
+run only on the card (``tests/test_torch_kernel.py``); this holds their
+sources' FFT coupling, the threads' ownership of lines, K5's stages and error
+norm and the barriers between the passes to the plain versions' dense DFT
+sums here.  Needs g++ with C++20."""
 
 import shutil
 
@@ -15,6 +16,7 @@ import torch
 import ssfm_host_rehearsal as host
 from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.models import nwave as tn
 from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_comb as cc
+from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_comb_adaptive as cca
 from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops.dispersion import DispersionParams
 
 # fp64 to rounding; fp32 the card test's bar (tests/test_torch_kernel.py)
@@ -23,17 +25,28 @@ CDT = {torch.float64: torch.complex128, torch.float32: torch.complex64}
 
 
 @pytest.fixture(scope="module")
-def lib(tmp_path_factory):
+def out(tmp_path_factory):
     if shutil.which("g++") is None:
-        pytest.skip("the host build of the kernel needs g++")
-    return host.build("comb_rk", tmp_path_factory.mktemp("host_kernels"))
+        pytest.skip("the host build of the kernels needs g++")
+    return tmp_path_factory.mktemp("host_kernels")
 
 
-def _combs(N, B, rdt, bad):
-    """bench_comb.py's comb at N lines (pumps at N/4 and 3N/4) over a gamma
-    grid; comb ``bad`` blows up in its first step."""
+@pytest.fixture(scope="module")
+def lib(out):
+    return host.build("comb_rk", out)
+
+
+@pytest.fixture(scope="module")
+def lib45(out):
+    return host.build("comb_rk45", out)
+
+
+def _combs(N, B, rdt, bad, spacing_hz=50e9):
+    """bench_comb.py's comb at N lines (pumps at N/4 and 3N/4), 50 GHz apart
+    unless ``spacing_hz`` says otherwise, over a gamma grid; comb ``bad``
+    blows up in its first step."""
     oc = 2 * np.pi * 193.1e12
-    grid = tn.CombGrid.centered(oc, 2 * np.pi * 50e9, N)
+    grid = tn.CombGrid.centered(oc, 2 * np.pi * spacing_hz, N)
     beta = tn.comb_beta_lin(grid, DispersionParams.from_betas(oc, beta2=-1e-27, beta3=1.2e-41))
     A0 = np.broadcast_to(tn.seed_comb(grid, pump_lines={N // 4: 0.5, 3 * N // 4: 0.5},
                                       noise_floor_W=1e-9), (B, N)).copy()
@@ -76,3 +89,42 @@ def test_comb_kernel_wide_route_and_check_nan_off(lib):
     assert _normwise(A[p.ok], p.A_end[p.ok]) <= 1e-12
     pk, A, ok = host.k4(lib, *t, 5.0, 12, 5, "rk4", check_nan=False)
     assert bool(ok.all()) and not bool(torch.isfinite(A[1]).all())
+
+
+# K5 against its plain version at the card test's tolerances: fp64 rtol 1e-9
+# (the same steps on every comb, the results to rounding), fp32 rtol 1e-6
+# (the FFTs' rounding moves the float32 error estimate, so the steps may
+# differ and the results are held to the card check's 1e-3)
+RK45_TOL = {torch.float64: (1e-9, 1e-12), torch.float32: (1e-6, 1e-10)}
+TOL45 = {torch.float64: 1e-12, torch.float32: 1e-3}
+# every route: one warp a comb on a 128-point transform up to N = 64, a block
+# of 64 threads on a 256-point one at N = 100, 256 threads at 4 lines a thread
+# (N = 600, 2,048 points) and, in fp32 only (the fp64 block does not fit in
+# shared memory), at 8 lines a thread (N = 1,100, 4,096 points)
+K5_CASES = [(N, rdt) for N in (16, 33, 64, 100, 600) for rdt in (torch.float64, torch.float32)] \
+    + [(1100, torch.float32)]
+
+
+@pytest.mark.parametrize("N,rdt", K5_CASES,
+                         ids=[f"{'f64' if r == torch.float64 else 'f32'}-{N}" for N, r in K5_CASES])
+def test_comb_rk45_kernel_matches_plain_version(lib45, rdt, N):
+    """23 steps at save_every=10 (a trailing span), at most 400 attempts a
+    segment; the combs of 600 lines and more 10 GHz apart, so that their
+    outer lines' dispersion leaves the host build a few hundred attempts.
+    fp64: the same counters and results on every comb, the failed one (at
+    its input) included.  fp32: the same ok flags, the finished combs within
+    1e-3; the failed comb's last accepted state is not held here, since the
+    plain version's dense float32 sums reject, by their rounding alone,
+    steps the kernel accepts before that comb fails."""
+    t = _combs(N, 4, rdt, bad=2, spacing_hz=50e9 if N <= 100 else 10e9)
+    rtol, atol = RK45_TOL[rdt]
+    kw = dict(dz_m=5.0, n_steps=23, save_every=10, rtol=rtol, atol=atol, max_steps=400)
+    pk, A, ok, na, nr = host.k5(lib45, *t, 5.0, 23, 10, rtol, atol, max_steps=400)
+    p = cca.solve_comb_batch_rk45_torch(*t, **kw)
+    assert ok.tolist() == p.ok.tolist() == [True, True, False, True]
+    held = torch.ones_like(p.ok) if rdt == torch.float64 else p.ok
+    if rdt == torch.float64:
+        assert torch.equal(na, p.n_accepted) and torch.equal(nr, p.n_rejected)
+        assert torch.equal(A[2], t[0][2])
+    assert _normwise(A[held], p.A_end[held]) <= TOL45[rdt]
+    assert _normwise(pk[held], p.P_max[held]) <= TOL45[rdt]

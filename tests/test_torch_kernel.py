@@ -224,11 +224,12 @@ def _normwise(a, b):
     return float(((a - b).abs().amax(-1) / b.abs().amax(-1)).max())
 
 
-def _comb_inputs(N, B, rdt, device, bad=None):
-    """bench_comb.py's comb at N lines (pumps at c +- N/4) over a gamma grid;
-    comb ``bad`` blows up."""
+def _comb_inputs(N, B, rdt, device, bad=None, spacing_hz=50e9):
+    """bench_comb.py's comb at N lines (pumps at c +- N/4), 50 GHz apart
+    unless ``spacing_hz`` says otherwise, over a gamma grid; comb ``bad``
+    blows up."""
     oc = 2 * np.pi * 193.1e12
-    grid = tn.CombGrid.centered(oc, 2 * np.pi * 50e9, N)
+    grid = tn.CombGrid.centered(oc, 2 * np.pi * spacing_hz, N)
     beta = tn.comb_beta_lin(grid, T.DispersionParams.from_betas(oc, beta2=-1e-27, beta3=1.2e-41))
     A0 = np.broadcast_to(tn.seed_comb(grid, pump_lines={N // 4: 0.5, 3 * N // 4: 0.5},
                                       noise_floor_W=1e-9), (B, N)).copy()
@@ -288,15 +289,25 @@ def test_comb_kernel_check_nan_off(card):
     assert _normwise(rk.A_end[rest], rp.A_end[rest]) <= 1e-11
 
 
-@pytest.mark.parametrize("rdt", [torch.float64, torch.float32], ids=["f64", "f32"])
+# K5's routes: one warp a comb (N = 16), a block of 64 threads (N = 100), 256
+# threads at 4 lines a thread (N = 600) and, in fp32 only (the fp64 block
+# does not fit in shared memory), at 8 lines a thread (N = 1,100); the combs
+# of 600 lines and more 10 GHz apart, as in tests/test_torch_comb_host.py
+K5_CASES = [(N, rdt) for N in (16, 100, 600) for rdt in (torch.float64, torch.float32)] \
+    + [(1100, torch.float32)]
+
+
+@pytest.mark.parametrize("N,rdt", K5_CASES,
+                         ids=[f"{N}-{'f64' if r == torch.float64 else 'f32'}" for N, r in K5_CASES])
 @pytest.mark.parametrize("n_steps", [100, 105])
-def test_comb_rk45_kernel_matches_plain_version(card, rdt, n_steps):
+def test_comb_rk45_kernel_matches_plain_version(card, rdt, n_steps, N):
     """fp64: the same steps on (nearly) every comb, results within 1e-9
-    there and 10 x rtol on all; fp32: the DFT sums' rounding order moves the
-    error estimate, so the steps differ and the results are held to 1e-3,
-    inside the 2e-2 class of the JAX kernel's test."""
+    there and 10 x rtol on all; fp32: the kernel's FFTs and the plain
+    version's dense sums round the error estimate differently, so the steps
+    differ and the results are held to 1e-3, inside the 2e-2 class of the
+    JAX kernel's test."""
     rtol, atol = (1e-9, 1e-12) if rdt == torch.float64 else (1e-6, 1e-10)
-    t = _comb_inputs(16, 37, rdt, card, bad=7)
+    t = _comb_inputs(N, 37, rdt, card, bad=7, spacing_hz=50e9 if N <= 100 else 10e9)
     kw = dict(dz_m=5.0, n_steps=n_steps, save_every=10, rtol=rtol, atol=atol)
     name = f"comb_rk45_{'f64' if rdt == torch.float64 else 'f32'}"
     launches = _build.LAUNCHES[name]
@@ -411,10 +422,12 @@ def test_gnlse_kernel_matches_plain_version(card, rdt, case, n, n_steps):
 
 def test_gnlse_kernel_shared_memory_matches_the_sources(card):
     lib, lib45 = _build.load_library("gnlse_ssfm"), _build.load_library("ssfm_rk45")
+    lib7 = _build.load_library("lle_ssfm")
     for n in (128, 1024, 2048):
         for rdt in (torch.float64, torch.float32):
             elem = rdt.itemsize
             assert lib.gnlse_ssfm_shared_bytes(n, elem, 0) == cg.shared_bytes("gnlse_ssfm", n, rdt)
+            assert lib7.lle_ssfm_shared_bytes(n, elem) == cg.shared_bytes("lle_ssfm", n, rdt)
             assert lib.gnlse_ssfm_shared_bytes(n, elem, 1) == \
                 cg.shared_bytes("gnlse_ssfm", n, rdt, True)
             assert lib45.ssfm_rk45_shared_bytes(n, elem) == cg.shared_bytes("ssfm_rk45", n, rdt)
@@ -484,7 +497,7 @@ def test_solve_gnlse_batch_auto_runs_the_kernels(card):
 
 
 # ---------------------------------------------------------------------------
-# K7 and K8's LLE route: the affine instantiations of csrc/gnlse_ssfm.cu and
+# K7 and K8's LLE route: csrc/lle_ssfm.cu and the affine instantiation of
 # csrc/ssfm_rk45.cu
 # ---------------------------------------------------------------------------
 

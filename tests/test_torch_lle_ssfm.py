@@ -180,12 +180,13 @@ def test_factor_rows_and_affine_scalars_equal_the_jax_ones():
 
 
 def test_shared_memory_sizes_and_width_refusal():
-    """K7 holds K6's Kerr buffers (the state and its partner), K8's LLE
-    route K8's four; widths as the JAX kernels take them."""
+    """K7 holds the state and its partner, as K6 Kerr does, K8's LLE route
+    K8's four buffers; widths as the JAX kernels take them."""
+    assert cg.shared_bytes("lle_ssfm", 256, torch.float64) == 8 * (32 + 4 * 256)
     assert cg.shared_bytes("gnlse_ssfm", 256, torch.float64) == 8 * (32 + 4 * 256)
     assert cg.shared_bytes("ssfm_rk45", 2048, torch.float32) == 4 * (32 + 8 * 2048)
     limit = 232_448
-    for kernel in ("gnlse_ssfm", "ssfm_rk45"):
+    for kernel in ("lle_ssfm", "gnlse_ssfm", "ssfm_rk45"):
         assert cg.shared_memory_problem(kernel, 2048, torch.float64, False, limit) is None
 
 

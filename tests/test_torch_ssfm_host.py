@@ -1,5 +1,6 @@
-"""The nl bodies of csrc/gnlse_ssfm.cu (K6) and csrc/vgnlse_ssfm.cu (K9), and
-both routes of csrc/ssfm_rk45.cu (K8), compiled as host C++ with each block's
+"""The nl bodies of csrc/gnlse_ssfm.cu (K6) and csrc/vgnlse_ssfm.cu (K9), the
+LLE kernel csrc/lle_ssfm.cu (K7) and both routes of csrc/ssfm_rk45.cu (K8),
+compiled as host C++ with each block's
 threads run as host threads (``ssfm_host_rehearsal.py``: ``__syncthreads`` a
 ``std::barrier``), against their plain versions on the CPU.  The CUDA kernels
 themselves run only on the card (``tests/test_torch_kernel.py``); this holds
@@ -18,6 +19,7 @@ from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.models import gnlse as tg
 from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.models import lle as tl
 from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.models import vgnlse as tv
 from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_gnlse as cg
+from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_lle as cl
 from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_ssfm_adaptive as csa
 from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_vgnlse as cv
 from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops.dispersion import DispersionParams
@@ -34,7 +36,8 @@ def libs(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("the host build of the kernels needs g++")
     out = tmp_path_factory.mktemp("host_kernels")
-    return {name: host.build(name, out) for name in ("gnlse_ssfm", "vgnlse_ssfm", "ssfm_rk45")}
+    return {name: host.build(name, out)
+            for name in ("gnlse_ssfm", "lle_ssfm", "vgnlse_ssfm", "ssfm_rk45")}
 
 
 def _pulses(n, B):
@@ -111,6 +114,31 @@ def test_vgnlse_nl_body_with_an_empty_polarization_is_the_gnlse_nl_body(libs):
     assert not bool(kv[1][:, 1].abs().any()) and bool(kv[2].all())
     err = ((kv[1][:, 0] - ks[1]).abs().amax(-1) / ks[1].abs().amax(-1)).max()
     assert float(err) <= 1e-13
+
+
+@pytest.mark.parametrize("rdt", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("rows", [False, True], ids=["shared_phase", "phase_rows"])
+@pytest.mark.parametrize("n", [256, 384, 512, 1024, 2048])
+@pytest.mark.parametrize("n_steps", [12, 14])
+def test_lle_kernel_matches_plain_version(libs, rdt, rows, n, n_steps):
+    """K7 at r = 1 and r = 3 (n = 384), the width's own block: 64 threads a
+    cavity at n = 256, 128 at 512, 256 at 1,024 (4 samples a thread) and
+    2,048 (8 samples a thread).  Soliton-ansatz cavities with a complex
+    pump, one cavity whose |psi|^2 overflows (frozen at its input), 12 and
+    14 steps at save_every=4 (a trailing partial chunk)."""
+    grid = tl.TimeGrid(n_samples=n, t_window_s=20.0)
+    dets = np.linspace(3.5, 4.5, 3)
+    co = tl.make_lle_coeffs(grid, detuning=dets, pump=2.2 * np.exp(0.3j), d2=-1.0)
+    psi0 = np.stack([tl.soliton_ansatz(grid, d, 2.2, -1.0) for d in dets])
+    psi0[1] *= 1e160 if rdt == torch.float64 else 1e25
+    det, F, ph = tl.lane_coeffs(co, 3, n, rdt, "cpu")
+    if rows:
+        ph = (ph[None] * torch.linspace(0.8, 1.2, 3, dtype=rdt)[:, None]).contiguous()
+    y0 = torch.as_tensor(psi0).to(CDT[rdt])
+    k = host.k7(libs["lle_ssfm"], y0, det, F, ph, 0.01, n_steps, 4)
+    p = cl.solve_lle_batch_torch(y0, det, F, ph, dt=0.01, n_steps=n_steps, save_every=4)
+    _check(k, p, 1, rdt)
+    assert torch.equal(k[1][1], y0[1])
 
 
 def _check_rk45(k, p, bad, rdt):
