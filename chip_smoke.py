@@ -51,9 +51,9 @@ Phases (any failure raises, and the script exits non-zero):
     configuration, fp64 at rtol 1e-9/atol 1e-12 and fp32 at 1e-6/1e-10
     (``bench_comb.py:305-306``), with a bad comb: fp64 step counters equal
     on >= 99% of combs, results within 1e-9 there and 10 x rtol on all;
-    fp32 equal ``ok`` and ``P_max`` and ``A_end`` within 1e-3 (its counters
-    mostly differ: the kernel's FFTs and the plain version's dense sums round
-    the float32 error estimate differently),
+    fp32 equal ``ok`` and ``P_max`` and ``A_end`` within 1e-3 (the plain
+    version computes the cubic sum with the kernel's passes and rounding
+    points, so the counters agree there too; their share is logged),
     beside the reading of the plain version with gamma 0.1% off;
 13. the comb main path: ``nwave.solve_comb_batch`` at the full bench size at
     ``df32`` (``device`` left out), ``x32``, rk45 ``x64`` and rk45 ``x32``,
@@ -95,7 +95,10 @@ Phases (any failure raises, and the script exits non-zero):
     integrations through ``torch.fft`` (cuFFT), each route's library call
     (median of 2 for nl); the plain versions once each, in phases 15 and
     16.  The bounds count the least flop, transforms included, the Raman
-    pairs as real-input transforms;
+    pairs as real-input transforms.  Beside K6 Kerr's time: its slotted
+    Strang block (``csrc/strang.cuh``), ptxas's registers and spills, the
+    blocks an SM those and its shared memory leave, and the barriers a
+    Strang step, counted from the source;
 19. LLE kernel K7 (``csrc/lle_ssfm.cu``) vs
     its plain version on the card at the ``bench_lle.py`` configuration
     (4,096 soliton-ansatz cavities of 256 samples, Delta in [3.6, 4.4],
@@ -154,7 +157,8 @@ Phases (any failure raises, and the script exits non-zero):
 26. vector times (median of 5 warm reps) of K9's three bodies, of
     ``solve_vgnlse_batch`` end to end (instance-steps/s) and of the same
     Strang integration through ``torch.fft``, each body's library call
-    (median of 2 for coherent and nl).
+    (median of 2 for coherent and nl); beside the rotation and coherent
+    bodies, their block as for K6 Kerr in phase 18.
 
 Each main path is driven with the launch counts cleared just before it and
 read just after; the SSFM sources count each route apart (K6 Kerr and nl,
@@ -163,9 +167,11 @@ The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.
 """
 
+import ctypes
 import dataclasses
 import functools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -291,6 +297,51 @@ def ssfm_attempt_flop(n):
     (11 a sample), five factor products (6), three Kerr rotations (13), the
     three norms (12) and the candidate with its norm (9)."""
     return 4 * fft_flop(n) + 5 * fft_flop(n, True), (11 + 30 + 39 + 12 + 9) * n
+
+
+def strang_layout(_build, source, n, P, rdt, op=None):
+    """The launched block of a slotted Strang kernel (``csrc/strang.cuh``: K6
+    Kerr, K9 rotation and coherent) at width n with P sequences, as one
+    line: its threads, samples a thread and passes a transform, read from
+    the library (``<source>_strang_block``, the function its launcher takes
+    them from); ptxas's registers and spills of that instantiation
+    (``gnlse_ssfm_kernel<T, S>``, or ``vgnlse_ssfm_kernel<T, op<T>, S>``),
+    found by its mangled name; the blocks an SM those registers and the
+    block's shared memory leave (H100: 65,536 registers, 233,472 bytes of
+    shared memory with 1,024 reserved a block, 2,048 threads, 32 blocks);
+    and the barriers a Strang step, one a pass of each transform."""
+    fn = getattr(_build.load_library(source), f"{source}_strang_block")
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    slots, passes = ctypes.c_int(), ctypes.c_int()
+    nt = fn(n, ctypes.byref(slots), ctypes.byref(passes))
+    S, passes = slots.value, passes.value
+    t = "d" if rdt == torch.float64 else "f"
+    if op is None:
+        entry = (f"{len(source) + 7}{source}_kernelI{t}Li{S}EEEv",)
+    else:   # the body is a class of the same anonymous namespace (NS_)
+        entry = (f"{len(source) + 7}{source}_kernelI{t}NS_{len(op)}{op}I{t}EELi{S}EEEv",)
+    regs = spill = None
+    lines = _build.build_log().splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry" in line and all(e in line for e in entry):
+            for info in lines[i + 1:i + 6]:
+                if "Compiling entry" in info:
+                    break
+                m = re.search(r"Used (\d+) registers", info)
+                regs = int(m.group(1)) if m else regs
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", info)
+                spill = (int(m.group(1)), int(m.group(2))) if m else spill
+            break
+    if regs is None:
+        raise AssertionError(f"no ptxas entry of the launched instance {entry} in the build log")
+    smem = torch.finfo(rdt).bits // 8 * (32 + 4 * P * n)
+    blocks = min(233_472 // (smem + 1024), 2048 // nt, 32,
+                 65_536 // (-(-regs // 8) * 8 * nt))
+    return (f"block: {S} samples a thread{' of each polarization' if P == 2 else ''}, {nt} "
+            f"threads, {regs} registers, spill stores/loads {spill} bytes, {blocks} blocks an "
+            f"SM (from the registers and {smem} bytes of shared memory), {2 * passes} barriers "
+            f"a Strang step ({passes} passes a transform)")
 
 
 def ops_ms(flop, rdt):
@@ -960,6 +1011,9 @@ def gnlse_phases(psa, _build, cg, csa, dev, card, t_start, rec):
             f"(cuFFT, the library call{f', median of {NL_LIB_REPS}' if nl else ''}) "
             f"{library_ms[name]:.3f} ms; plain version on the card (one run, phase 15) "
             f"{plain_ms[name]:.1f} ms")
+        if not nl:
+            rdt = torch.float64 if name.endswith("f64") else torch.float32
+            log("    " + strang_layout(_build, "gnlse_ssfm", GN_T, 1, rdt))
     for name in ("ssfm_rk45_f64", "ssfm_rk45_f32"):
         mean, mx = steps[name + "_timed"]
         log(f"  {name} {GN_B45} envelopes: {ms[name]:.3f} ms; bound {bound_ms[name]:.3f} ms "
@@ -1502,7 +1556,9 @@ def vgnlse_phases(psa, _build, cv, cg, dev, card, t_start, rec):
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 23 done")
 
     # --- 24. one empty polarization: K9 is K6 ---------------------------------------
-    # the rotation against Kerr shares dft and the angle: bit for bit; the nl
+    # the rotation against Kerr shares the slotted Strang body (each
+    # polarization with the operations of K6's one) and the angle: bit for
+    # bit; the nl
     # bodies share wide_fft, but K9 forms W_p = (1 - f_R) K_p + f_R R A_p
     # where K6 forms A ((1 - f_R) P + f_R R): equal to rounding
     for nl in (False, True):
@@ -1667,6 +1723,9 @@ def vgnlse_phases(psa, _build, cv, cg, dev, card, t_start, rec):
                 + ("" if body == "coherent" else
                    f"; K6 {'nl' if body == 'nl' else 'kerr'} on the same samples (2,048 "
                    f"envelopes, phase 18) {ms[k6]:.3f} ms"))
+            if body != "nl":
+                log("    " + strang_layout(_build, "vgnlse_ssfm", GN_T, 2, rdt,
+                                           "Rotation" if body == "rotation" else "Coherent"))
     for label, sec in vg_e2e.items():
         log(f"  solve_vgnlse_batch end to end, {label}, {VG_B} instances: {sec * 1e3:.3f} ms = "
             f"{VG_B * GN_STEPS / sec:.1f} instance-steps/s")
@@ -1708,6 +1767,9 @@ def main():
         _build.load_library(name)
     log(f"build: {', '.join(p.name for p in libs.values())} ready in "
         f"{time.perf_counter() - t0:.1f} s (nvcc {_build.find_nvcc()})")
+    log("  nvcc seconds a source, all started together: " + ", ".join(
+        f"{name} {sec:.1f}" for name, sec in sorted(_build.build_seconds().items(),
+                                                   key=lambda kv: -kv[1])))
     for line in _build.build_log().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")

@@ -24,11 +24,11 @@
 // lines a thread (LPT 4 at L = 2,048, 8 at 4,096, N <= 2,048).
 //
 // What it computes (the contract of ops/integrators.integrate_reduce over a
-// (B, N) state with models/nwave.make_rhs_nwave('dft'), and of the TPU
-// kernel it replaces; ops/cuda_comb.solve_comb_batch_torch is the plain
-// version):
-//   - the RHS of csrc/comb_common.cuh (the FFT coupling; the same sum as
-//     the plain version's dense DFTs, rounded differently);
+// (B, N) state with the comb RHS, and of the TPU kernel it replaces;
+// ops/cuda_comb.solve_comb_batch_torch is the plain version, whose cubic sum
+// ops/cuda_comb.kernel_polarization computes with this kernel's passes and
+// rounding points):
+//   - the RHS of csrc/comb_common.cuh (the FFT coupling);
 //   - RK4: y + dz/6 * (((k1 + 2 k2) + 2 k3) + k4);
 //   - AB4/ABM4: 3 RK4 startup steps that record k1 = f(y_n), then
 //     y + dz/24*(55 f0 - 59 f1 + 37 f2 - 9 f3) and, for ABM4, the corrector

@@ -55,10 +55,15 @@
 // y_last (B, 2N), ok (B,) uint8, n_accepted, n_rejected (B,) int32.
 //
 // Rounding: compiled with -fmad=false (ops/_build.py), so that every product
-// and sum outside the transforms rounds as the plain version's torch
-// operations; the FFTs round otherwise than the plain version's dense
-// torch.matmul sums, so the two agree to rounding and take the same steps on
-// nearly every fp64 comb.
+// and sum rounds as the plain version's torch operations, whose cubic sum
+// (ops/cuda_comb.kernel_polarization) has this kernel's passes and rounding
+// points and whose error norm takes its mean by a true division, as this
+// one does (ops/adaptive.py).  That matters most in float32, where the
+// error estimate is mostly rounding noise and a blowing-up comb fails at
+// dt_min on the last bit of each rounding: the two take the same steps on
+// every comb (tests/test_torch_kernel.py on the card, and the host build in
+// tests/test_torch_comb_host.py; chip_comb_rk45_probe.py checks the step
+// factor's pow and the mean against torch's).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -fmad=false (ops/_build.py); bound with ctypes

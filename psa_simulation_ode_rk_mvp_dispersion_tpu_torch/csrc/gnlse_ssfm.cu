@@ -5,9 +5,9 @@
 // Replaces the JAX package's TPU kernel
 //   ops/pallas_gnlse.py::_kernel_body   (K6, the fused GNLSE SSFM kernel)
 // with two templates, T in {double, float}: float64 serves x64/df32, float32
-// serves x32; gnlse_ssfm_kernel<T> the Kerr rotation, gnlse_nl_kernel<T, S>
-// the nonlinear terms.  Its affine build (K7, the LLE cavity) is
-// csrc/lle_ssfm.cu.
+// serves x32; gnlse_ssfm_kernel<T, S> the Kerr rotation,
+// gnlse_nl_kernel<T, S> the nonlinear terms.  Its affine build (K7, the LLE
+// cavity) is csrc/lle_ssfm.cu, on the same Strang body as the Kerr route.
 //
 // What it computes (the contract of models/gnlse.gnlse_fixed with method
 // 'strang', which ops/cuda_gnlse.solve_gnlse_batch_torch runs, and of
@@ -40,11 +40,16 @@
 // chunk) to device memory.  The linear factors, the twiddles, conj(H_R) and
 // omega are read from device memory through the cache, so that the shared
 // memory holds only state-sized buffers.
-//   - Kerr (gnlse_ssfm_kernel): csrc/ssfm_common.cuh's radix-2 Stockham
-//     passes (dft); 2 buffers, y and its transform partner.  It keeps them
-//     so that K9's rotation body (csrc/vgnlse_ssfm.cu), which shares dft and
-//     the rotation, gives its outputs bit for bit on an empty polarization;
-//     the two move onto csrc/lle_ssfm.cu's slotted body together.
+//   - Kerr (gnlse_ssfm_kernel<T, S>): csrc/strang.cuh's slotted
+//     Strang body, as K7 (csrc/lle_ssfm.cu) runs it without the affine
+//     write: radix-4 slot_fft passes, the factor product in the forward
+//     transform's last pass, the 1/n and the next substep's Kerr rotation in
+//     the inverse one's, each thread's factors in registers, one fused
+//     reduction at a chunk's end; 10 barriers a step at n = 1,024 (22 with
+//     radix-2 passes and separate factor and Kerr passes).  2 buffers, y and
+//     its transform partner.  K9's rotation body (csrc/vgnlse_ssfm.cu) runs
+//     the same body on two polarizations with the same operations for each,
+//     so that it gives K6's outputs bit for bit on an empty polarization.
 //   - nl (gnlse_nl_kernel): 3 buffers, y and the transform pair; the RK4
 //     sums k1 + 2(k2 + k3) and the stage derivative stay in registers of
 //     the thread that owns the samples (sample j = tid + i nt, the same in
@@ -75,46 +80,24 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "ssfm_common.cuh"
+#include "strang.cuh"
 
 namespace {
 
 using ssfm::Block;
 using ssfm::Cx;
-using ssfm::dft;
 
 constexpr int kKerrBuffers = 2;
 constexpr int kNlBuffers = 3;
 constexpr int kReduceSlots = 32;
 
-// One envelope's integration: its buffers, factors and coefficients.
+// The Kerr route's pointwise operator: no end write, and the NL the exact
+// rotation y exp(i (g |y|^2) h).
 template <typename T>
-struct Stepper {
-    Block<T> c;
-    Cx<T>*y, *x;  // the state and its transform partner
-    const Cx<T>*lh, *lf;
+struct Kerr {
     T g, h;
-
-    // y <- IDFT(L * DFT(y)).
-    __device__ void lin(const Cx<T>* L) {
-        Cx<T>* f = dft<T, false>(c, y, x);
-        Cx<T>* o = f == y ? x : y;
-        ssfm::mul_factor(c, f, L);
-        Cx<T>* r = dft<T, true>(c, f, o);
-        x = r == f ? o : f;
-        y = r;
-    }
-
-    // k fused symmetric steps: Lh, (NL, Lf)^(k-1), NL, Lh.
-    __device__ void steps(int kk) {
-        lin(lh);
-        for (int i = 1; i < kk; ++i) {
-            ssfm::kerr(c, y, g, h);
-            lin(lf);
-        }
-        ssfm::kerr(c, y, g, h);
-        lin(lh);
-    }
+    __device__ __forceinline__ Cx<T> end(bool, const Cx<T>& x) const { return x; }
+    __device__ __forceinline__ void step(Cx<T> (&a)[1]) const { a[0] = ssfm::kerr_of(a[0], g, h); }
 };
 
 // One envelope's nl integration: y in shared memory, the RK4 sums in
@@ -282,8 +265,9 @@ __device__ Block<T> block_of(const Cx<double>* tw, unsigned char* smem, int n) {
     return c;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(ssfm::kMaxThreads)
+template <typename T, int S>
+__global__ void __launch_bounds__(ssfm::Bounds<S, false>::kThreads,
+                                  ssfm::Bounds<S, false>::kBlocks)
 gnlse_ssfm_kernel(const Cx<T>* __restrict__ y0, const Cx<T>* __restrict__ lh,
                   const Cx<T>* __restrict__ lf, int fac_stride, const T* __restrict__ gamma,
                   const Cx<double>* __restrict__ tw, T* __restrict__ pk_out,
@@ -291,16 +275,11 @@ gnlse_ssfm_kernel(const Cx<T>* __restrict__ y0, const Cx<T>* __restrict__ lh,
                   int save_every, double dz) {
     extern __shared__ __align__(16) unsigned char smem[];
     const int b = blockIdx.x;
-    Stepper<T> st;
-    st.c = block_of<T>(tw, smem, n);
-    Cx<T>* buf = reinterpret_cast<Cx<T>*>(smem + kReduceSlots * sizeof(T));
-    st.y = buf;
-    st.x = buf + n;
-    st.lh = lh + static_cast<size_t>(b) * fac_stride;
-    st.lf = lf + static_cast<size_t>(b) * fac_stride;
-    st.g = gamma[b];
-    st.h = T(dz);
-    integrate<T>(st, y0, pk_out, y_last, ok_out, n_steps, save_every);
+    ssfm::Strang<T, S, 1, Kerr<T>> st;
+    st.setup(tw, smem, n, lh + static_cast<size_t>(b) * fac_stride,
+             lf + static_cast<size_t>(b) * fac_stride);
+    st.op = Kerr<T>{gamma[b], T(dz)};
+    st.run(y0, pk_out, y_last, ok_out, n_steps, save_every);
 }
 
 // Blocks an SM the nl kernel asks registers for: two (at most 128 registers
@@ -351,12 +330,24 @@ int nl_slots(int n) {
 }
 
 template <typename K, typename... Args>
-int launch_kernel(K kernel, int B, int n, size_t smem, void* stream, Args... args) {
+int launch_kernel(K kernel, int B, int nt, size_t smem, void* stream, Args... args) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<B, ssfm::threads_for(n), smem, static_cast<cudaStream_t>(stream)>>>(args...);
+    kernel<<<B, nt, smem, static_cast<cudaStream_t>(stream)>>>(args...);
     return static_cast<int>(cudaGetLastError());
+}
+
+// The Kerr route at the width's block (ssfm::strang_block), with the wide
+// launch bounds at every width: one instantiation a slot count (below
+// n = 1,024 the block just has fewer threads, as K9's rotation body's).
+template <typename T, typename... Args>
+int launch_kerr(int B, int n, size_t smem, void* stream, Args... args) {
+    int S, passes;
+    const int nt = ssfm::strang_block(n, &S, &passes);
+    if (nt == 0) return static_cast<int>(cudaErrorInvalidValue);
+    if (S == 8) return launch_kernel(gnlse_ssfm_kernel<T, 8>, B, nt, smem, stream, args...);
+    return launch_kernel(gnlse_ssfm_kernel<T, 4>, B, nt, smem, stream, args...);
 }
 
 template <typename T>
@@ -374,21 +365,22 @@ int launch(const void* y0, const void* lh, const void* lf, int fac_stride, const
     auto* yl_ = static_cast<Cx<T>*>(y_last);
     auto* ok_ = static_cast<uint8_t*>(ok);
     if (!use_nl)
-        return launch_kernel(gnlse_ssfm_kernel<T>, B, n, smem, stream, y0_, lh_, lf_,
-                             fac_stride, g_, tw_, pk_, yl_, ok_, n, n_steps, save_every, dz);
+        return launch_kerr<T>(B, n, smem, stream, y0_, lh_, lf_, fac_stride, g_, tw_, pk_, yl_,
+                              ok_, n, n_steps, save_every, dz);
+    const int nt = ssfm::threads_for(n);
     const auto* hrc_ = static_cast<const Cx<T>*>(hrc);
     const auto* om_ = static_cast<const T*>(omega);
     switch (nl_slots(n)) {
         case 2:
-            return launch_kernel(gnlse_nl_kernel<T, 2>, B, n, smem, stream, y0_, lh_, lf_,
+            return launch_kernel(gnlse_nl_kernel<T, 2>, B, nt, smem, stream, y0_, lh_, lf_,
                                  fac_stride, g_, tw_, hrc_, om_, pk_, yl_, ok_, n, n_steps,
                                  save_every, dz, f_r, inv_w0);
         case 4:
-            return launch_kernel(gnlse_nl_kernel<T, 4>, B, n, smem, stream, y0_, lh_, lf_,
+            return launch_kernel(gnlse_nl_kernel<T, 4>, B, nt, smem, stream, y0_, lh_, lf_,
                                  fac_stride, g_, tw_, hrc_, om_, pk_, yl_, ok_, n, n_steps,
                                  save_every, dz, f_r, inv_w0);
         default:
-            return launch_kernel(gnlse_nl_kernel<T, 8>, B, n, smem, stream, y0_, lh_, lf_,
+            return launch_kernel(gnlse_nl_kernel<T, 8>, B, nt, smem, stream, y0_, lh_, lf_,
                                  fac_stride, g_, tw_, hrc_, om_, pk_, yl_, ok_, n, n_steps,
                                  save_every, dz, f_r, inv_w0);
     }
@@ -399,6 +391,12 @@ int launch(const void* y0, const void* lh, const void* lf, int fac_stride, const
 // Bytes of dynamic shared memory one block takes.
 extern "C" int gnlse_ssfm_shared_bytes(int n, int elem, int use_nl) {
     return static_cast<int>(shared_bytes(n, static_cast<size_t>(elem), use_nl));
+}
+
+// The Kerr route's block at width n: its threads, samples a thread and
+// passes a transform (ssfm::strang_block).
+extern "C" int gnlse_ssfm_strang_block(int n, int* slots, int* passes) {
+    return ssfm::strang_block(n, slots, passes);
 }
 
 #define GNLSE_SSFM_LAUNCHER(NAME, T)                                                             \

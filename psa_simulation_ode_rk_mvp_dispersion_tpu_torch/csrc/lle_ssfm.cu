@@ -33,27 +33,17 @@
 // What bounds it: the latency of the transform passes, not their arithmetic
 // (at the LLE width, n = 256, a Strang step is one transform pair of about
 // 10 n log2 n flop and O(n) pointwise work, one cavity a block of 2 warps).
-// So the design cuts the passes and barriers, as K8's LLE route does
-// (csrc/ssfm_rk45.cu):
-//   - the transforms are ssfm_common.cuh's slot_fft: radix-4 Stockham passes
-//     (one radix-2 pass first when log2 m is odd, the r-odd tail), a
-//     float64 table and every butterfly in double, one barrier a pass; at
-//     n = 256 that is 4 passes a transform, not 8;
-//   - the pointwise work is folded into the last pass of each transform,
-//     whose outputs the same thread owns in every transform: the factor
-//     product Lh F or Lf F in the forward transform's, the 1/n, the affine
-//     write and the next substep's Kerr rotation in the inverse one's.  So
-//     each thread keeps its samples' Lh and Lf in registers, loaded once a
-//     cavity, and the state never sits in shared memory between pointwise
-//     passes: a Strang step at n = 256 is 8 barriers (about 19 with the
-//     radix-2 passes and the separate factor, affine and Kerr passes);
-//   - the chunk's last inverse transform forms each thread's finite flag and
-//     peak, and one fused reduction (a shuffle tree in each warp, the warps'
-//     maxima in warp order, the flag ANDed at its one barrier) replaces the
-//     block-wide finite check and peak.
-// The state and its transform partner are the only shared buffers: at
-// n = 2,048 in fp64 a block takes 65,792 bytes.  The twiddles and the
-// factors are read from device memory through the cache, once.
+// So it runs csrc/strang.cuh's slotted Strang body, as K6's Kerr route and
+// K9's rotation and coherent bodies do, with the affine write as the linear
+// substep's last write and the Kerr rotation (gamma = 1) as its NL: the
+// radix-4 slot_fft passes, the factor product in the forward transform's
+// last pass, the 1/n, the affine write and the next substep's Kerr rotation
+// in the inverse one's, the factors in registers, and one fused reduction at
+// the chunk's end.  At n = 256 a Strang step is 8 barriers (about 19 with
+// radix-2 passes and separate factor, affine and Kerr passes).  The state
+// and its transform partner are the only shared buffers: at n = 2,048 in
+// fp64 a block takes 65,792 bytes.  The twiddles and the factors are read
+// from device memory through the cache, once.
 //
 // Global layout (row-major, one row per cavity, complex as (re, im)):
 //   y0 (B, n); lh, lf (n,) with fac_stride 0 or (B, n) with fac_stride n;
@@ -67,84 +57,24 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "ssfm_common.cuh"
+#include "strang.cuh"
 
 namespace {
 
-using ssfm::Block;
 using ssfm::Cx;
 
-constexpr int kBuffers = 2;
-constexpr int kReduceSlots = 32;
-
-// One cavity's integration.  Slot s of a thread is sample
-// ssfm::slot_sample(f, s) in every transform's last pass.
-template <typename T, int S>
-struct Cavity {
-    Block<T> c;      // the block's view: the checks of y0, the reduction slots
-    ssfm::Plan f;    // the n-point transform
-    Cx<T>*y, *x;     // the state and its transform partner
+// The LLE's pointwise operator: the affine write y dp + dF ends each linear
+// substep (the scalars of dz with Lf, of dz/2 with Lh), and the NL is the
+// Kerr rotation at gamma = 1.
+template <typename T>
+struct Affine {
     T h;
     Cx<T> dp_h, dF_h, dp_f, dF_f;
-    Cx<T> lh[S], lf[S];  // the factors of the thread's samples
-
-    // One transform of in through the pair (in is one of them); returns the
-    // buffer the last pass's Post wrote.  No barrier after the last pass.
-    template <bool INV, class Post>
-    __device__ __forceinline__ Cx<T>* xf(const Cx<T>* in, const Post& post) {
-        Cx<T>* s0 = in == y ? x : y;
-        return ssfm::slot_fft<T, INV, S, false>(f, in, s0, s0 == y ? x : y, post);
+    __device__ __forceinline__ Cx<T> end(bool full, const Cx<T>& x) const {
+        return ssfm::affine_of(x, full ? dp_f : dp_h, full ? dF_f : dF_h);
     }
-
-    // One linear substep, y <- IDFT(L DFT(y)) dp + dF with the factors of dz
-    // (full) or dz/2, then, with kerr, the next substep's Kerr rotation.
-    // Without kerr (a chunk's last substep) it returns whether the new state
-    // is finite, in every thread, and leaves its peak in pk.
-    __device__ __forceinline__ bool lin(bool full, bool kerr, T& pk) {
-        const Cx<T> dp = full ? dp_f : dp_h, dF = full ? dF_f : dF_h;
-        Cx<T>* u = xf<false>(y, [&](int s, int k, const Cx<double>& v, Cx<T>* o) {
-            const Cx<double> p = ssfm::times(full ? lf[s] : lh[s], v);
-            o[k] = Cx<T>{T(p.re), T(p.im)};
-        });
-        __syncthreads();
-        int fin = 1;
-        T peak = T(0);
-        u = xf<true>(u, [&](int, int k, const Cx<double>& v, Cx<T>* o) {
-            Cx<T> a = ssfm::affine_of(Cx<T>{T(v.re * c.inv_n), T(v.im * c.inv_n)}, dp, dF);
-            if (kerr) {
-                a = ssfm::kerr_of(a, T(1), h);
-            } else {
-                fin &= (isfinite(a.re) && isfinite(a.im)) ? 1 : 0;
-                peak = ssfm::nan_max(peak, a.re * a.re + a.im * a.im);
-            }
-            o[k] = a;
-        });
-        if (u != y) {
-            x = y;
-            y = u;
-        }
-        if (kerr) {
-            __syncthreads();
-            return true;
-        }
-        // the fused reduction: a shuffle tree in each warp, the warps'
-        // maxima in warp order, one barrier (which also ANDs the flag)
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1)
-            peak = ssfm::nan_max(peak, __shfl_down_sync(0xffffffffu, peak, o));
-        if ((c.tid & 31) == 0) c.red[c.tid >> 5] = peak;
-        const bool finite = __syncthreads_and(fin) != 0;
-        pk = c.red[0];
-        for (int w = 1; w < (c.nt >> 5); ++w) pk = ssfm::nan_max(pk, c.red[w]);
-        return finite;
-    }
-
-    // k fused symmetric steps: Lh, (Kerr, Lf)^(k-1), Kerr, Lh; whether the
-    // state is finite, and its peak in pk.
-    __device__ __forceinline__ bool steps(int kk, T& pk) {
-        lin(false, true, pk);
-        for (int i = 1; i < kk; ++i) lin(true, true, pk);
-        return lin(false, false, pk);
+    __device__ __forceinline__ void step(Cx<T> (&a)[1]) const {
+        a[0] = ssfm::kerr_of(a[0], T(1), h);
     }
 };
 
@@ -158,74 +88,16 @@ lle_ssfm_kernel(const Cx<T>* __restrict__ y0, const Cx<T>* __restrict__ lh,
                 int save_every, double dz) {
     extern __shared__ __align__(16) unsigned char smem[];
     const int b = blockIdx.x;
-    Cavity<T, S> st;
-    Block<T>& c = st.c;
-    c.tw = tw;
-    c.red = reinterpret_cast<T*>(smem);
-    c.n = n;
-    ssfm::split(n, &c.m, &c.r);
-    c.tid = threadIdx.x;
-    c.nt = blockDim.x;
-    c.inv_n = 1.0 / n;
-    st.f = ssfm::plan(tw, n, 1, c.tid, c.nt);
-    Cx<T>* buf = reinterpret_cast<Cx<T>*>(smem + kReduceSlots * sizeof(T));
-    st.y = buf;
-    st.x = buf + n;
-    st.h = T(dz);
+    ssfm::Strang<T, S, 1, Affine<T>> st;
+    st.setup(tw, smem, n, lh + static_cast<size_t>(b) * fac_stride,
+             lf + static_cast<size_t>(b) * fac_stride);
     const Cx<T>* a = aff + 4 * static_cast<size_t>(b);
-    st.dp_h = a[0];
-    st.dF_h = a[1];
-    st.dp_f = a[2];
-    st.dF_f = a[3];
-    const Cx<T>* Lh = lh + static_cast<size_t>(b) * fac_stride;
-    const Cx<T>* Lf = lf + static_cast<size_t>(b) * fac_stride;
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-        const bool in = ssfm::slot_valid<S>(st.f, s);
-        const int k = ssfm::slot_sample(st.f, s);
-        st.lh[s] = in ? Lh[k] : Cx<T>{T(0), T(0)};
-        st.lf[s] = in ? Lf[k] : Cx<T>{T(0), T(0)};
-    }
-
-    Cx<T>* out = y_last + static_cast<size_t>(b) * n;
-    for (int j = c.tid; j < n; j += c.nt) {
-        const Cx<T> v = y0[static_cast<size_t>(b) * n + j];
-        st.y[j] = v;
-        out[j] = v;
-    }
-    bool ok = ssfm::block_finite(c, st.y);
-    T pk = ssfm::block_peak(c, st.y);
-    const int n_chunks = n_steps / save_every, rem = n_steps - n_chunks * save_every;
-    if (ok) {
-        for (int i = 0; i < n_chunks; ++i) {
-            T p;
-            if (!st.steps(save_every, p)) {
-                ok = false;  // y_last keeps the last good state
-                break;
-            }
-            // the thread's own samples of the new state
-#pragma unroll
-            for (int s = 0; s < S; ++s) {
-                if (ssfm::slot_valid<S>(st.f, s)) {
-                    const int k = ssfm::slot_sample(st.f, s);
-                    out[k] = st.y[k];
-                }
-            }
-            pk = ssfm::nan_max(pk, p);
-        }
-        if (ok && rem > 0) {
-            T p;
-            ok = st.steps(rem, p);
-        }
-    }
-    if (c.tid == 0) {
-        pk_out[b] = pk;
-        ok_out[b] = ok ? 1 : 0;
-    }
+    st.op = Affine<T>{T(dz), a[0], a[1], a[2], a[3]};
+    st.run(y0, pk_out, y_last, ok_out, n_steps, save_every);
 }
 
 size_t shared_bytes(int n, size_t elem) {
-    return elem * (kReduceSlots + 2 * static_cast<size_t>(kBuffers) * n);
+    return ssfm::strang_shared_bytes(n, 1, elem);
 }
 
 template <typename T, int S, bool Narrow>

@@ -1,8 +1,8 @@
 // Building blocks shared by the split-step Fourier (SSFM) kernels
 // csrc/gnlse_ssfm.cu (K6), csrc/lle_ssfm.cu (K7), csrc/ssfm_rk45.cu (K8) and
-// csrc/vgnlse_ssfm.cu (K9): one thread block holds one envelope of n complex
-// samples (K9: its two polarizations) in shared memory and transforms it with
-// its own FFT.
+// csrc/vgnlse_ssfm.cu (K9), and by the comb coupling csrc/comb_common.cuh
+// (K4, K5): one thread block holds one envelope of n complex samples (K9:
+// its two polarizations) in shared memory and transforms it with its own FFT.
 //
 // The transform.  n = m * r with m a power of two (>= 2) and r odd (every n
 // that is a multiple of 128 up to 2048 is such a product, r <= 15).  With
@@ -10,22 +10,22 @@
 //
 //   X[c m + d] = sum_g W_n^{g k} Y_g[d],   Y_g[d] = sum_q x[q r + g] W_m^{q d},
 //
-// so the r decimated sequences go through a radix-2 Stockham FFT of length m
-// (log2 m passes, each out of place between two shared buffers; the first
-// pass reads x in natural order, the others the group-major layout g*m + d),
-// and, for r > 1, one last pass forms each output as an r-term sum over the
-// groups with the twiddle W_n^{(g k) mod n}.  The output is in natural
-// (fft) order.  Every twiddle is an entry of one float64 table tw[k] = (cos,
-// sin)(2 pi k / n), built on the host (ops/cuda_gnlse.twiddles); the forward
-// transform uses (cos, -sin), the inverse (cos, sin), and the inverse's last
-// pass multiplies by 1/n, as torch.fft.ifft normalizes.  Each butterfly and
-// each r-term sum is computed in double and rounded once to the kernel's
-// type as it is stored: a float32 table would perturb every transform pair
-// by the same fixed rounding, and over a thousand steps that error grows
-// linearly.  No library transform is called.
-//
-// Every pass ends at a __syncthreads(); the functions take and return
-// pointers that are the same in every thread of the block.
+// so the r decimated sequences go through a Stockham FFT of length m in
+// radix-4 passes (one radix-2 pass first when log2 m is odd), each out of
+// place between two shared buffers (the first pass reads x in natural order,
+// the others the group-major layout g*m + d), and, for r > 1, one last pass
+// forms each output as an r-term sum over the groups with the twiddle
+// W_n^{(g k) mod n}.  The output is in natural (fft) order.  Every twiddle is
+// an entry of one float64 table tw[k] = (cos, sin)(2 pi k / n), built on the
+// host (ops/cuda_gnlse.twiddles); the forward transform uses (cos, -sin),
+// the inverse (cos, sin).  Each butterfly and each r-term sum is computed in
+// double and rounded once to the kernel's type as it is stored: a float32
+// table would perturb every transform pair by the same fixed rounding, and
+// over a thousand steps that error grows linearly.  No library transform is
+// called.  wide_fft stores the last pass's outputs; slot_fft hands each to
+// the thread that owns it (see there); both end every pass but the last at
+// a __syncthreads(), and take and return pointers that are the same in every
+// thread of the block.
 
 #pragma once
 
@@ -73,103 +73,12 @@ inline int threads_for(int n) {
     return half < kMaxThreads ? half : kMaxThreads;
 }
 
-// The DFT (INV false) or the inverse DFT scaled by 1/n (INV true) of P
-// sequences of n samples held one after the other, a[s*n : (s+1)*n] (P = 2:
-// the two polarizations of csrc/vgnlse_ssfm.cu, transformed in the same
-// passes, so that the pair shares each pass's barrier), natural order in,
-// natural order out.  a is overwritten and b is scratch; the result is in a
-// or b, whichever the function returns.  For P = 1 the sequence index is the
-// constant 0.
-template <typename T, bool INV, int P = 1>
-__device__ Cx<T>* dft(const Block<T>& c, Cx<T>* a, Cx<T>* b) {
-    const int n = c.n, m = c.m, r = c.r, hm = m >> 1, half = n >> 1;
-    Cx<T>* src = a;
-    Cx<T>* dst = b;
-    __syncthreads();  // a complete
-    for (int ns = 1; ns < m; ns <<= 1) {
-        const bool first = ns == 1;
-        const bool scale = INV && r == 1 && (ns << 1) == m;
-        const int step = (m / (2 * ns)) * r;  // W_{2 ns}^j = W_n^{j step}
-        for (int u = c.tid; u < P * half; u += c.nt) {
-            const int sq = P == 1 ? 0 : u / half;  // the sequence
-            const int t = u - sq * half;
-            const Cx<T>* in = src + sq * n;
-            Cx<T>* out = dst + sq * n;
-            const int g = t / hm, j = t - g * hm, jl = j & (ns - 1);
-            const Cx<T> v0 = first ? in[j * r + g] : in[g * m + j];
-            const Cx<T> v1 = first ? in[(j + hm) * r + g] : in[g * m + j + hm];
-            const Cx<double> w = ldg(&c.tw[jl * step]);
-            const double wi = INV ? w.im : -w.im;
-            const double tr = double(v1.re) * w.re - double(v1.im) * wi;
-            const double ti = double(v1.re) * wi + double(v1.im) * w.re;
-            const int o = g * m + ((j - jl) << 1) + jl;
-            const double sc = scale ? c.inv_n : 1.0;
-            out[o] = Cx<T>{T((v0.re + tr) * sc), T((v0.im + ti) * sc)};
-            out[o + ns] = Cx<T>{T((v0.re - tr) * sc), T((v0.im - ti) * sc)};
-        }
-        Cx<T>* s = src;
-        src = dst;
-        dst = s;
-        __syncthreads();
-    }
-    if (r > 1) {
-        for (int u = c.tid; u < P * n; u += c.nt) {
-            const int sq = P == 1 ? 0 : u / n;
-            const int k = u - sq * n;
-            const Cx<T>* in = src + sq * n;
-            const int d = k & (m - 1);
-            double ar = 0.0, ai = 0.0;
-            int idx = 0;  // (g k) mod n
-            for (int g = 0; g < r; ++g) {
-                const Cx<T> y = in[g * m + d];
-                const Cx<double> w = ldg(&c.tw[idx]);
-                const double wi = INV ? w.im : -w.im;
-                ar += double(y.re) * w.re - double(y.im) * wi;
-                ai += double(y.re) * wi + double(y.im) * w.re;
-                idx += k;
-                if (idx >= n) idx -= n;
-            }
-            const double sc = INV ? c.inv_n : 1.0;
-            dst[u] = Cx<T>{T(ar * sc), T(ai * sc)};
-        }
-        Cx<T>* s = src;
-        src = dst;
-        dst = s;
-        __syncthreads();
-    }
-    return src;
-}
-
-// a[k] *= f[k] for the block (a linear factor in the frequency domain), the
-// product in the plain version's order: (fr ar - fi ai, fr ai + fi ar).
-template <typename T>
-__device__ void mul_factor(const Block<T>& c, Cx<T>* a, const Cx<T>* f) {
-    for (int k = c.tid; k < c.n; k += c.nt) {
-        const Cx<T> x = a[k], w = f[k];
-        a[k] = Cx<T>{w.re * x.re - w.im * x.im, w.re * x.im + w.im * x.re};
-    }
-}
-
-// Exact Kerr rotation a[k] *= exp(i (g |a_k|^2) h), the angle (g P) h as the
-// plain version forms it; sincos is the accurate one (no fast math).
-template <typename T>
-__device__ void kerr(const Block<T>& c, Cx<T>* a, T g, T h) {
-    __syncthreads();
-    for (int k = c.tid; k < c.n; k += c.nt) {
-        const Cx<T> x = a[k];
-        const T ang = (g * (x.re * x.re + x.im * x.im)) * h;
-        T s, co;
-        sin_cos(ang, &s, &co);
-        a[k] = Cx<T>{x.re * co - x.im * s, x.re * s + x.im * co};
-    }
-}
-
 // The LLE's affine write on one sample, x dp + dF (detuning rotation and
 // drive offset), in the plain version's order, the complex product and then
-// the sum; and the Kerr rotation of one sample, as kerr above forms it.  The
-// slotted transforms' last passes apply them (csrc/lle_ssfm.cu,
-// csrc/ssfm_rk45.cu).  The block loop kerr keeps its own expression: K6 Kerr
-// is held to give the same outputs whatever the slotted kernels do.
+// the sum; and the exact Kerr rotation of one sample, x exp(i (g |x|^2) h),
+// the angle (g P) h as the plain version forms it and sincos the accurate
+// one (no fast math).  The slotted transforms' last passes apply them
+// (csrc/strang.cuh, csrc/ssfm_rk45.cu).
 template <typename T>
 __device__ __forceinline__ Cx<T> affine_of(const Cx<T>& x, const Cx<T>& dp, const Cx<T>& dF) {
     return Cx<T>{(x.re * dp.re - x.im * dp.im) + dF.re, (x.re * dp.im + x.im * dp.re) + dF.im};
@@ -213,13 +122,6 @@ __device__ bool block_finite(const Block<T>& c, const Cx<T>* a) {
     return __syncthreads_and(fin) != 0;
 }
 
-// Copy n samples between global and shared memory (either way).
-template <typename T>
-__device__ void copy(const Block<T>& c, Cx<T>* dst, const Cx<T>* src) {
-    __syncthreads();
-    for (int k = c.tid; k < c.n; k += c.nt) dst[k] = src[k];
-}
-
 // Split n into m * r, m a power of two and r odd.
 __host__ __device__ inline void split(int n, int* m, int* r) {
     int odd = n;
@@ -230,12 +132,11 @@ __host__ __device__ inline void split(int n, int* m, int* r) {
 
 // ---------------------------------------------------------------------------
 // The wide transform of the nl bodies (csrc/gnlse_ssfm.cu's and
-// csrc/vgnlse_ssfm.cu's Raman/steepening RK4).  The same split n = m * r and
-// the same float64 table as dft, but radix-4 Stockham passes (one radix-2
-// pass first when log2 m is odd): a thread loads a butterfly's 4 points into
+// csrc/vgnlse_ssfm.cu's Raman/steepening RK4).  The radix-4 Stockham passes
+// of the transform above: a thread loads a butterfly's 4 points into
 // registers, turns them by their twiddles, combines them in double and
-// stores each output once, rounded to T, with one barrier a pass.  At
-// n = 1,024 that is 5 passes, not 10.  The r-odd tail pass is dft's.  The
+// stores each output once, rounded to T, with one barrier a pass (at
+// n = 1,024, 5 passes, where radix-2 passes would be 10).  The
 // caller's Post acts on each output of the last pass in double before it is
 // rounded (a linear factor, 1 + omega/omega_0, the inverse's scale), which
 // saves a pointwise pass and a rounding.  A Plan also describes the
@@ -274,7 +175,8 @@ struct Scale {
         return Cx<double>{v.re * s, v.im * s};
     }
 };
-// w v in double, the product in mul_factor's order.
+// w v in double, the product in the plain version's order:
+// (wr vr - wi vi, wr vi + wi vr).
 template <typename T>
 __device__ __forceinline__ Cx<double> times(const Cx<T>& w, const Cx<double>& v) {
     return Cx<double>{double(w.re) * v.re - double(w.im) * v.im,
@@ -479,12 +381,13 @@ __device__ __forceinline__ void raman_spectrum(const Plan& f, Cx<T>* z, const Cx
 }
 
 // ---------------------------------------------------------------------------
-// The slotted transform of csrc/lle_ssfm.cu (K7) and csrc/ssfm_rk45.cu (K8):
-// wide_fft's passes, but the input is read from a buffer the transform
-// leaves alone (the first pass reads in, the others ping-pong between s0 and
-// s1; in may be s1, not s0), and the last pass hands each output to the
-// caller's Post with its slot instead of storing it.  Thread tid owns the
-// same outputs of the last pass in every transform of one plan:
+// The slotted transform of csrc/strang.cuh (K6 Kerr, K7, K9 rotation and
+// coherent) and csrc/ssfm_rk45.cu (K8): wide_fft's passes, but the input is
+// read from a buffer the transform leaves alone (the first pass reads in, the
+// others ping-pong between s0 and s1; in may be s1, not s0), and the last
+// pass hands each output to the caller's Post with its slot instead of
+// storing it.  Thread tid owns the same outputs of the last pass in every
+// transform of one plan:
 //   r = 1 (the last pass is radix-4 at ns = len/4): slot s is output
 //     tid + (s/4) nt + (s%4) len/4, for the butterflies tid + (s/4) nt
 //     below len/4;
@@ -495,7 +398,11 @@ __device__ __forceinline__ void raman_spectrum(const Plan& f, Cx<T>* z, const Cx
 // in registers of the thread that owns the sample.  Post(s, k, v, out)
 // gets the slot, the output index, the value in double and the buffer that
 // is free for the outputs (the one of s0, s1 the last pass does not read),
-// and stores what it wants.  A barrier follows the last pass when Sync.
+// and stores what it wants.  With P = 2 sequences (K9's polarizations, one
+// after the other, len apart) every pass computes each sequence with the
+// P = 1 pass's operations, one barrier serves both, and the thread that owns
+// output k owns it in both: v is then the pair of values {v_0, v_1}.  A
+// barrier follows the last pass when Sync.
 // ---------------------------------------------------------------------------
 
 // The samples a thread at width n: 4 up to n = 1,024, 8 above.
@@ -528,8 +435,19 @@ __device__ __forceinline__ bool slot_valid(const Plan& f, int s) {
     return f.r == 1 ? f.tid + (s >> 2) * f.nt < (f.len >> 2) : (s < S && f.tid + s * f.nt < f.len);
 }
 
+// Post(s, k, v, out) with the outputs of the P sequences at index k: v
+// itself for one sequence, the pair for two.
+template <int P, class Post, typename T>
+__device__ __forceinline__ void post_of(const Post& post, int s, int k, const Cx<double> (&v)[P],
+                                        Cx<T>* out) {
+    if constexpr (P == 1)
+        post(s, k, v[0], out);
+    else
+        post(s, k, v, out);
+}
+
 // The last radix-4 pass (r = 1, ns = len/4), as wide_pass computes it.
-template <typename T, bool INV, int S, class Post>
+template <typename T, bool INV, int S, int P, class Post>
 __device__ __forceinline__ void slot_last4(const Plan& f, const Cx<T>* src, Cx<T>* out,
                                            const Post& post) {
     constexpr int kButterflies = S / 4;
@@ -538,31 +456,39 @@ __device__ __forceinline__ void slot_last4(const Plan& f, const Cx<T>* src, Cx<T
     for (int i = 0; i < kButterflies; ++i) {
         const int j = f.tid + i * f.nt;
         if (j < q4) {
-            double xr[4], xi[4];
+            double xr[P][4], xi[P][4];
+#pragma unroll
+            for (int p = 0; p < P; ++p) {
+#pragma unroll
+                for (int q = 0; q < 4; ++q) {
+                    const Cx<T> v = src[p * f.len + j + q * q4];
+                    xr[p][q] = double(v.re);
+                    xi[p][q] = double(v.im);
+                }
+#pragma unroll
+                for (int q = 1; q < 4; ++q) {
+                    const Cx<double> w = ldg(&f.tw[q * j * step]);
+                    const double wi = INV ? w.im : -w.im;
+                    const double tr = xr[p][q] * w.re - xi[p][q] * wi;
+                    const double ti = xr[p][q] * wi + xi[p][q] * w.re;
+                    xr[p][q] = tr;
+                    xi[p][q] = ti;
+                }
+                butterfly<4, INV>(xr[p], xi[p]);
+            }
 #pragma unroll
             for (int q = 0; q < 4; ++q) {
-                const Cx<T> v = src[j + q * q4];
-                xr[q] = double(v.re);
-                xi[q] = double(v.im);
-            }
+                Cx<double> v[P];
 #pragma unroll
-            for (int q = 1; q < 4; ++q) {
-                const Cx<double> w = ldg(&f.tw[q * j * step]);
-                const double wi = INV ? w.im : -w.im;
-                const double tr = xr[q] * w.re - xi[q] * wi;
-                const double ti = xr[q] * wi + xi[q] * w.re;
-                xr[q] = tr;
-                xi[q] = ti;
+                for (int p = 0; p < P; ++p) v[p] = Cx<double>{xr[p][q], xi[p][q]};
+                post_of<P>(post, 4 * i + q, j + q * q4, v, out);
             }
-            butterfly<4, INV>(xr, xi);
-#pragma unroll
-            for (int q = 0; q < 4; ++q) post(4 * i + q, j + q * q4, Cx<double>{xr[q], xi[q]}, out);
         }
     }
 }
 
 // The r-term tail (r > 1), as wide_fft computes it.
-template <typename T, bool INV, int S, class Post>
+template <typename T, bool INV, int S, int P, class Post>
 __device__ __forceinline__ void slot_tail(const Plan& f, const Cx<T>* src, Cx<T>* out,
                                           const Post& post) {
     const int tws = f.ntab / f.len;
@@ -571,26 +497,31 @@ __device__ __forceinline__ void slot_tail(const Plan& f, const Cx<T>* src, Cx<T>
         const int k = f.tid + s * f.nt;
         if (k < f.len) {
             const int d = k & (f.m - 1), inc = k * tws;
-            double ar = 0.0, ai = 0.0;
-            int idx = 0;  // (g k tws) mod ntab
-            for (int g = 0; g < f.r; ++g) {
-                const Cx<T> y = src[g * f.m + d];
-                const Cx<double> w = ldg(&f.tw[idx]);
-                const double wi = INV ? w.im : -w.im;
-                ar += double(y.re) * w.re - double(y.im) * wi;
-                ai += double(y.re) * wi + double(y.im) * w.re;
-                idx += inc;
-                if (idx >= f.ntab) idx -= f.ntab;
+            Cx<double> v[P];
+#pragma unroll
+            for (int p = 0; p < P; ++p) {
+                double ar = 0.0, ai = 0.0;
+                int idx = 0;  // (g k tws) mod ntab
+                for (int g = 0; g < f.r; ++g) {
+                    const Cx<T> y = src[p * f.len + g * f.m + d];
+                    const Cx<double> w = ldg(&f.tw[idx]);
+                    const double wi = INV ? w.im : -w.im;
+                    ar += double(y.re) * w.re - double(y.im) * wi;
+                    ai += double(y.re) * wi + double(y.im) * w.re;
+                    idx += inc;
+                    if (idx >= f.ntab) idx -= f.ntab;
+                }
+                v[p] = Cx<double>{ar, ai};
             }
-            post(s, k, Cx<double>{ar, ai}, out);
+            post_of<P>(post, s, k, v, out);
         }
     }
 }
 
-// The DFT (INV false) or the unscaled inverse DFT (INV true) of in, natural
-// order in and out; returns the buffer Post was handed.  Every pass but
-// the last ends at a barrier, the last one when Sync.
-template <typename T, bool INV, int S, bool Sync, class Post>
+// The DFT (INV false) or the unscaled inverse DFT (INV true) of the P
+// sequences of in, natural order in and out; returns the buffer Post was
+// handed.  Every pass but the last ends at a barrier, the last one when Sync.
+template <typename T, bool INV, int S, bool Sync, int P = 1, class Post>
 __device__ __forceinline__ Cx<T>* slot_fft(const Plan& f, const Cx<T>* in, Cx<T>* s0, Cx<T>* s1,
                                            const Post& post) {
     static_assert(S == 4 || S == 8, "a thread owns whole radix-4 butterflies");
@@ -598,7 +529,7 @@ __device__ __forceinline__ Cx<T>* slot_fft(const Plan& f, const Cx<T>* in, Cx<T>
     Cx<T>* dst = s0;
     int ns = 1;
     if (f.lm & 1) {
-        wide_pass<T, INV, 2, 1, S>(f, src, dst, 1, false, NoPost{});
+        wide_pass<T, INV, 2, P, S>(f, src, dst, 1, false, NoPost{});
         __syncthreads();
         src = dst;
         dst = dst == s0 ? s1 : s0;
@@ -606,15 +537,15 @@ __device__ __forceinline__ Cx<T>* slot_fft(const Plan& f, const Cx<T>* in, Cx<T>
     }
     const int stop = f.r > 1 ? f.m : f.m >> 2;  // the radix-4 passes before the last
     for (; ns < stop; ns <<= 2) {
-        wide_pass<T, INV, 4, 1, S>(f, src, dst, ns, false, NoPost{});
+        wide_pass<T, INV, 4, P, S>(f, src, dst, ns, false, NoPost{});
         __syncthreads();
         src = dst;
         dst = dst == s0 ? s1 : s0;
     }
     if (f.r > 1)
-        slot_tail<T, INV, S>(f, src, dst, post);
+        slot_tail<T, INV, S, P>(f, src, dst, post);
     else
-        slot_last4<T, INV, S>(f, src, dst, post);
+        slot_last4<T, INV, S, P>(f, src, dst, post);
     if (Sync) __syncthreads();
     return dst;
 }

@@ -44,10 +44,25 @@
 // once a chunk).  The factor planes, the twiddles, conj(H_R) and omega are
 // read through the cache; shared memory holds only state-sized buffers of 2n
 // samples.
-//   - rotation, coherent (vgnlse_ssfm_kernel): the two polarizations go
-//     through each transform in the same radix-2 passes (csrc/
-//     ssfm_common.cuh, dft<T, INV, 2>), so a pass costs one barrier for the
-//     pair; 2 buffers, y and its transform partner.
+//   - rotation, coherent (vgnlse_ssfm_kernel<T, Op, S>):
+//     csrc/strang.cuh's slotted Strang body on the two polarizations, as K6's
+//     Kerr route runs it on one: radix-4 slot_fft passes that carry both
+//     polarizations (one barrier a pass for the pair), the factor product in
+//     the forward transform's last pass, the 1/n and the next substep's NL
+//     in the inverse one's, where one thread holds sample k of both
+//     polarizations (the joint rotation reads both powers; the coherent RK4
+//     keeps the sample's four stages in registers), one fused reduction (one
+//     flag, one peak a polarization) at a chunk's end; 10 barriers a step at
+//     n = 1,024 (22 with radix-2 passes and separate factor and NL passes).
+//     Each polarization goes through the passes with the operations of K6's
+//     one, so an empty polarization gives K6's outputs bit for bit.  2
+//     buffers of 2n, y and its transform partner.  The factors are read
+//     through the read-only cache in the forward transform's last pass, so
+//     that at 4 samples a thread two blocks fit an SM (2 polarizations x 4
+//     slots x 2 factors in registers cost the second; on an H100 at n =
+//     1,024 that block, and one of 8 samples a thread at 128 threads, were
+//     1.23-1.37x and 1.01-1.17x slower, PERF.md).  One instantiation a slot
+//     count, with the wide launch bounds at every width.
 //   - nl (vgnlse_nl_kernel): 3 buffers, y and the transform pair; the RK4
 //     sums k1 + 2(k2 + k3) and the stage derivative of both polarizations
 //     stay in registers of the thread that owns the sample (force-inlined,
@@ -74,18 +89,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "ssfm_common.cuh"
+#include "strang.cuh"
 
 namespace {
 
 using ssfm::Block;
 using ssfm::Cx;
-using ssfm::dft;
 
 enum Body { kRotation = 0, kCoherent = 1, kNl = 2 };
 
 constexpr int kPols = 2;
-constexpr int kRotationBuffers = 4;  // y and x, two polarizations each
+constexpr int kRotationBuffers = 4;  // y and x, two polarizations each (ssfm::Strang)
 constexpr int kNlBuffers = 6;        // y and the transform pair
 constexpr int kReduceSlots = 32;
 
@@ -114,87 +128,51 @@ __device__ inline Cx<T> times_ig(const Cx<T>& K, T g) {
     return Cx<T>{-(g * K.im), g * K.re};
 }
 
-// One instance's integration: its buffers, factors and coefficients.
-template <typename T, int Body>
-struct Stepper {
-    Block<T> c;    // n: one polarization's samples
-    Block<T> c2;   // the same block over both polarizations (n = 2 * c.n)
-    Cx<T>*y, *x;  // the state and its transform partner, 2n each
-    const Cx<T>*lh, *lf;
+// The rotation body's NL: the exact joint rotation over dz at one sample,
+// y_p exp(i gamma (P_p + b P_q) dz), the angle in the plain version's order.
+template <typename T>
+struct Rotation {
     T g, h, b, coh;
-
-    // y_p <- IDFT(L_p * DFT(y_p)) for both polarizations.
-    __device__ void lin(const Cx<T>* L) {
-        Cx<T>* f = dft<T, false, kPols>(c, y, x);
-        Cx<T>* o = f == y ? x : y;
-        ssfm::mul_factor(c2, f, L);
-        Cx<T>* r = dft<T, true, kPols>(c, f, o);
-        x = r == f ? o : f;
-        y = r;
+    __device__ __forceinline__ Cx<T> end(bool, const Cx<T>& x) const { return x; }
+    __device__ __forceinline__ void step(Cx<T> (&a)[kPols]) const {
+        const Cx<T> u = a[0], v = a[1];
+        const T Pu = u.re * u.re + u.im * u.im, Pv = v.re * v.re + v.im * v.im;
+        const T au = (g * (Pu + b * Pv)) * h, av = (g * (Pv + b * Pu)) * h;
+        T su, cu, sv, cv;
+        ssfm::sin_cos(au, &su, &cu);
+        ssfm::sin_cos(av, &sv, &cv);
+        a[0] = Cx<T>{u.re * cu - u.im * su, u.re * su + u.im * cu};
+        a[1] = Cx<T>{v.re * cv - v.im * sv, v.re * sv + v.im * cv};
     }
+};
 
-    // The exact joint rotation over dz.
-    __device__ void rotation() {
-        const int n = c.n;
-        __syncthreads();
-        for (int j = c.tid; j < n; j += c.nt) {
-            const Cx<T> u = y[j], v = y[n + j];
-            const T Pu = u.re * u.re + u.im * u.im, Pv = v.re * v.re + v.im * v.im;
-            const T au = (g * (Pu + b * Pv)) * h, av = (g * (Pv + b * Pu)) * h;
-            T su, cu, sv, cv;
-            ssfm::sin_cos(au, &su, &cu);
-            ssfm::sin_cos(av, &sv, &cv);
-            y[j] = Cx<T>{u.re * cu - u.im * su, u.re * su + u.im * cu};
-            y[n + j] = Cx<T>{v.re * cv - v.im * sv, v.re * sv + v.im * cv};
-        }
-    }
-
-    // One RK4 step of the coherent operator over dz, a sample at a time in
-    // registers.
-    __device__ void coherent_rk4() {
-        const int n = c.n;
+// The coherent body's NL: one RK4 step of the coherent operator over dz at
+// one sample, in the plain version's order.
+template <typename T>
+struct Coherent {
+    T g, h, b, coh;
+    __device__ __forceinline__ Cx<T> end(bool, const Cx<T>& x) const { return x; }
+    __device__ __forceinline__ void step(Cx<T> (&a)[kPols]) const {
         const T half = T(0.5) * h, sixth = h / T(6);
-        __syncthreads();
-        for (int j = c.tid; j < n; j += c.nt) {
-            const Cx<T> u = y[j], v = y[n + j];
-            const Cx<T> k1u = times_ig(coupling(u, v, b, coh, true), g);
-            const Cx<T> k1v = times_ig(coupling(v, u, b, coh, true), g);
-            Cx<T> su{u.re + half * k1u.re, u.im + half * k1u.im};
-            Cx<T> sv{v.re + half * k1v.re, v.im + half * k1v.im};
-            const Cx<T> k2u = times_ig(coupling(su, sv, b, coh, true), g);
-            const Cx<T> k2v = times_ig(coupling(sv, su, b, coh, true), g);
-            su = Cx<T>{u.re + half * k2u.re, u.im + half * k2u.im};
-            sv = Cx<T>{v.re + half * k2v.re, v.im + half * k2v.im};
-            const Cx<T> k3u = times_ig(coupling(su, sv, b, coh, true), g);
-            const Cx<T> k3v = times_ig(coupling(sv, su, b, coh, true), g);
-            su = Cx<T>{u.re + h * k3u.re, u.im + h * k3u.im};
-            sv = Cx<T>{v.re + h * k3v.re, v.im + h * k3v.im};
-            const Cx<T> k4u = times_ig(coupling(su, sv, b, coh, true), g);
-            const Cx<T> k4v = times_ig(coupling(sv, su, b, coh, true), g);
-            const Cx<T> au{k1u.re + T(2) * (k2u.re + k3u.re), k1u.im + T(2) * (k2u.im + k3u.im)};
-            const Cx<T> av{k1v.re + T(2) * (k2v.re + k3v.re), k1v.im + T(2) * (k2v.im + k3v.im)};
-            y[j] = Cx<T>{u.re + sixth * (au.re + k4u.re), u.im + sixth * (au.im + k4u.im)};
-            y[n + j] = Cx<T>{v.re + sixth * (av.re + k4v.re), v.im + sixth * (av.im + k4v.im)};
-        }
-    }
-
-    __device__ void nl() {
-        if constexpr (Body == kRotation) {
-            rotation();
-        } else {
-            coherent_rk4();
-        }
-    }
-
-    // k fused symmetric steps: Lh, (NL, Lf)^(k-1), NL, Lh.
-    __device__ void steps(int kk) {
-        lin(lh);
-        for (int i = 1; i < kk; ++i) {
-            nl();
-            lin(lf);
-        }
-        nl();
-        lin(lh);
+        const Cx<T> u = a[0], v = a[1];
+        const Cx<T> k1u = times_ig(coupling(u, v, b, coh, true), g);
+        const Cx<T> k1v = times_ig(coupling(v, u, b, coh, true), g);
+        Cx<T> su{u.re + half * k1u.re, u.im + half * k1u.im};
+        Cx<T> sv{v.re + half * k1v.re, v.im + half * k1v.im};
+        const Cx<T> k2u = times_ig(coupling(su, sv, b, coh, true), g);
+        const Cx<T> k2v = times_ig(coupling(sv, su, b, coh, true), g);
+        su = Cx<T>{u.re + half * k2u.re, u.im + half * k2u.im};
+        sv = Cx<T>{v.re + half * k2v.re, v.im + half * k2v.im};
+        const Cx<T> k3u = times_ig(coupling(su, sv, b, coh, true), g);
+        const Cx<T> k3v = times_ig(coupling(sv, su, b, coh, true), g);
+        su = Cx<T>{u.re + h * k3u.re, u.im + h * k3u.im};
+        sv = Cx<T>{v.re + h * k3v.re, v.im + h * k3v.im};
+        const Cx<T> k4u = times_ig(coupling(su, sv, b, coh, true), g);
+        const Cx<T> k4v = times_ig(coupling(sv, su, b, coh, true), g);
+        const Cx<T> au{k1u.re + T(2) * (k2u.re + k3u.re), k1u.im + T(2) * (k2u.im + k3u.im)};
+        const Cx<T> av{k1v.re + T(2) * (k2v.re + k3v.re), k1v.im + T(2) * (k2v.im + k3v.im)};
+        a[0] = Cx<T>{u.re + sixth * (au.re + k4u.re), u.im + sixth * (au.im + k4u.im)};
+        a[1] = Cx<T>{v.re + sixth * (av.re + k4v.re), v.im + sixth * (av.im + k4v.im)};
     }
 };
 
@@ -410,8 +388,9 @@ __device__ __forceinline__ void setup(St& st, const Cx<double>* tw, unsigned cha
     st.c2.n = kPols * n;
 }
 
-template <typename T, int Body>
-__global__ void __launch_bounds__(ssfm::kMaxThreads)
+template <typename T, class Op, int S>
+__global__ void __launch_bounds__(ssfm::Bounds<S, false>::kThreads,
+                                  ssfm::Bounds<S, false>::kBlocks)
 vgnlse_ssfm_kernel(const Cx<T>* __restrict__ y0, const Cx<T>* __restrict__ lh,
                    const Cx<T>* __restrict__ lf, int fac_stride, const T* __restrict__ gamma,
                    const Cx<double>* __restrict__ tw, T* __restrict__ pk_out,
@@ -419,18 +398,11 @@ vgnlse_ssfm_kernel(const Cx<T>* __restrict__ y0, const Cx<T>* __restrict__ lh,
                    int save_every, double dz, double b, double coherent) {
     extern __shared__ __align__(16) unsigned char smem[];
     const int bi = blockIdx.x;
-    Stepper<T, Body> st;
-    setup<T>(st, tw, smem, n);
-    Cx<T>* buf = reinterpret_cast<Cx<T>*>(smem + kReduceSlots * sizeof(T));
-    st.y = buf;
-    st.x = buf + kPols * n;
-    st.lh = lh + static_cast<size_t>(bi) * fac_stride;
-    st.lf = lf + static_cast<size_t>(bi) * fac_stride;
-    st.g = gamma[bi];
-    st.h = T(dz);
-    st.b = T(b);
-    st.coh = T(coherent);
-    integrate<T>(st, y0, pk_out, y_last, ok_out, n_steps, save_every);
+    ssfm::Strang<T, S, kPols, Op, false> st;
+    st.setup(tw, smem, n, lh + static_cast<size_t>(bi) * fac_stride,
+             lf + static_cast<size_t>(bi) * fac_stride);
+    st.op = Op{gamma[bi], T(dz), T(b), T(coherent)};
+    st.run(y0, pk_out, y_last, ok_out, n_steps, save_every);
 }
 
 // Blocks an SM the nl kernel asks registers for: two (at most 128 registers
@@ -477,18 +449,15 @@ size_t shared_bytes(int n, size_t elem, int body) {
     return elem * (kReduceSlots + 2 * buffers * static_cast<size_t>(n));
 }
 
-// Threads a block: half the samples of both polarizations, at most
-// ssfm::kMaxThreads (2n is a multiple of 256).
-int threads_for(int n) { return ssfm::threads_for(kPols * n); }
-
-// Threads a block of the nl kernel: threads_for(n), but in fp64 above
+// Threads a block of the nl kernel: half the samples of both polarizations,
+// at most ssfm::kMaxThreads (2n is a multiple of 256), but in fp64 above
 // n = 512 about n/8 (a multiple of 32; 128 at n = 1,024), so that each
 // thread holds 8 slots: the fp64 sums of both polarizations then stay in
 // registers (the 8-slot instantiation takes them without spilling) and two
 // blocks of 128 threads still fit an SM's registers.
 int nl_threads(int n, size_t elem) {
     if (elem == sizeof(double) && n > 512) return (n / 8 + 31) / 32 * 32;
-    return threads_for(n);
+    return ssfm::threads_for(kPols * n);
 }
 
 // Slots a thread of the nl kernel: ceil(n / threads) rounded up to 1, 2, 4
@@ -505,6 +474,17 @@ int launch_kernel(K kernel, int B, int nt, size_t smem, void* stream, Args... ar
     if (err != cudaSuccess) return static_cast<int>(err);
     kernel<<<B, nt, smem, static_cast<cudaStream_t>(stream)>>>(args...);
     return static_cast<int>(cudaGetLastError());
+}
+
+// The rotation or coherent body at the width's block (ssfm::strang_block),
+// the wide launch bounds at every width.
+template <typename T, class Op, typename... Args>
+int launch_strang(int B, int n, size_t smem, void* stream, Args... args) {
+    int S, passes;
+    const int nt = ssfm::strang_block(n, &S, &passes);
+    if (nt == 0) return static_cast<int>(cudaErrorInvalidValue);
+    if (S == 8) return launch_kernel(vgnlse_ssfm_kernel<T, Op, 8>, B, nt, smem, stream, args...);
+    return launch_kernel(vgnlse_ssfm_kernel<T, Op, 4>, B, nt, smem, stream, args...);
 }
 
 template <typename T>
@@ -524,13 +504,13 @@ int launch_body(int body, const void* y0, const void* lh, const void* lf, int fa
     auto* yl_ = static_cast<Cx<T>*>(y_last);
     auto* ok_ = static_cast<uint8_t*>(ok);
     if (body == kRotation)
-        return launch_kernel(vgnlse_ssfm_kernel<T, kRotation>, B, threads_for(n), smem, stream,
-                             y0_, lh_, lf_, fac_stride, g_, tw_, pk_, yl_, ok_, n, n_steps,
-                             save_every, dz, b, coherent);
+        return launch_strang<T, Rotation<T>>(B, n, smem, stream, y0_, lh_, lf_, fac_stride, g_,
+                                             tw_, pk_, yl_, ok_, n, n_steps, save_every, dz, b,
+                                             coherent);
     if (body == kCoherent)
-        return launch_kernel(vgnlse_ssfm_kernel<T, kCoherent>, B, threads_for(n), smem, stream,
-                             y0_, lh_, lf_, fac_stride, g_, tw_, pk_, yl_, ok_, n, n_steps,
-                             save_every, dz, b, coherent);
+        return launch_strang<T, Coherent<T>>(B, n, smem, stream, y0_, lh_, lf_, fac_stride, g_,
+                                             tw_, pk_, yl_, ok_, n, n_steps, save_every, dz, b,
+                                             coherent);
     if (body != kNl) return static_cast<int>(cudaErrorInvalidValue);
     const int nt = nl_threads(n, sizeof(T)), slots = nl_slots(n, nt);
     if (slots == 1)
@@ -560,6 +540,13 @@ int launch_body(int body, const void* y0, const void* lh, const void* lf, int fa
 // 1 coherent, 2 nl).
 extern "C" int vgnlse_ssfm_shared_bytes(int n, int elem, int body) {
     return static_cast<int>(shared_bytes(n, static_cast<size_t>(elem), body));
+}
+
+// The rotation and coherent bodies' block at width n: its threads,
+// samples a thread of each polarization and passes a transform
+// (ssfm::strang_block).
+extern "C" int vgnlse_ssfm_strang_block(int n, int* slots, int* passes) {
+    return ssfm::strang_block(n, slots, passes);
 }
 
 #define VGNLSE_SSFM_LAUNCHER(NAME, T)                                                            \

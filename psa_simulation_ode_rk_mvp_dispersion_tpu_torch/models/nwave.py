@@ -163,7 +163,14 @@ def make_rhs_nwave(coupling: str = "fft"):
     + gamma Tr``."""
     if coupling not in VALID_COUPLINGS:
         raise ValueError(f"coupling must be one of {VALID_COUPLINGS}, got {coupling!r}")
-    pol = _COUPLING_FNS[coupling]
+    rhs = _rhs_of(_COUPLING_FNS[coupling])
+    rhs.__name__ = f"rhs_nwave_{coupling}"
+    return rhs
+
+
+def _rhs_of(pol):
+    """The comb RHS over ``(..., N)`` complex state with the cubic sum
+    ``pol(a)``, the terms in the order of :func:`make_rhs_nwave`."""
 
     def rhs(z, a: torch.Tensor, p: NWaveCoeffs) -> torch.Tensor:
         nb = a.ndim - 1
@@ -176,7 +183,6 @@ def make_rhs_nwave(coupling: str = "fft"):
         d_im = (nha * ai + beta * ar) + g * T.real
         return torch.complex(d_re, d_im)
 
-    rhs.__name__ = f"rhs_nwave_{coupling}"
     return rhs
 
 

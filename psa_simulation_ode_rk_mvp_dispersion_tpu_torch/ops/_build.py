@@ -21,12 +21,14 @@ kernels.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict
 
@@ -43,7 +45,13 @@ NVCC_FLAGS = (
 # sum) and the two take the same adaptive steps; with contraction the fp32
 # 4-wave kernel takes other steps on about a sixth of the lanes
 # (chip_fma_ab.py builds both and compares them).
-SOURCE_FLAGS = {"fwm4_rk45": ("-fmad=false",), "comb_rk45": ("-fmad=false",)}
+#
+# The two sources with the most kernels: ptxas compiles their kernels on
+# every core at once, which cuts the longest compile of the build (the SASS
+# is the one a single-threaded ptxas makes; PERF.md).
+SOURCE_FLAGS = {"fwm4_rk45": ("-fmad=false",), "comb_rk45": ("-fmad=false",),
+                "gnlse_ssfm": ("-Xptxas", "--split-compile=0"),
+                "vgnlse_ssfm": ("-Xptxas", "--split-compile=0")}
 
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
 
@@ -81,34 +89,54 @@ def _library_path(src: Path) -> Path:
     return BUILD_DIR / f"lib{src.stem}_{digest.hexdigest()[:16]}.so"
 
 
+def _compile(nvcc: str, src: Path, lib: Path):
+    """One source's nvcc run into a temporary file beside ``lib``: (the
+    temporary path, the finished process, its seconds)."""
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run([nvcc, *_flags(src), "-o", str(tmp), str(src)],
+                          capture_output=True, text=True)
+    return tmp, proc, time.perf_counter() - t0
+
+
 @functools.lru_cache(maxsize=None)
 def build() -> Dict[str, Path]:
     """Compile every ``csrc/*.cu`` that has no library for its source and
     flags yet, all at once; return ``{source stem: library path}``.  The
-    compiler's output goes to a ``.log`` beside each library."""
+    compiler's output goes to a ``.log`` beside each library, after a first
+    line with the seconds its nvcc took (``nvcc <source>: <s> s``)."""
     libs = {src.stem: (src, _library_path(src)) for src in sorted(CSRC_DIR.glob("*.cu"))}
     todo = [(src, lib) for src, lib in libs.values() if not lib.exists()]
     if todo:
         nvcc = find_nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        procs = []
-        for src, lib in todo:
-            tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-            procs.append((lib, tmp, subprocess.Popen(
-                [nvcc, *_flags(src), "-o", str(tmp), str(src)],
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        with concurrent.futures.ThreadPoolExecutor(max_workers=len(todo)) as pool:
+            runs = [(src, lib, pool.submit(_compile, nvcc, src, lib)) for src, lib in todo]
         failed = []
-        for lib, tmp, proc in procs:
-            out, err = proc.communicate()
+        for src, lib, run in runs:
+            tmp, proc, seconds = run.result()
             if proc.returncode != 0:
                 failed.append(f"{lib.name}: nvcc failed with exit code {proc.returncode}:\n"
-                              f"{out}{err}")
+                              f"{proc.stdout}{proc.stderr}")
                 continue
-            lib.with_suffix(".log").write_text(out + err)
+            lib.with_suffix(".log").write_text(
+                f"nvcc {src.name}: {seconds:.1f} s\n{proc.stdout}{proc.stderr}")
             os.replace(tmp, lib)
         if failed:
             raise KernelBuildError("\n".join(failed))
     return {name: lib for name, (_src, lib) in libs.items()}
+
+
+def build_seconds() -> Dict[str, float]:
+    """The seconds each current library's nvcc took (the first line of its
+    ``.log``), by source stem."""
+    out = {}
+    for name, lib in build().items():
+        log = lib.with_suffix(".log")
+        first = log.read_text().split("\n", 1)[0] if log.exists() else ""
+        if first.startswith("nvcc ") and first.endswith(" s"):
+            out[name] = float(first.rsplit(" ", 2)[-2])
+    return out
 
 
 def build_log() -> str:

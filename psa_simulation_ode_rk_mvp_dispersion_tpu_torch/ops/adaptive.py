@@ -134,7 +134,10 @@ def _error_norm(err, y, y_new, *, atol: float, rtol: float, batch_ndim: int = 0)
     total = q[..., 0]
     for k in range(1, q.shape[-1]):
         total = total + q[..., k]
-    return torch.sqrt(total / q.shape[-1])
+    # the mean as a true division, as the kernels divide: on the card torch
+    # computes a division by a Python number as a product with its rounded
+    # reciprocal, a last-bit difference unless the count is a power of two
+    return torch.sqrt(total / torch.full_like(total, float(q.shape[-1])))
 
 
 class _SegCarry(NamedTuple):

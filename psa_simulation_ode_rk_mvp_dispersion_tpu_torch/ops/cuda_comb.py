@@ -15,15 +15,23 @@ FFT coupling) at :func:`kernel_fft_len` points.
   comb wider than the kernel takes (N > 2,048) or whose block does not fit
   in the card's shared memory.
 - :func:`solve_comb_batch_torch` is the plain version:
-  ``ops/integrators.integrate_reduce`` over the ``(B, N)`` complex state with
-  the dense-DFT coupling (``models/nwave.make_rhs_nwave('dft')``), whose
-  matrices come from the same float64 roots as the kernel's twiddle table.
-  The CPU path and the comparisons on the card use it.
+  ``ops/integrators.integrate_reduce`` over the ``(B, N)`` complex state
+  with, by default, the kernels' own coupling arithmetic
+  (:func:`kernel_polarization`: the same radix-4 passes on the same float64
+  table, rounded where the kernel rounds).  The CPU path and the
+  comparisons on the card use it.
 
 Both return ``P_max`` over the saved samples (row 0 included), the state at
 the last saved point, ``z = (n_steps // save_every) * save_every * dz``, and
-``ok``.  The kernel's FFTs and ``torch.matmul``'s dense sums round
-differently, so the two agree to rounding, not bit for bit.
+``ok``.  The kernel contracts products and sums outside its transforms to
+FMA where the compiler chooses (``comb_rk.cu`` is built with the default
+``-fmad``), so the two agree to rounding, not bit for bit.
+
+Why the plain coupling is the kernels' and not a dense or library
+transform: the adaptive kernel K5 in float32 accepts or rejects a step of a
+blowing-up comb on the last bit of each rounding, so a plain version whose
+cubic sum rounds elsewhere (dense float32 sums, or the sum in float64
+rounded once) fails that comb at another step and freezes another state.
 """
 
 from __future__ import annotations
@@ -37,9 +45,11 @@ import torch
 
 from . import _build
 from .cuda_solver import _COMPLEX_OF, _DTYPE_SUFFIX, reduce_pmax_last
-from ..models.nwave import NWaveCoeffs, _fft_len, dft_roots, make_rhs_nwave
+from ..models.nwave import NWaveCoeffs, _fft_len, _rhs_of, dft_roots, make_rhs_nwave
 
 METHODS = ("rk4", "ab4", "abm4")
+# The plain versions' default coupling: the comb kernels' arithmetic.
+KERNEL_COUPLING = "kernel"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,16 +87,17 @@ def check_comb_lanes(A0, gamma, alpha, beta_lin, n_steps, save_every):
 
 def solve_comb_batch_torch(A0, gamma, alpha, beta_lin, *, dz_m: float, n_steps: int,
                            save_every: int, integrator: str = "rk4", check_nan: bool = True,
-                           coupling: str = "dft") -> CombBatchResult:
+                           coupling: str = KERNEL_COUPLING) -> CombBatchResult:
     """Plain PyTorch version of :func:`solve_comb_batch_cuda`: the same
     integration, NaN freeze and save-grid reductions, on whatever device the
-    tensors are.  ``coupling`` picks the evaluation of the cubic sum
-    (``'dft'``, the kernel's, by default)."""
+    tensors are.  ``coupling`` picks the evaluation of the cubic sum: the
+    kernels' arithmetic (:data:`KERNEL_COUPLING`) by default, or one of
+    ``models/nwave``'s couplings."""
     check_comb_lanes(A0, gamma, alpha, beta_lin, n_steps, save_every)
     if integrator not in METHODS:
         raise ValueError(f"integrator must be one of {METHODS}, got {integrator!r}")
     pmax, y_last, ok = reduce_pmax_last(
-        make_rhs_nwave(coupling), A0, NWaveCoeffs(gamma, alpha, beta_lin), dz_m=dz_m,
+        plain_rhs(coupling), A0, NWaveCoeffs(gamma, alpha, beta_lin), dz_m=dz_m,
         n_steps=n_steps, save_every=save_every, integrator=integrator, check_nan=check_nan)
     return CombBatchResult(P_max=pmax, A_end=y_last, ok=ok)
 
@@ -112,6 +123,107 @@ def twiddles(L: int, dtype: torch.dtype, device: str) -> torch.Tensor:
     in float64, their butterflies run in double."""
     c, s = dft_roots(L)
     return torch.as_tensor(np.stack([c, s], axis=1), device=device).to(dtype).contiguous()
+
+
+@functools.lru_cache(maxsize=64)
+def _tables(L: int, ns: int, inv: bool, device: str):
+    """The ``(3, L/4)`` float64 twiddles ``(w.re, wi)`` of butterfly j's
+    points q = 1..3 in a radix-4 pass at sub-transform length ``ns``:
+    ``tw[q (j mod ns) L/(4 ns)]``, ``wi`` the sine for the inverse and its
+    negation for the forward transform (``ssfm_common.cuh``'s
+    ``wide_pass``)."""
+    tw = twiddles(L, torch.float64, device)
+    k = torch.arange(L // 4, device=device) % ns
+    idx = torch.arange(1, 4, device=device)[:, None] * k[None, :] * (L // (4 * ns))
+    wi = tw[idx, 1] if inv else -tw[idx, 1]
+    return tw[idx, 0].contiguous(), wi.contiguous()
+
+
+def _pass(z, R: int, ns: int, inv: bool, post=None):
+    """One radix-R Stockham pass of an L-point transform (``ssfm_common.cuh``'s
+    ``wide_pass`` with m = L, r = 1) on ``z``, the ``(..., 2, L)`` real and
+    imaginary parts stored at the state's type: butterfly j takes points
+    j + q L/R, turns point q by its twiddle (ns > 1), combines them in
+    float64, and output q lands at (j - j mod ns) R + j mod ns + q ns,
+    rounded once to the state's type after ``post`` (on the float64 parts).
+    Every product and sum is a torch operation of its own (a part of each
+    point's), so that nothing contracts to FMA; the real and imaginary parts
+    share an operation where they take the same one."""
+    rdt, L = z.dtype, z.shape[-1]
+    lead = z.shape[:-2]
+    x = z.to(torch.float64).reshape(lead + (2, R, L // R))
+    if ns > 1:   # (xr wr - xi wi, xr wi + xi wr) for points 1..R-1
+        wr, wi = _tables(L, ns, inv, str(z.device))
+        pr, pi = x[..., 1:, :] * wr, x[..., 1:, :] * wi
+        turned = torch.stack([pr[..., 0, :, :] - pi[..., 1, :, :],
+                              pi[..., 0, :, :] + pr[..., 1, :, :]], -3)
+        x = torch.cat([x[..., :1, :], turned], -2)
+    xq = x.unbind(-2)
+    if R == 2:
+        out = [xq[0] + xq[1], xq[0] - xq[1]]
+    else:
+        a0, a1 = xq[0] + xq[2], xq[0] - xq[2]
+        a2, a3 = xq[1] + xq[3], xq[1] - xq[3]
+        re, im = a3.unbind(-2)
+        # -i a3 (forward) or i a3 (inverse): X1 = a1 + that, X3 = a1 - that
+        j3 = torch.stack([-im, re] if inv else [im, -re], -2)
+        out = [a0 + a2, a1 + j3, a0 - a2, a1 - j3]
+    out = torch.stack(out, -2)                          # (..., 2, R, L/R)
+    if post is not None:
+        out = post(out)
+    # output q of butterfly j = a ns + k at a R ns + q ns + k
+    out = out.reshape(lead + (2, R, L // (R * ns), ns)).transpose(-3, -2)
+    return out.reshape(lead + (2, L)).to(rdt)
+
+
+def _power(v):
+    """G = F |F|^2 on ``(..., 2, ...)`` float64 parts, |F|^2 = Fr Fr + Fi Fi."""
+    re, im = v.unbind(-3)
+    mag = re * re + im * im
+    return v * mag.unsqueeze(-3)
+
+
+def kernel_polarization(a: torch.Tensor) -> torch.Tensor:
+    """The comb kernels' cubic sum ``T = (1/L) IDFT(F |F|^2)[0:N]``, ``F =
+    DFT_L(A)``, computed as ``csrc/comb_common.cuh``'s ``Coupling`` computes
+    it, rounding for rounding: L = :func:`kernel_fft_len`, the float64
+    table of :func:`twiddles`, radix-4 Stockham passes (one radix-2 pass
+    first when log2 L is odd) with every butterfly and twiddle product in
+    float64 and each pass's outputs stored at the state's type, G = F |F|^2
+    formed in the last forward pass before it is stored, and the inverse's
+    last outputs times 1/L rounded once.  ``a`` is ``(..., N)`` complex."""
+    n = a.shape[-1]
+    L = kernel_fft_len(n)
+    lead = a.shape[:-1]
+    odd = (L.bit_length() - 1) & 1
+    z = torch.zeros(lead + (2, L), dtype=a.real.dtype, device=a.device)
+    parts = torch.stack([a.real, a.imag], -2)                # (..., 2, N)
+    if odd:   # radix 2 on (x[j], 0): out[2j] = out[2j+1] = x[j]
+        z.view(lead + (2, L // 2, 2))[..., :n, :] = parts[..., None]
+    else:     # radix 4 on (x[j], x[j + L/4], 0, 0)
+        z[..., :n] = parts
+        z = _pass(z, 4, 1, False)
+    ns = 2 if odd else 4
+    while ns < L:
+        z = _pass(z, 4, ns, False, _power if ns == L // 4 else None)
+        ns *= 4
+    ns = 1
+    if odd:
+        z = _pass(z, 2, 1, True)
+        ns = 2
+    while ns < L:
+        z = _pass(z, 4, ns, True, (lambda v: v * (1.0 / L)) if ns == L // 4 else None)
+        ns *= 4
+    return torch.complex(z[..., 0, :n], z[..., 1, :n])
+
+
+def plain_rhs(coupling: str = KERNEL_COUPLING):
+    """The comb RHS of the plain versions: the cubic sum by
+    :func:`kernel_polarization` for :data:`KERNEL_COUPLING`, else
+    ``models/nwave.make_rhs_nwave(coupling)``."""
+    if coupling == KERNEL_COUPLING:
+        return _rhs_of(kernel_polarization)
+    return make_rhs_nwave(coupling)
 
 
 def kernel_length(prefix: str, n: int, rdt: torch.dtype, device: torch.device) -> int:

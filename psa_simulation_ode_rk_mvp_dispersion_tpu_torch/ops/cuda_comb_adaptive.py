@@ -13,22 +13,25 @@ at ``ops/cuda_comb.kernel_fft_len`` points on a float64 table.
   lines) on the current stream and counts the launch in
   ``ops/_build.LAUNCHES``.  CUDA tensors only.
 - :func:`solve_comb_batch_rk45_torch` is the plain version:
-  ``ops/adaptive.integrate_adaptive_reduce`` over the ``(B, N)`` state with
-  the dense-DFT coupling.
+  ``ops/adaptive.integrate_adaptive_reduce`` over the ``(B, N)`` state with,
+  by default, the kernels' own coupling arithmetic
+  (``ops/cuda_comb.kernel_polarization``).
 
 Both run the port's controller (``ops/adaptive.py``, as kernel K3 does), not
 the JAX kernel's: the first step is ``dt0 = 0.1 x`` the first span where the
 JAX kernel starts from ``dz``, the first stage carries over from the last
 accepted step (6 RHS per attempt, where the JAX kernel evaluates 7), and the
 step factor is a ``pow``.  So against the JAX kernel the port is held only to
-that kernel's tolerance class, never to its step counts.  The kernel's FFTs
-and the plain version's dense sums round differently.  In fp64 the two take
-the same steps on nearly every comb.  In fp32 the kernel's coupling, every
-butterfly in double, gives a quieter error estimate than the dense float32
-sums: the kernel takes about a third of the plain version's attempts (82.4
-against 232.2 a comb at ``chip_smoke.py``'s size) and its steps differ on
-nearly every comb, so a comb that fails may fail at another step, with
-another last accepted state.
+that kernel's tolerance class, never to its step counts.  Against its plain
+version the kernel is held to the same steps: the kernel is built without
+FMA contraction (``ops/_build.py``), and the plain version computes the
+cubic sum with the kernel's passes and rounding points, every other
+product and sum as one torch operation, and the error norm's mean as a true
+division (``ops/adaptive._error_norm``), as the kernel's.  In float32,
+where the error estimate of a step is mostly rounding noise, that is what
+makes the two accept and reject the same steps and a failed comb freeze the
+same last accepted state (``chip_comb_rk45_probe.py`` checks the step
+factor's ``pow`` and the mean against torch's on the card).
 """
 
 from __future__ import annotations
@@ -40,8 +43,9 @@ import torch
 
 from . import _build
 from .cuda_adaptive import kernel_segments, rk45_reduce
-from .cuda_comb import _DTYPE_SUFFIX, check_comb_lanes, kernel_length, twiddles
-from ..models.nwave import NWaveCoeffs, make_rhs_nwave
+from .cuda_comb import (KERNEL_COUPLING, _DTYPE_SUFFIX, check_comb_lanes, kernel_length,
+                        plain_rhs, twiddles)
+from ..models.nwave import NWaveCoeffs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,14 +70,15 @@ def _check_inputs(A0, gamma, alpha, beta_lin, n_steps, save_every, rtol, atol, m
 def solve_comb_batch_rk45_torch(A0, gamma, alpha, beta_lin, *, dz_m: float, n_steps: int,
                                 save_every: int, rtol: float, atol: float,
                                 max_steps: int = 10_000,
-                                coupling: str = "dft") -> CombAdaptiveResult:
+                                coupling: str = KERNEL_COUPLING) -> CombAdaptiveResult:
     """Plain PyTorch version of :func:`solve_comb_batch_rk45_cuda`, on
     whatever device the tensors are; ``coupling`` picks the evaluation of
-    the cubic sum (``'dft'``, the kernel's, by default).  The loop runs once
-    per attempt of the slowest comb."""
+    the cubic sum: the kernels' arithmetic by default, or one of
+    ``models/nwave``'s couplings.  The loop runs once per attempt of the
+    slowest comb."""
     _check_inputs(A0, gamma, alpha, beta_lin, n_steps, save_every, rtol, atol, max_steps)
     pmax, y_last, ok, na, nr = rk45_reduce(
-        make_rhs_nwave(coupling), A0, NWaveCoeffs(gamma, alpha, beta_lin), dz_m=dz_m,
+        plain_rhs(coupling), A0, NWaveCoeffs(gamma, alpha, beta_lin), dz_m=dz_m,
         n_steps=n_steps, save_every=save_every, rtol=rtol, atol=atol, max_steps=max_steps)
     return CombAdaptiveResult(P_max=pmax, A_end=y_last, ok=ok, n_accepted=na, n_rejected=nr)
 

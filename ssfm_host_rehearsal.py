@@ -45,9 +45,11 @@ pass and prints each against its plain version:
 - K5 (``comb_rk45_*``) at the same widths, 105 steps at ``save_every=10``,
   fp64 at rtol 1e-9 and fp32 at 1e-6, the step counters beside the plain
   version's, the failed comb's accepted steps and state; in fp32 also both
-  solutions against the plain fp64 version at the same rtol; and the error
-  norm of the failed 16-line comb's attempt at the smallest step, float32
-  (dense DFT, FFT, the RHS in float64) and float64.
+  solutions against the plain fp64 version at the same rtol (the plain
+  versions with the host build's ``sqrt`` and ``pow``, :func:`host_libm`);
+  and the error norm of the failed 16-line comb's attempt at the smallest
+  step, float32 (the kernels' coupling, dense DFT, FFT, the RHS in float64)
+  and float64.
 
 It cannot see what only the card's compiler refuses, nor the card's
 scheduling.
@@ -58,6 +60,7 @@ version and the plain version with gamma 0.1% off against the plain fp64
 version, the readings the fp32 bars of the card check are set from.
 """
 
+import contextlib
 import ctypes
 import re
 import subprocess
@@ -89,7 +92,11 @@ STUB = """#pragma once
 #include <memory>
 #include <thread>
 #include <vector>
+using std::fmax;
+using std::fmin;
 using std::isfinite;
+using std::pow;
+using std::sqrt;
 #define __global__
 #define __device__
 #define __host__
@@ -227,6 +234,41 @@ def build(name, out=OUT):
 
 def ptr(t):
     return ctypes.c_void_p(t.data_ptr())
+
+
+@contextlib.contextmanager
+def host_libm():
+    """Within the block, ``torch.sqrt`` and ``torch.pow`` of CPU tensors give
+    what the host build's ``std::sqrt`` and ``std::pow`` give: the correctly
+    rounded square root (numpy's) and the C library's ``powf``/``pow``, one
+    element at a time.  torch's own CPU ``sqrt`` and ``pow`` are vectorized
+    approximations that differ from both in the last bit, where on the card
+    torch and the kernels call the same device functions.  The adaptive
+    plain versions then take the host build's steps in float32 too, whose
+    error estimate is mostly rounding noise."""
+    libm = ctypes.CDLL("libm.so.6")
+    fns = {}
+    for name, typ in (("powf", ctypes.c_float), ("pow", ctypes.c_double)):
+        fn = getattr(libm, name)
+        fn.argtypes, fn.restype = [typ, typ], typ
+        fns[name] = fn
+    sqrt, pow_ = torch.sqrt, torch.pow
+
+    def host_sqrt(x):
+        return torch.from_numpy(np.sqrt(x.numpy())) if x.device.type == "cpu" else sqrt(x)
+
+    def host_pow(x, e):
+        if x.device.type != "cpu" or isinstance(e, torch.Tensor):
+            return pow_(x, e)
+        fn = fns["powf" if x.dtype == torch.float32 else "pow"]
+        return torch.tensor([fn(v, e) for v in x.flatten().tolist()],
+                            dtype=x.dtype).reshape(x.shape)
+
+    torch.sqrt, torch.pow = host_sqrt, host_pow
+    try:
+        yield
+    finally:
+        torch.sqrt, torch.pow = sqrt, pow_
 
 
 def k6(lib, y0, gamma, alpha, ph, nl, dz, n_steps, save_every):
@@ -499,8 +541,9 @@ def comb(lib4, lib5):
                       f"{normwise(pk[gd], r.P_max[gd]):.2e}", flush=True)
             rtol, atol = (1e-9, 1e-12) if rdt == torch.float64 else (1e-6, 1e-10)
             pk, A, ok, na, nr = k5(lib5, *t, 5.0, 105, 10, rtol, atol)
-            r = cca.solve_comb_batch_rk45_torch(*t, dz_m=5.0, n_steps=105, save_every=10,
-                                                rtol=rtol, atol=atol)
+            with host_libm():
+                r = cca.solve_comb_batch_rk45_torch(*t, dz_m=5.0, n_steps=105, save_every=10,
+                                                    rtol=rtol, atol=atol)
             gd = r.ok
             same = torch.equal(na, r.n_accepted) and torch.equal(nr, r.n_rejected)
             print(f"K5 N={N} {str(rdt)[6:]} 105 steps: ok {ok.tolist() == r.ok.tolist()}, "
@@ -523,9 +566,9 @@ def comb(lib4, lib5):
 def failed_comb_norm():
     """The error norm of the 16-line failed comb's attempt at the smallest
     step of a 50 m segment (``comb``'s comb 2 at rtol 1e-6 and atol 1e-10):
-    float32 with the plain version's dense-DFT and FFT couplings, float32
-    with the RHS formed in float64 and rounded once to float32 (as the
-    kernel's coupling rounds it), and float64.  A norm above 1 rejects the
+    float32 with the kernels' coupling (the plain versions' default), with
+    the dense-DFT and FFT couplings and with the RHS formed in float64 and
+    rounded once to float32, and float64.  A norm above 1 rejects the
     step, which then fails the comb."""
     nw = psa.nwave
     oc = 2 * np.pi * 193.1e12
@@ -537,7 +580,8 @@ def failed_comb_norm():
     f64 = nw.make_rhs_nwave("fft")
     v64 = [torch.tensor(v, dtype=torch.float64) for v in ([1e3], [5e-5], beta[None])]
     c64 = nw.NWaveCoeffs(*v64)
-    for label, rdt, rhs in (("float32, dense DFT", torch.float32, nw.make_rhs_nwave("dft")),
+    for label, rdt, rhs in (("float32, the kernels' coupling", torch.float32, cc.plain_rhs()),
+                            ("float32, dense DFT", torch.float32, nw.make_rhs_nwave("dft")),
                             ("float32, FFT", torch.float32, nw.make_rhs_nwave("fft")),
                             ("float32, RHS in float64", torch.float32,
                              lambda z, y, p: f64(z, y.to(torch.complex128), c64).to(y.dtype)),

@@ -4,6 +4,10 @@
 Tolerances (normwise: of the largest value of each comb, since a weak
 noise-seeded line carries the DFT sums' rounding relative to the pumps):
 
+- the plain versions' default coupling (``ops/cuda_comb.kernel_polarization``,
+  the comb kernels' radix-4 passes and rounding points) vs ``models/nwave``'s
+  'fft' and 'dft' couplings: 1e-13 in fp64, 2e-6 in fp32 (a few float32
+  roundings of the largest line);
 - fixed-step fp64 rk4/ab4/abm4 vs the JAX x64 scan with the dft coupling:
   1e-12 in ``A_end`` and ``P_max``;
 - rk45 fp64 at rtol 1e-10 vs the JAX x64 scan: 1e-7 (the port's
@@ -44,6 +48,24 @@ def _normwise(a, b):
     """Worst over combs of max_lines |a - b| / max_lines |b|."""
     a, b = np.asarray(a), np.asarray(b)
     return float(np.max(np.max(np.abs(a - b), axis=-1) / np.max(np.abs(b), axis=-1)))
+
+
+@pytest.mark.parametrize("rdt", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("N", [16, 100, 600, 1100], ids=["L128", "L256", "L2048", "L4096"])
+def test_kernel_polarization_matches_the_model_couplings(N, rdt):
+    """The cubic sum as the comb kernels round it, at L = 128, 256 (one
+    radix-2 pass first), 2,048 and 4,096, against the FFT and dense-DFT
+    couplings of models/nwave in the same type, on seeded random lines."""
+    from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.models import nwave as tn
+    rng = np.random.default_rng(N)
+    a = torch.as_tensor(rng.standard_normal((3, N)) + 1j * rng.standard_normal((3, N)))
+    a = a.to(torch.complex128 if rdt == torch.float64 else torch.complex64)
+    k = cc.kernel_polarization(a)
+    assert k.dtype == a.dtype and k.shape == a.shape
+    assert cc.kernel_fft_len(N) == {16: 128, 100: 256, 600: 2048, 1100: 4096}[N]
+    bar = 1e-13 if rdt == torch.float64 else 2e-6
+    for ref in (tn.fwm_polarization(a), tn.fwm_polarization_dft(a)):
+        assert _normwise(k.numpy(), ref.numpy()) <= bar
 
 
 def _bench_comb(n=16, B=6, seed=0):

@@ -160,6 +160,33 @@ def test_failed_build_raises_with_compiler_output(tmp_path, monkeypatch):
     assert not list((tmp_path / "build").glob("*.so"))
 
 
+def test_build_compiles_every_source_and_logs_its_seconds(tmp_path, monkeypatch):
+    """Every source gets its own nvcc run; each library's log starts with
+    the seconds that run took, then what nvcc printed."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in ("one", "two"):
+        (csrc / f"{name}.cu").write_text(f"// {name}\n")
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text('#!/bin/sh\nwhile [ "$1" != "-o" ]; do shift; done\n'
+                    'echo "ptxas info    : Used 10 registers" >&2\n: > "$2"\n')
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "toolkit"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    _build.build.cache_clear()
+    try:
+        libs = _build.build()
+        assert sorted(libs) == ["one", "two"] and all(p.exists() for p in libs.values())
+        seconds = _build.build_seconds()
+        assert sorted(seconds) == ["one", "two"] and all(s >= 0.0 for s in seconds.values())
+        assert _build.build_log().count("Used 10 registers") == 2
+        assert not list((tmp_path / "build").glob("*.tmp"))
+    finally:
+        _build.build.cache_clear()
+
+
 def test_plain_fp32_stays_close_to_fp64_over_the_bench_run():
     """Bench configuration (bench.py:190-220), 2,500 steps, signals at the
     gain band's edge, where the gain is most sensitive to rounding.  With the

@@ -1,5 +1,6 @@
-"""The nl bodies of csrc/gnlse_ssfm.cu (K6) and csrc/vgnlse_ssfm.cu (K9), the
-LLE kernel csrc/lle_ssfm.cu (K7) and both routes of csrc/ssfm_rk45.cu (K8),
+"""Every body of csrc/gnlse_ssfm.cu (K6: Kerr and nl) and csrc/vgnlse_ssfm.cu
+(K9: rotation, coherent and nl), the LLE kernel csrc/lle_ssfm.cu (K7) and both
+routes of csrc/ssfm_rk45.cu (K8),
 compiled as host C++ with each block's
 threads run as host threads (``ssfm_host_rehearsal.py``: ``__syncthreads`` a
 ``std::barrier``), against their plain versions on the CPU.  The CUDA kernels
@@ -8,6 +9,7 @@ their source's arithmetic, the threads' ownership of samples and the barriers
 between the wide transform's passes to the plain versions here.  Needs g++
 with C++20."""
 
+import ctypes
 import shutil
 
 import numpy as np
@@ -54,6 +56,106 @@ def _check(k, p, bad, rdt):
     err = ((k[1][good] - p.A_end[good]).abs().amax(dims) / p.A_end[good].abs().amax(dims)).max()
     assert float(err) <= TOL[rdt]
     torch.testing.assert_close(k[0][good], p.peak_max[good], rtol=TOL[rdt], atol=0)
+
+
+# The slotted Strang bodies (csrc/strang.cuh) at r = 1 and 3, 4 samples a
+# thread (n = 128: one warp; 1,024: 256 threads) and 8 (n = 2,048)
+STRANG_WIDTHS = [128, 384, 1024, 2048]
+
+
+def _overflowing(A0, rdt, bad):
+    """A0 with envelope ``bad`` scaled so that |A|^2 overflows the type: it
+    starts finite and fails in its first chunk."""
+    A0 = A0.copy()
+    A0[bad] *= 1e160 if rdt == torch.float64 else 1e25
+    return A0
+
+
+# (n, threads, samples a thread, passes a transform) of the Strang block:
+# 4 samples a thread up to n = 1,024, 8 above, at most 256 threads; a radix-2
+# pass when log2 of n's power of two is odd, the r-odd tail
+STRANG_BLOCKS = [(128, 32, 4, 4), (384, 96, 4, 5), (640, 160, 4, 5), (1024, 256, 4, 5),
+                 (2048, 256, 8, 6), (4096, 0, 8, 6)]
+
+
+@pytest.mark.parametrize("source", ["gnlse_ssfm", "vgnlse_ssfm"])
+@pytest.mark.parametrize("n,threads,slots,passes", STRANG_BLOCKS)
+def test_strang_block_is_the_launched_block(libs, source, n, threads, slots, passes):
+    """``<source>_strang_block``, which the launchers take their block
+    from and ``chip_smoke.py`` reports, at each width class."""
+    fn = getattr(libs[source], f"{source}_strang_block")
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    s, p = ctypes.c_int(), ctypes.c_int()
+    assert (fn(n, ctypes.byref(s), ctypes.byref(p)), s.value, p.value) == (threads, slots, passes)
+
+
+@pytest.mark.parametrize("rdt", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("rows", [False, True], ids=["shared", "rows"])
+@pytest.mark.parametrize("n", STRANG_WIDTHS)
+def test_gnlse_kerr_route_matches_plain_version(libs, rdt, rows, n):
+    """K6 Kerr on the slotted Strang body: a shared factor row or one row
+    an envelope (per-envelope phase), one envelope overflowing (frozen at
+    its input), 10 steps at save_every=4 (a trailing partial chunk)."""
+    grid, A0 = _pulses(n, 3)
+    co = tg.make_gnlse_coeffs(grid, DISP, gamma_W_m=2e-3, alpha_1_m=5e-5)
+    g, a, ph = tg.lane_coeffs(co, 3, n, rdt, "cpu")
+    if rows:
+        ph = (ph[None] * torch.linspace(0.9, 1.1, 3, dtype=rdt)[:, None]).contiguous()
+    assert cg.factor_planes(a, ph, 0.02, torch.zeros(3, n))[2] == (n if rows else 0)
+    y0 = torch.as_tensor(_overflowing(A0, rdt, 1)).to(CDT[rdt])
+    k = host.k6(libs["gnlse_ssfm"], y0, g, a, ph, None, 0.02, 10, 4)
+    p = cg.solve_gnlse_batch_torch(y0, g, a, ph, dz_m=0.02, n_steps=10, save_every=4)
+    _check(k, p, 1, rdt)
+    assert torch.equal(k[1][1], y0[1])
+
+
+@pytest.mark.parametrize("rdt", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("rows", [False, True], ids=["shared", "rows"])
+@pytest.mark.parametrize("n", STRANG_WIDTHS)
+@pytest.mark.parametrize("coupling", ["manakov", "cnlse", "isotropic"])
+def test_vgnlse_strang_bodies_match_plain_version(libs, coupling, rdt, rows, n):
+    """K9's rotation body (manakov, cnlse with birefringence) and coherent
+    body (isotropic) on the slotted Strang body: a shared factor plane or
+    one an instance, one instance overflowing (frozen at its input), 10
+    steps at save_every=4 (a trailing partial chunk)."""
+    grid, A = _pulses(n, 3)
+    A0 = np.stack([np.cos(0.4) * A, np.sin(0.4) * np.exp(0.5j) * A], axis=1)
+    bire = {} if coupling == "manakov" else dict(dbeta0_1_m=8.0, dbeta1_s_m=1e-13)
+    co = tv.make_vgnlse_coeffs(grid, DISP, gamma_W_m=2e-3, alpha_1_m=5e-5, coupling=coupling,
+                               **bire)
+    g, a, b, ph = tv.lane_coeffs(co, 3, n, rdt, "cpu")
+    if rows:
+        ph = (ph[None] * torch.linspace(0.9, 1.1, 3, dtype=rdt)[:, None, None]).contiguous()
+    assert cv.body_of(co.coherent, None) == ("coherent" if coupling == "isotropic" else "rotation")
+    y0 = torch.as_tensor(_overflowing(A0, rdt, 1)).to(CDT[rdt])
+    k = host.k9(libs["vgnlse_ssfm"], y0, g, a, b, ph, co.coherent, None, 0.02, 10, 4)
+    p = cv.solve_vgnlse_batch_torch(y0, g, a, b, ph, co.coherent, dz_m=0.02, n_steps=10,
+                                    save_every=4)
+    _check(k, p, 1, rdt)
+    assert torch.equal(k[1][1], y0[1])
+
+
+@pytest.mark.parametrize("rdt", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("coupling", ["manakov", "cnlse"])
+@pytest.mark.parametrize("n", [384, 1024])
+def test_vgnlse_rotation_with_an_empty_polarization_is_the_gnlse_kerr_route(libs, coupling,
+                                                                            rdt, n):
+    """A_y = 0, no birefringence: K9's rotation body gives K6 Kerr's
+    outputs on A_x bit for bit, both types (each polarization goes through
+    the Strang body's passes with the operations of K6's one, and the angle
+    with P_y = 0 is K6's), and A_y stays 0."""
+    grid, A = _pulses(n, 3)
+    A0 = np.stack([A, np.zeros_like(A)], axis=1)
+    co = tv.make_vgnlse_coeffs(grid, DISP, gamma_W_m=2e-3, alpha_1_m=5e-5, coupling=coupling)
+    g, a, b, ph = tv.lane_coeffs(co, 3, n, rdt, "cpu")
+    y0 = torch.as_tensor(A0).to(CDT[rdt])
+    kv = host.k9(libs["vgnlse_ssfm"], y0, g, a, b, ph, co.coherent, None, 0.02, 10, 4)
+    ks = host.k6(libs["gnlse_ssfm"], y0[:, 0].contiguous(), g, a, ph[0].contiguous(), None,
+                 0.02, 10, 4)
+    assert bool(kv[2].all()) and torch.equal(kv[2], ks[2])
+    assert torch.equal(kv[1][:, 0], ks[1]) and torch.equal(kv[0][:, 0], ks[0])
+    assert not bool(kv[1][:, 1].abs().any())
 
 
 @pytest.mark.parametrize("rdt", [torch.float64, torch.float32], ids=["f64", "f32"])
