@@ -6,11 +6,14 @@ Run from the root of a checkout:
 
     python3 chip_fma_ab.py [--reps 5] [--out FILE]
 
-The package builds ``fwm4_rk45.cu`` with ``-fmad=false`` (``ops/_build.
-SOURCE_FLAGS``) so that the kernel rounds as its plain version does and the
-two take the same adaptive steps.  This script builds the source twice into
-``build/fma_ab/``, once with the package's flags (``nofma``) and once without
-``-fmad=false`` (``fma``), and runs both through the package's wrapper on
+The package builds ``fwm4_rk45.cu`` with FMA contraction (``ops/_build.
+NVCC_FLAGS``): its float32 instantiation keeps every product apart in the
+source (``__fmul_rn``), so that it rounds as its plain version does and the
+two take the same adaptive steps, and its float64 instantiation contracts.
+This script builds the source twice into ``build/fma_ab/``, once with
+``-fmad=false`` added (``nofma``: no contraction in either type) and once
+with the package's flags (``fma``), and runs both through the package's
+wrapper on
 ``chip_smoke.py``'s inputs: the bench configuration's 10^4 lanes with one
 lane made to blow up, fp64 at rtol 1e-10/atol 1e-13 and fp32 at rtol
 1e-6/atol 1e-10, 2,500 steps at ``save_every=10``, and the fp32 cases with a
@@ -18,9 +21,9 @@ trailing span (2,497 steps) and with ``save_every=7``.
 
 For each case it prints the share of lanes whose step counters agree between
 the two builds, whether ``ok`` agrees, and the largest relative difference in
-``P_max``/``A_end``.  ``chip_smoke.py`` phase 4 holds the ``nofma`` build
-against the plain version (equal counters on every lane), so these shares
-are also those of the ``fma`` build against the plain version.  Times: CUDA
+``P_max``/``A_end``; in float32 the two builds must agree bit for bit.
+``chip_smoke.py`` phase 4 holds the package's (``fma``) build against the
+plain version.  Times: CUDA
 events, median of ``--reps`` warm reps, in the order nofma, fma, fma, nofma;
 registers and spills come from each build's ``-Xptxas -v`` output.
 
@@ -45,13 +48,13 @@ CASES = ((torch.float64, 2500, 10), (torch.float32, 2500, 10), (torch.float32, 2
 
 
 def build_variants(_build):
-    """Compile fwm4_rk45.cu with and without -fmad=false, side by side;
-    return ({variant: library path}, {variant: ptxas lines})."""
+    """Compile fwm4_rk45.cu with -fmad=false added and with the package's
+    flags, side by side; return ({variant: library path}, {variant: ptxas
+    lines})."""
     src = _build.CSRC_DIR / "fwm4_rk45.cu"
     out_dir = _build.BUILD_DIR.parent / "fma_ab"
     out_dir.mkdir(parents=True, exist_ok=True)
-    flags = {"nofma": _build.NVCC_FLAGS + _build.SOURCE_FLAGS["fwm4_rk45"],
-             "fma": _build.NVCC_FLAGS}
+    flags = {"nofma": _build._flags(src) + ("-fmad=false",), "fma": _build._flags(src)}
     procs = {name: subprocess.Popen(
         [_build.find_nvcc(), *f, "-o", str(out_dir / f"libfwm4_rk45_{name}.so"), str(src)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for name, f in flags.items()}
@@ -129,6 +132,8 @@ def main():
             dtype=str(rdt)[6:], n_steps=n_steps, save_every=save_every, lanes=N_POINTS,
             counters_agree_share=float(same.double().mean()),
             ok_equal=bool(torch.equal(a.ok, b.ok)),
+            bitwise=all(bool(torch.equal(getattr(a, f), getattr(b, f)))
+                        for f in ("P_max", "A_end", "ok", "n_accepted", "n_rejected")),
             max_rel_P_max=float(rel_err(b.P_max, a.P_max).max()),
             max_rel_A_end=float(rel_err(b.A_end, a.A_end).max()),
             max_rel_P_max_equal_counters=float(rel_err(b.P_max, a.P_max)[same].max()),

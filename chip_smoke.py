@@ -37,19 +37,25 @@ Phases (any failure raises, and the script exits non-zero):
 8. the default device: ``gain_spectrum`` with ``device`` left out launches
    the kernel;
 9. times (median of 5 warm reps) of the kernels and of ``gain_spectrum``
-   end to end; the plain versions are timed once each, in phases 3 and 4;
+   end to end; the plain versions are timed once each, in phases 3 and 4.
+   Beside K3's time: its attempts a lane (mean, max, max / mean) and the
+   tail lane's time an attempt (the kernel's time over the max); beside
+   each 4-wave kernel's: its launch (threads a lane, ptxas's registers and
+   spills, warps in all and resident at once);
 10. one ``run_single_simulation`` on the card against the 45.292 dB anchor;
 11. comb kernel K4 (``csrc/comb_rk.cu``) vs its plain version on the card at
     the ``bench_comb.py`` configuration (N = 64 lines, 4,096 combs over a
     gamma grid, 1,000 steps over 500 m, ``save_every=100``) with one comb
-    made to blow up and a run with a trailing partial interval (1,005
-    steps): fp64 rk4/ab4/abm4 within 1e-11 and fp32 rk4 within 1e-4 of each
+    made to blow up, 1,000 steps for rk4 and 500 for ab4 and abm4, and a
+    run with a trailing partial interval (505 steps, rk4): fp64
+    rk4/ab4/abm4 within 1e-11 and fp32 rk4 within 1e-4 of each
     comb's largest value (normwise: a weak line carries the cubic sum's
     rounding relative to the pumps), equal ``ok``, the bad comb frozen and
     finite;
 12. comb kernel K5 (``csrc/comb_rk45.cu``) vs its plain version, same
     configuration, fp64 at rtol 1e-9/atol 1e-12 and fp32 at 1e-6/1e-10
-    (``bench_comb.py:305-306``), with a bad comb: fp64 step counters equal
+    (``bench_comb.py:305-306``), with a bad comb, 1,000 steps and, in
+    fp64, a trailing partial interval (505 steps): fp64 step counters equal
     on >= 99% of combs, results within 1e-9 there and 10 x rtol on all;
     fp32 equal ``ok`` and ``P_max`` and ``A_end`` within 1e-3 (the plain
     version computes the cubic sum with the kernel's passes and rounding
@@ -342,6 +348,45 @@ def strang_layout(_build, source, n, P, rdt, op=None):
             f"threads, {regs} registers, spill stores/loads {spill} bytes, {blocks} blocks an "
             f"SM (from the registers and {smem} bytes of shared memory), {2 * passes} barriers "
             f"a Strang step ({passes} passes a transform)")
+
+
+def fwm4_layout(_build, source, B, rdt):
+    """The launch of a 4-wave kernel (``csrc/fwm4_rk.cu`` rk4, or
+    ``csrc/fwm4_rk45.cu``) at B lanes, as one line: the threads a lane G (one
+    for K1/K2; for K3 the launcher's pick, ``fwm4_rk45_group``), ptxas's
+    registers and spills of that instantiation (``fwm4_rk_kernel<T, 0>``
+    or ``fwm4_rk45_kernel<T, G>``, found by its mangled name), the warps the
+    launch makes, and the warps resident at once (128-thread blocks; an SM
+    holds as many as its 65,536 registers, 2,048 threads and 32 blocks
+    allow)."""
+    G = 1
+    if source == "fwm4_rk45":
+        fn = _build.load_library(source).fwm4_rk45_group
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+        G = fn(B)
+    t = "d" if rdt == torch.float64 else "f"
+    args = f"I{t}Li0EE" if source == "fwm4_rk" else f"I{t}Li{G}EE"
+    entry = f"{len(source) + 7}{source}_kernel{args}Ev"
+    regs = spill = None
+    lines = _build.build_log().splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry" in line and entry in line:
+            for info in lines[i + 1:i + 6]:
+                if "Compiling entry" in info:
+                    break
+                m = re.search(r"Used (\d+) registers", info)
+                regs = int(m.group(1)) if m else regs
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", info)
+                spill = (int(m.group(1)), int(m.group(2))) if m else spill
+            break
+    if regs is None:
+        raise AssertionError(f"no ptxas entry of the launched instance {entry} in the build log")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_sm = min(2048 // 128, 32, 65_536 // (-(-regs // 8) * 8 * 128))
+    warps = -(-B * G // 32)
+    return (f"G = {G} threads a lane, {regs} registers, spill stores/loads {spill} bytes; "
+            f"{warps} warps in {-(-B * G // 128)} blocks of 128 threads, "
+            f"{min(warps, 4 * sms * per_sm)} resident at once ({per_sm} blocks an SM, {sms} SMs)")
 
 
 def ops_ms(flop, rdt):
@@ -736,10 +781,14 @@ def normwise(k, p):
 
 def check_comb_kernel(psa, cc, dev, max_err, plain_ms):
     """Phase 11: comb_rk.cu against its plain version at the bench size.
-    The plain version's rk4 run at 1,000 steps of each dtype is its time."""
+    The plain version's rk4 run at 1,000 steps of each dtype is its time;
+    the other runs take half the steps (the plain version's time follows
+    them)."""
     bad = COMB_B // 2
-    cases = [(torch.float64, m, COMB_STEPS) for m in ("rk4", "ab4", "abm4")]
-    cases += [(torch.float64, "rk4", COMB_STEPS + 5), (torch.float32, "rk4", COMB_STEPS)]
+    half = COMB_STEPS // 2
+    cases = [(torch.float64, "rk4", COMB_STEPS), (torch.float64, "ab4", half),
+             (torch.float64, "abm4", half), (torch.float64, "rk4", half + 5),
+             (torch.float32, "rk4", COMB_STEPS)]
     for rdt, method, n_steps in cases:
         t = comb_lanes(psa, rdt, dev, bad)
         kw = dict(dz_m=COMB_Z / COMB_STEPS, n_steps=n_steps, save_every=COMB_SAVE,
@@ -772,7 +821,7 @@ def check_comb_rk45_kernel(psa, cca, dev, max_err, plain_ms, steps):
     """Phase 12: comb_rk45.cu against its plain version at the bench size.
     The plain version's run at 1,000 steps of each dtype is its time."""
     bad = COMB_B // 2
-    for rdt, n_steps in ((torch.float64, COMB_STEPS), (torch.float64, COMB_STEPS + 5),
+    for rdt, n_steps in ((torch.float64, COMB_STEPS), (torch.float64, COMB_STEPS // 2 + 5),
                          (torch.float32, COMB_STEPS)):
         rtol, atol = COMB_TOL[rdt]
         t = comb_lanes(psa, rdt, dev, bad)
@@ -1921,7 +1970,7 @@ def main():
 
     # --- 9. times ----------------------------------------------------------------
     kw = dict(dz_m=0.2, n_steps=2500, save_every=10, integrator="rk4")
-    ms, bound_ms, bound_by, bytes_of = {}, {}, {}, {}
+    ms, bound_ms, bound_by, bytes_of, layout = {}, {}, {}, {}, {}
 
     def bound(name, rdt, flops, nbytes):
         t_ops, t_bytes = flops / PEAK_FLOPS[rdt], nbytes / PEAK_BYTES
@@ -1933,6 +1982,7 @@ def main():
         name = f"fwm4_rk_{suffix(rdt)}"
         t = lanes(psa, common, N_POINTS, rdt, dev)
         ms[name] = 1e3 * timed(lambda: cs.solve_batch_cuda(*t, **kw))
+        layout[name] = fwm4_layout(_build, "fwm4_rk", N_POINTS, rdt)
         # inputs: A0 (8 reals), gamma, alpha, dbeta; outputs: P_max (4),
         # A_end (8), ok (1 byte)
         bound(name, rdt, N_POINTS * (2500 * RK4_STEP_FLOP[rdt] + 250 * SAVE_FLOP),
@@ -1952,6 +2002,7 @@ def main():
               + N_POINTS * (RHS_FLOP + 250 * SAVE_FLOP),
               N_POINTS * ((3 + 8 + 4 + 8) * rdt.itemsize + 1 + 8))
         steps[name + "_timed"] = (float(attempts.mean()), int(attempts.max()))
+        layout[name] = fwm4_layout(_build, "fwm4_rk45", N_POINTS, rdt)
     e2e = {}
     for label, cfg in (("rk4 df32", cfg_for(psa, "df32")), ("rk4 x32", cfg_for(psa, "x32")),
                        ("rk45 df32", cfg45_for(psa, "df32")), ("rk45 x32", cfg45_for(psa, "x32"))):
@@ -1962,13 +2013,17 @@ def main():
         extra = f"; plain version on the card (one run, phase 3) {plain_ms[name]:.1f} ms"
         if name.startswith("fwm4_rk45"):
             mean, mx = steps[name + "_timed"]
-            extra = (f"; attempted steps per lane mean {mean:.1f}, max {mx}; plain version on "
-                     f"the card over 100 m (one run, phase 4) {plain_ms[name]:.1f} ms")
+            extra = (f"; attempted steps per lane mean {mean:.1f}, max {mx}, max / mean "
+                     f"{mx / mean:.3f}; the tail lane's time an attempt (kernel time / max "
+                     f"attempts) {1e3 * ms[name] / mx:.4f} us; plain version on the card over "
+                     f"100 m (one run, phase 4) {plain_ms[name]:.1f} ms")
         log(f"  {name} {N_POINTS} points: {ms[name]:.3f} ms = {N_POINTS / ms[name] * 1e3:.1f} "
             f"pts/s; bound {bound_ms[name]:.3f} ms ({bound_by[name]}; {bytes_of[name]} bytes)"
             f"{extra}")
+        log(f"    launch: {layout[name]}")
     log(f"  fwm4_rk_f64 {N_STEADY} points: {ms_steady:.3f} ms = "
         f"{N_STEADY / ms_steady * 1e3:.1f} pts/s")
+    log(f"    launch: {fwm4_layout(_build, 'fwm4_rk', N_STEADY, torch.float64)}")
     for label, sec in e2e.items():
         log(f"  gain_spectrum end to end, {label}, {N_POINTS} points: {sec * 1e3:.3f} ms = "
             f"{N_POINTS / sec:.1f} pts/s")

@@ -15,7 +15,9 @@ calls of the kernel's wrapper (host clock with synchronize, ``chip_smoke.
 timed``):
 
 - K1/K2 (``csrc/fwm4_rk.cu``), 10^4 lanes, 2,500 rk4 steps, and K3
-  (``csrc/fwm4_rk45.cu``), fp64 and fp32;
+  (``csrc/fwm4_rk45.cu``), fp64 and fp32; K1 fp64 at 250,000 lanes; K3 at
+  50,000, 100,000 and 250,000 lanes too (``K3_BATCHES``), where its
+  launcher runs a lane on one thread;
 - K4 (``csrc/comb_rk.cu``), 4,096 combs of 64 lines, 1,000 steps: rk4 fp64
   and fp32, ab4 and abm4 fp64; K5 (``csrc/comb_rk45.cu``) fp64 and fp32;
 - K6 (``csrc/gnlse_ssfm.cu``), 2,048 envelopes of 1,024 samples, 1,000
@@ -53,8 +55,11 @@ import torch
 
 from chip_smoke import (COMB_STEPS, COMB_SAVE, COMB_TOL, COMB_Z, GN_B45, GN_OMEGA0, GN_SAVE,
                         GN_STEPS, GN_T, GN_T0, GN_TOL, GN_Z, LLE_B45, LLE_DT, LLE_SAVE, LLE_STEPS,
-                        LLE_TOL, N_POINTS, RK45_TOL, VG_CASES, bench_common, comb_lanes,
+                        LLE_TOL, N_POINTS, N_STEADY, RK45_TOL, VG_CASES, bench_common, comb_lanes,
                         gnlse_lanes, lanes, lle_lanes, suffix, timed, vgnlse_lanes)
+
+# K3's larger batches, 256 lanes an SM and more on an H100
+K3_BATCHES = (50_000, 100_000, N_STEADY)
 
 
 def digest(res):
@@ -127,9 +132,18 @@ def main():
         t = lanes(psa, common, N_POINTS, rdt, dev)
         record(f"K1/K2 rk4 {s}", lambda: cs.solve_batch_cuda(
             *t, dz_m=0.2, n_steps=2500, save_every=10, integrator="rk4"))
+        if rdt == torch.float64:
+            t1 = lanes(psa, common, N_STEADY, rdt, dev)
+            record(f"K1 rk4 {s} {N_STEADY} lanes", lambda: cs.solve_batch_cuda(
+                *t1, dz_m=0.2, n_steps=2500, save_every=10, integrator="rk4"))
         rtol, atol = RK45_TOL[rdt]
         record(f"K3 {s}", lambda: ca.solve_batch_rk45_cuda(
             *t, dz_m=0.2, n_steps=2500, save_every=10, rtol=rtol, atol=atol), attempts=True)
+        for B in K3_BATCHES:
+            t3 = lanes(psa, common, B, rdt, dev)
+            record(f"K3 {s} {B} lanes", lambda: ca.solve_batch_rk45_cuda(
+                *t3, dz_m=0.2, n_steps=2500, save_every=10, rtol=rtol, atol=atol),
+                attempts=True)
         tc = comb_lanes(psa, rdt, dev)
         for method in ("rk4", "ab4", "abm4") if rdt == torch.float64 else ("rk4",):
             record(f"K4 {method} {s}", lambda: cc.solve_comb_batch_cuda(

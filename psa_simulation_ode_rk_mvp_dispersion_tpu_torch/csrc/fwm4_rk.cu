@@ -6,13 +6,21 @@
 //   ops/pallas_solver.py::_kernel_body_grouped (K2, the x32 tier; here fp32)
 // with one template, fwm4_rk_kernel<T, METHOD>, T in {double, float}.
 //
-// What bounds it: FP64 (or FP32) FMA throughput.  Each thread keeps its
-// instance's state, RK stages, Adams history, running P_max and last saved
-// state in registers for all n_steps; coefficients and y0 are read once at
-// the start and the outputs written once at the end, so the step loop moves
-// no memory at all.  Known limit, left for later work: at B = 10^4 one
-// thread per instance fills only ~79 blocks of 128 threads on the H100's
-// 132 SMs, so the card is far from full at the main path's batch size.
+// Design: each thread keeps its instance's state, RK stages, Adams history,
+// running P_max and last saved state in registers for all n_steps;
+// coefficients and y0 are read once at the start and the outputs written
+// once at the end, so the step loop moves no memory at all.  A lane's steps
+// are serial, and at the main path's 10^4 lanes (313 warps on the H100's
+// 528 warp schedulers) each warp has its scheduler to itself: a step costs
+// the lane's chain of 4 RHS evaluations and the stage sums, issued by one
+// warp.  The RHS (csrc/fwm4_group.cuh) therefore runs in the order with the
+// shortest chain (fwm4::Order::kShort), not the plain version's; the
+// results stay within the plain version's bars (rounding only).  A lane
+// spread over 2 or 4 threads of a warp, as the rk45 kernel's is, measured
+// within 4% at 1,000-4,000 lanes and slower from 10^4 lanes on: a
+// fixed-step warp already keeps its scheduler's issue slots busy, and a
+// group's shuffles and repeated work cost more than they save (PERF.md).
+// What bounds it: FP64 (or FP32) issue on the schedulers that hold a warp.
 //
 // What it computes (the contract of ops/integrators.integrate_reduce and of
 // the TPU kernels it replaces):
@@ -50,6 +58,8 @@
 
 #include <type_traits>
 
+#include "fwm4_group.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -61,47 +71,13 @@ constexpr int kABM4 = 2;
 template <typename T>
 constexpr bool kCompensated = std::is_same<T, float>::value;
 
-template <typename T>
-struct Coef {
-    T gamma;      // gamma
-    T two_gamma;  // 2 gamma
-    T neg_half_alpha;
-    T neg_half_dbeta;  // pump detuning
-};
+using fwm4::Coef;
 
-// d = f(y); y[0..3] real parts, y[4..7] imaginary parts.
+// d = f(y); y[0..3] real parts, y[4..7] imaginary parts, in the order with
+// the shortest dependency chain (csrc/fwm4_group.cuh).
 template <typename T>
 __device__ __forceinline__ void rhs(const T (&y)[8], const Coef<T>& c, T (&d)[8]) {
-    T P[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) P[j] = y[j] * y[j] + y[4 + j] * y[4 + j];
-    const T tot = ((P[0] + P[1]) + P[2]) + P[3];
-    // loss + Kerr: (-a/2) A + i g F A
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-        const T gF = c.gamma * (T(2) * tot - P[j]);
-        d[j] = c.neg_half_alpha * y[j] - gF * y[4 + j];
-        d[4 + j] = c.neg_half_alpha * y[4 + j] + gF * y[j];
-    }
-    // FWM: i 2g [conj(a2) s34, conj(a1) s34, conj(a4) s12, conj(a3) s12]
-    const T r1 = y[0], r2 = y[1], r3 = y[2], r4 = y[3];
-    const T i1 = y[4], i2 = y[5], i3 = y[6], i4 = y[7];
-    const T s34_re = r3 * r4 - i3 * i4, s34_im = r3 * i4 + i3 * r4;
-    const T s12_re = r1 * r2 - i1 * i2, s12_im = r1 * i2 + i1 * r2;
-    const T t_re[4] = {r2 * s34_re + i2 * s34_im, r1 * s34_re + i1 * s34_im,
-                       r4 * s12_re + i4 * s12_im, r3 * s12_re + i3 * s12_im};
-    const T t_im[4] = {r2 * s34_im - i2 * s34_re, r1 * s34_im - i1 * s34_re,
-                       r4 * s12_im - i4 * s12_re, r3 * s12_im - i3 * s12_re};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-        d[j] -= c.two_gamma * t_im[j];
-        d[4 + j] += c.two_gamma * t_re[j];
-    }
-    // pump detuning: i (-db/2) A on waves 1 and 2
-    d[0] -= c.neg_half_dbeta * i1;
-    d[4] += c.neg_half_dbeta * r1;
-    d[1] -= c.neg_half_dbeta * i2;
-    d[5] += c.neg_half_dbeta * r2;
+    fwm4::rhs<fwm4::Order::kShort>(fwm4::Group<1>(), y, c, d);
 }
 
 // The increment of one RK4 step; k1 = f(y) is handed back for the Adams
@@ -180,11 +156,7 @@ fwm4_rk_kernel(const T* __restrict__ coef, const T* __restrict__ y0, T* __restri
     const int b = blockIdx.x * blockDim.x + threadIdx.x;
     if (b >= B) return;
 
-    Coef<T> c;
-    c.gamma = coef[b];
-    c.two_gamma = T(2) * c.gamma;
-    c.neg_half_alpha = T(-0.5) * coef[B + b];
-    c.neg_half_dbeta = T(-0.5) * coef[2 * B + b];
+    const Coef<T> c = fwm4::load_coef(coef, B, b);
     const T half_dz = T(0.5) * dz;
     const T dz_over_6 = dz / T(6);
 

@@ -1,23 +1,35 @@
 // Batched adaptive (Dormand-Prince 5(4)) integration of the 4-wave FWM
-// system in the rotating (autonomous) frame, one CUDA thread per instance.
+// system in the rotating (autonomous) frame, a lane (one instance) over a
+// group of G threads.
 //
 // Replaces the JAX package's TPU kernel
 //   ops/pallas_adaptive.py::_kernel_body   (K3, the rk45 tier)
-// with one template, fwm4_rk45_kernel<T>, T in {double, float}: float64
+// with one template, fwm4_rk45_kernel<T, G>, T in {double, float}: float64
 // serves x64/df32, float32 serves x32.
 //
-// What bounds it: FP64 (or FP32) arithmetic.  One attempted step is 6 RHS
-// evaluations of 111 flop (the first stage carries over from the last
-// accepted step: FSAL), the stage sums, the error estimate, the error norm
-// and the controller, about 1,190 flop in all; the state, its RHS, the
-// stages, the controller state (local z, dt, counters) and the running P_max
-// live in registers for the whole integration.  Coefficients and y0 are read once and
-// the outputs written once, so the step loop moves no memory.  Lanes of a
-// warp take different numbers of steps and the warp runs until its slowest
-// lane is done; the sweep's sorted wavelength grid keeps neighbouring lanes
-// alike.  Known limits, left for later work: at B = 10^4 one thread per lane
-// fills only ~79 blocks of 128 threads on the H100's 132 SMs, and nothing is
-// done about divergence beyond the lane order.
+// Design: one attempted step is 6 RHS evaluations of 111 flop (the first
+// stage carries over from the last accepted step: FSAL), the stage sums, the
+// error estimate, the error norm and the controller, about 1,190 flop in
+// all.  A lane's attempts are serial, and at the main path's 10^4 lanes
+// every block is resident from the start, so the kernel lasts as long as its
+// slowest lane: on the bench grid the lanes near 1,650 nm take 3x (fp64) to
+// 4x (fp32) the mean attempts, on warp schedulers of their own.  The time to
+// cut is that lane's attempt, a chain of dependent operations.  Below
+// kLanesPerSM lanes an SM a lane is therefore spread over G = 4 threads of
+// one warp (csrc/fwm4_group.cuh): thread j owns wave j -- its parts of the
+// state, the stages k1..k7, y5, the error estimate and P_max, in registers
+// for the whole integration -- computes its wave's derivatives, stage sums
+// and error terms, and takes the RHS couplings and the four terms of the
+// error norm from the group through __shfl_sync.  Every thread of the group
+// evaluates the norm, the step factor, the accept decision and the counters
+// itself from the same values, so the group takes its steps as one.  From
+// kLanesPerSM lanes an SM on, the card's issue rate bounds the kernel, and a
+// lane runs on one thread (G = 1), free to diverge from its warp's other
+// lanes within a segment.  What bounds it at 10^4 lanes: the chain
+// of one attempt in the slowest lane -- 6 RHS, each with two rounds of
+// shuffles, and the controller's sqrt, division and pow, which a group does
+// not shorten.  Coefficients and y0 are read once and the outputs written
+// once, so the step loop moves no memory.
 //
 // What it computes (the contract of ops/adaptive.py and of the TPU kernel it
 // replaces; ops/cuda_adaptive.solve_batch_rk45_torch is the plain version and
@@ -50,22 +62,43 @@
 //
 // Rounding: the plain version (ops/rhs.rhs_yaman_autonomous and
 // ops/adaptive.py) makes one torch operation of every product and sum here,
-// in this order, and this file is compiled with -fmad=false, so kernel and
-// plain version round alike and take the same steps.  In float32 the error
-// estimate is mostly rounding noise, so any difference in rounding would
-// flip accept/reject decisions and send the two down different steps.
+// in this order.  The float32 instantiation forms every product with
+// __fmul_rn (fwm4::Order::kExact), which nvcc never contracts, so it rounds as
+// the plain version and takes the same steps: its error estimate is mostly
+// rounding noise, and any difference in rounding would flip accept/reject
+// decisions.  The float64 instantiation lets nvcc contract products and
+// sums into fused multiply-adds; its error estimate is far above rounding,
+// and it takes the plain version's steps all the same (chip_fma_ab.py).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC -fmad=false (ops/_build.py); bound with ctypes
-// through the extern "C" launchers at the end, each of which returns
+//        -Xcompiler -fPIC (ops/_build.py); bound with ctypes through the
+// extern "C" launchers at the end, each of which returns
 // cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "fwm4_group.cuh"
+
 namespace {
 
+using fwm4::Coef;
+using fwm4::Group;
+
 constexpr int kThreads = 128;
+
+// The plain version's order in both types; float32's products must not
+// contract (see Rounding above).
+template <typename T>
+constexpr fwm4::Order kOrder =
+    std::is_same<T, float>::value ? fwm4::Order::kExact : fwm4::Order::kPlain;
+
+template <typename T>
+__device__ __forceinline__ T mul(T a, T b) {
+    return fwm4::mul<kOrder<T>>(a, b);
+}
 
 // Dormand-Prince 5(4) tableau (ops/adaptive.py), in double; each use casts
 // to T, as the plain version's Python floats are cast to the tensor's type.
@@ -86,225 +119,259 @@ constexpr double kE5 = -2187.0 / 6784.0 - -92097.0 / 339200.0;
 constexpr double kE6 = 11.0 / 84.0 - 187.0 / 2100.0;
 constexpr double kE7 = 0.0 - 1.0 / 40.0;
 
-template <typename T>
-struct Coef {
-    T gamma;
-    T two_gamma;
-    T neg_half_alpha;
-    T neg_half_dbeta;  // pump detuning
-};
-
-// d = f(y); y[0..3] real parts, y[4..7] imaginary parts.  The same term
-// order as csrc/fwm4_rk.cu and pallas_adaptive.py:94-133.
-template <typename T>
-__device__ __forceinline__ void rhs(const T (&y)[8], const Coef<T>& c, T (&d)[8]) {
-    T P[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) P[j] = y[j] * y[j] + y[4 + j] * y[4 + j];
-    const T tot = ((P[0] + P[1]) + P[2]) + P[3];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-        const T gF = c.gamma * (T(2) * tot - P[j]);
-        d[j] = c.neg_half_alpha * y[j] - gF * y[4 + j];
-        d[4 + j] = c.neg_half_alpha * y[4 + j] + gF * y[j];
-    }
-    const T r1 = y[0], r2 = y[1], r3 = y[2], r4 = y[3];
-    const T i1 = y[4], i2 = y[5], i3 = y[6], i4 = y[7];
-    const T s34_re = r3 * r4 - i3 * i4, s34_im = r3 * i4 + i3 * r4;
-    const T s12_re = r1 * r2 - i1 * i2, s12_im = r1 * i2 + i1 * r2;
-    const T t_re[4] = {r2 * s34_re + i2 * s34_im, r1 * s34_re + i1 * s34_im,
-                       r4 * s12_re + i4 * s12_im, r3 * s12_re + i3 * s12_im};
-    const T t_im[4] = {r2 * s34_im - i2 * s34_re, r1 * s34_im - i1 * s34_re,
-                       r4 * s12_im - i4 * s12_re, r3 * s12_im - i3 * s12_re};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-        d[j] -= c.two_gamma * t_im[j];
-        d[4 + j] += c.two_gamma * t_re[j];
-    }
-    d[0] -= c.neg_half_dbeta * i1;
-    d[4] += c.neg_half_dbeta * r1;
-    d[1] -= c.neg_half_dbeta * i2;
-    d[5] += c.neg_half_dbeta * r2;
+template <int G, typename T>
+__device__ __forceinline__ void rhs(const Group<G>& grp, const T (&y)[8 / G], const Coef<T>& c,
+                                    T (&d)[8 / G]) {
+    fwm4::rhs<kOrder<T>>(grp, y, c, d);
 }
 
 // acc += (h*a) * k, component-wise
-template <typename T>
-__device__ __forceinline__ void axpy(T (&acc)[8], T ha, const T (&k)[8]) {
+template <int Q, typename T>
+__device__ __forceinline__ void axpy(T (&acc)[Q], T ha, const T (&k)[Q]) {
 #pragma unroll
-    for (int q = 0; q < 8; ++q) acc[q] = acc[q] + ha * k[q];
+    for (int q = 0; q < Q; ++q) acc[q] = acc[q] + mul(ha, k[q]);
 }
 
 // One Dormand-Prince step of size h from y, whose first stage k1 = f(y) is
 // given: y5, the error estimate, and k7 = f(y5), the first stage of the step
 // after an accepted one (FSAL), so an attempt evaluates the RHS six times.
 // A stage vector lives only until its last use, which keeps at most five of
-// them (40 values) live at once.
-template <typename T>
-__device__ __forceinline__ void dp45(const T (&y)[8], const T (&k1)[8], const Coef<T>& c, T h,
-                                     T (&y5)[8], T (&err)[8], T (&k7)[8]) {
-    T k2[8], k3[8], k4[8], k5[8], k6[8], yi[8];
+// them live at once.  Each array holds the thread's own components.
+template <int G, typename T>
+__device__ __forceinline__ void dp45(const Group<G>& grp, const T (&y)[8 / G],
+                                     const T (&k1)[8 / G], const Coef<T>& c, T h,
+                                     T (&y5)[8 / G], T (&err)[8 / G], T (&k7)[8 / G]) {
+    constexpr int Q = 8 / G;
+    T k2[Q], k3[Q], k4[Q], k5[Q], k6[Q], yi[Q];
 #pragma unroll
-    for (int q = 0; q < 8; ++q) yi[q] = y[q];
-    axpy(yi, h * T(kA21), k1);
-    rhs(yi, c, k2);
+    for (int q = 0; q < Q; ++q) yi[q] = y[q];
+    axpy(yi, mul(h, T(kA21)), k1);
+    rhs(grp, yi, c, k2);
 #pragma unroll
-    for (int q = 0; q < 8; ++q) yi[q] = y[q];
-    axpy(yi, h * T(kA31), k1);
-    axpy(yi, h * T(kA32), k2);
-    rhs(yi, c, k3);
+    for (int q = 0; q < Q; ++q) yi[q] = y[q];
+    axpy(yi, mul(h, T(kA31)), k1);
+    axpy(yi, mul(h, T(kA32)), k2);
+    rhs(grp, yi, c, k3);
 #pragma unroll
-    for (int q = 0; q < 8; ++q) yi[q] = y[q];
-    axpy(yi, h * T(kA41), k1);
-    axpy(yi, h * T(kA42), k2);
-    axpy(yi, h * T(kA43), k3);
-    rhs(yi, c, k4);
+    for (int q = 0; q < Q; ++q) yi[q] = y[q];
+    axpy(yi, mul(h, T(kA41)), k1);
+    axpy(yi, mul(h, T(kA42)), k2);
+    axpy(yi, mul(h, T(kA43)), k3);
+    rhs(grp, yi, c, k4);
 #pragma unroll
-    for (int q = 0; q < 8; ++q) yi[q] = y[q];
-    axpy(yi, h * T(kA51), k1);
-    axpy(yi, h * T(kA52), k2);
-    axpy(yi, h * T(kA53), k3);
-    axpy(yi, h * T(kA54), k4);
-    rhs(yi, c, k5);
+    for (int q = 0; q < Q; ++q) yi[q] = y[q];
+    axpy(yi, mul(h, T(kA51)), k1);
+    axpy(yi, mul(h, T(kA52)), k2);
+    axpy(yi, mul(h, T(kA53)), k3);
+    axpy(yi, mul(h, T(kA54)), k4);
+    rhs(grp, yi, c, k5);
 #pragma unroll
-    for (int q = 0; q < 8; ++q) yi[q] = y[q];
-    axpy(yi, h * T(kA61), k1);
-    axpy(yi, h * T(kA62), k2);
-    axpy(yi, h * T(kA63), k3);
-    axpy(yi, h * T(kA64), k4);
-    axpy(yi, h * T(kA65), k5);
-    rhs(yi, c, k6);
+    for (int q = 0; q < Q; ++q) yi[q] = y[q];
+    axpy(yi, mul(h, T(kA61)), k1);
+    axpy(yi, mul(h, T(kA62)), k2);
+    axpy(yi, mul(h, T(kA63)), k3);
+    axpy(yi, mul(h, T(kA64)), k4);
+    axpy(yi, mul(h, T(kA65)), k5);
+    rhs(grp, yi, c, k6);
     // the seventh stage's input is the 5th-order solution (b5 = a7)
 #pragma unroll
-    for (int q = 0; q < 8; ++q) y5[q] = y[q];
-    axpy(y5, h * T(kA71), k1);
-    axpy(y5, h * T(kA73), k3);
-    axpy(y5, h * T(kA74), k4);
-    axpy(y5, h * T(kA75), k5);
-    axpy(y5, h * T(kA76), k6);
+    for (int q = 0; q < Q; ++q) y5[q] = y[q];
+    axpy(y5, mul(h, T(kA71)), k1);
+    axpy(y5, mul(h, T(kA73)), k3);
+    axpy(y5, mul(h, T(kA74)), k4);
+    axpy(y5, mul(h, T(kA75)), k5);
+    axpy(y5, mul(h, T(kA76)), k6);
 #pragma unroll
-    for (int q = 0; q < 8; ++q) err[q] = T(0);
-    axpy(err, h * T(kE1), k1);
-    axpy(err, h * T(kE3), k3);
-    axpy(err, h * T(kE4), k4);
-    axpy(err, h * T(kE5), k5);
-    axpy(err, h * T(kE6), k6);
-    rhs(y5, c, k7);
-    axpy(err, h * T(kE7), k7);
+    for (int q = 0; q < Q; ++q) err[q] = T(0);
+    axpy(err, mul(h, T(kE1)), k1);
+    axpy(err, mul(h, T(kE3)), k3);
+    axpy(err, mul(h, T(kE4)), k4);
+    axpy(err, mul(h, T(kE5)), k5);
+    axpy(err, mul(h, T(kE6)), k6);
+    rhs(grp, y5, c, k7);
+    axpy(err, mul(h, T(kE7)), k7);
 }
 
-template <typename T>
+// One attempted step of size h from y (first stage k1): the 5th-order
+// solution y5, its RHS k7, and the controller's verdict -- accept, and the
+// step factor.  Every thread of the group evaluates the norm, the factor and
+// the verdict itself, from the same gathered values, so the group takes each
+// decision as one.
+template <int G, typename T>
+__device__ __forceinline__ void attempt(const Group<G>& grp, const T (&y)[8 / G],
+                                        const T (&k1)[8 / G], const Coef<T>& c, T h, T rtol,
+                                        T atol, T (&y5)[8 / G], T (&k7)[8 / G], bool& accept,
+                                        T& factor) {
+    constexpr int W = 4 / G, Q = 8 / G;
+    T err[Q];
+    dp45(grp, y, k1, c, h, y5, err, k7);
+    // the norm's terms (|err_j| / scale_j)^2 of the owned waves
+    T rr[W];
+    bool fin = true;
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+        const T p = mul(y[w], y[w]) + mul(y[W + w], y[W + w]);
+        const T pn = mul(y5[w], y5[w]) + mul(y5[W + w], y5[W + w]);
+        const T scale = atol + mul(rtol, sqrt(fmax(p, pn)));
+        const T e = sqrt(mul(err[w], err[w]) + mul(err[W + w], err[W + w]));
+        const T r = scale > T(0) ? e / scale : T(0);
+        rr[w] = mul(r, r);
+        fin = fin && isfinite(y5[w]) && isfinite(y5[W + w]);
+    }
+    // summed in wave order, j = 0..3, in every thread of the group
+    T sum = grp.get(rr[0], 0);
+#pragma unroll
+    for (int j = 1; j < 4; ++j) sum = sum + grp.get(rr[j % W], j / W);
+    const T enorm = sqrt(sum / T(4));
+    const bool finite = grp.all(fin) && isfinite(enorm);
+    accept = finite && enorm <= T(1);
+    factor = finite
+        ? fmin(fmax(mul(T(0.9), pow(fmax(enorm, T(1e-16)), T(-1.0 / 5.0))), T(0.2)), T(5))
+        : T(0.5);
+}
+
+// A lane's integration state, in each thread of its group.
+template <int G, typename T>
 struct Lane {
-    T y[8];
-    T k1[8];  // f(y): the next attempt's first stage
+    T y[8 / G];
+    T k1[8 / G];  // f(y): the next attempt's first stage
     T dt;
     bool ok;
     int n_acc;
     int n_rej;
 };
 
-// Advance one lane over a segment of length len in local z.
-template <typename T>
-__device__ __forceinline__ void advance(Lane<T>& s, const Coef<T>& c, double len, T rtol,
-                                        T atol, int max_steps) {
+// Advance a lane over a segment of length len in local z.  A lane on one
+// thread runs while it is live, its warp's threads diverging freely; a
+// group's shuffles name the whole warp, so a group runs while any lane of
+// its warp is live, and a lane that is not computes along and commits
+// nothing.  Either way the warp's threads meet again at the segment's end.
+template <int G, typename T>
+__device__ __forceinline__ void advance(const Group<G>& grp, Lane<G, T>& s, const Coef<T>& c,
+                                        double len, T rtol, T atol, int max_steps) {
+    constexpr int Q = 8 / G;
     const T seg = T(len);
     const T dt_min = T(1e-12 * (len + 1.0));
     T z = T(0);
-    for (int it = 0; it < max_steps && s.ok && z < seg; ++it) {
-        const T h = fmin(s.dt, seg - z);
-        T y5[8], err[8], k7[8];
-        dp45(s.y, s.k1, c, h, y5, err, k7);
-        T sum = T(0);
-        bool fin = true;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const T p = s.y[j] * s.y[j] + s.y[4 + j] * s.y[4 + j];
-            const T pn = y5[j] * y5[j] + y5[4 + j] * y5[4 + j];
-            const T scale = atol + rtol * sqrt(fmax(p, pn));
-            const T e = sqrt(err[j] * err[j] + err[4 + j] * err[4 + j]);
-            const T r = scale > T(0) ? e / scale : T(0);
-            sum = j == 0 ? r * r : sum + r * r;
-            fin = fin && isfinite(y5[j]) && isfinite(y5[4 + j]);
-        }
-        const T enorm = sqrt(sum / T(4));
-        const bool finite = fin && isfinite(enorm);
-        const bool accept = finite && enorm <= T(1);
-        const T factor = finite
-            ? fmin(fmax(T(0.9) * pow(fmax(enorm, T(1e-16)), T(-1.0 / 5.0)), T(0.2)), T(5))
-            : T(0.5);
-        s.dt = fmax(s.dt * factor, dt_min);
-        if (accept) {
-            z = z + h;
-#pragma unroll
-            for (int q = 0; q < 8; ++q) {
-                s.y[q] = y5[q];
-                s.k1[q] = k7[q];
-            }
-            ++s.n_acc;
+    for (int it = 0;; ++it) {
+        const bool live = it < max_steps && s.ok && z < seg;
+        if constexpr (G == 1) {
+            if (!live) break;
         } else {
-            ++s.n_rej;
-            if (h <= dt_min) s.ok = false;
+            if (!__any_sync(fwm4::kFullMask, live)) break;
+        }
+        const T h = fmin(s.dt, seg - z);
+        T y5[Q], k7[Q], factor;
+        bool accept;
+        attempt(grp, s.y, s.k1, c, h, rtol, atol, y5, k7, accept, factor);
+        if (live) {
+            s.dt = fmax(mul(s.dt, factor), dt_min);
+            if (accept) {
+                z = z + h;
+#pragma unroll
+                for (int q = 0; q < Q; ++q) {
+                    s.y[q] = y5[q];
+                    s.k1[q] = k7[q];
+                }
+                ++s.n_acc;
+            } else {
+                ++s.n_rej;
+                if (h <= dt_min) s.ok = false;
+            }
         }
     }
     if (!(z >= seg)) s.ok = false;
 }
 
-template <typename T>
+template <typename T, int G>
 __global__ void __launch_bounds__(kThreads)
 fwm4_rk45_kernel(const T* __restrict__ coef, const T* __restrict__ y0, T* __restrict__ pmax_out,
                  T* __restrict__ y_last_out, uint8_t* __restrict__ ok_out,
                  int32_t* __restrict__ n_acc_out, int32_t* __restrict__ n_rej_out, int B,
                  int n_chunks, double seg_len, double tail_len, double dt0, T rtol, T atol,
                  int max_steps) {
-    const int b = blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= B) return;
+    constexpr int W = 4 / G;
+    const int b = static_cast<int>((blockIdx.x * blockDim.x + threadIdx.x) / G);
+    if (b >= B) return;  // the whole group: blockDim is a multiple of G
+    const Group<G> grp;
+    const int j0 = grp.g * W;  // the first wave this thread owns
 
-    Coef<T> c;
-    c.gamma = coef[b];
-    c.two_gamma = T(2) * c.gamma;
-    c.neg_half_alpha = T(-0.5) * coef[B + b];
-    c.neg_half_dbeta = T(-0.5) * coef[2 * B + b];
-
-    Lane<T> s;
+    const Coef<T> c = fwm4::load_coef(coef, B, b);
+    Lane<G, T> s;
 #pragma unroll
-    for (int q = 0; q < 8; ++q) s.y[q] = y0[q * B + b];
-    rhs(s.y, c, s.k1);
+    for (int w = 0; w < W; ++w) {
+        s.y[w] = y0[(j0 + w) * B + b];
+        s.y[W + w] = y0[(4 + j0 + w) * B + b];
+    }
+    rhs(grp, s.y, c, s.k1);
     s.dt = T(dt0);
     s.ok = true;
     s.n_acc = 0;
     s.n_rej = 0;
-    T pmax[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) pmax[j] = s.y[j] * s.y[j] + s.y[4 + j] * s.y[4 + j];
+    T pmax[W];
+    fwm4::powers<kOrder<T>, G>(s.y, pmax);
 
     for (int i = 0; i < n_chunks; ++i) {
-        advance(s, c, seg_len, rtol, atol, max_steps);
+        advance(grp, s, c, seg_len, rtol, atol, max_steps);
+        T P[W];
+        fwm4::powers<kOrder<T>, G>(s.y, P);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const T P = s.y[j] * s.y[j] + s.y[4 + j] * s.y[4 + j];
-            pmax[j] = P > pmax[j] ? P : pmax[j];
-        }
+        for (int w = 0; w < W; ++w) pmax[w] = P[w] > pmax[w] ? P[w] : pmax[w];
     }
 #pragma unroll
-    for (int q = 0; q < 8; ++q) y_last_out[q * B + b] = s.y[q];
-    if (tail_len > 0.0) advance(s, c, tail_len, rtol, atol, max_steps);
+    for (int w = 0; w < W; ++w) {
+        y_last_out[(j0 + w) * B + b] = s.y[w];
+        y_last_out[(4 + j0 + w) * B + b] = s.y[W + w];
+    }
+    if (tail_len > 0.0) advance(grp, s, c, tail_len, rtol, atol, max_steps);
 
 #pragma unroll
-    for (int j = 0; j < 4; ++j) pmax_out[j * B + b] = pmax[j];
-    ok_out[b] = s.ok ? 1 : 0;
-    n_acc_out[b] = s.n_acc;
-    n_rej_out[b] = s.n_rej;
+    for (int w = 0; w < W; ++w) pmax_out[(j0 + w) * B + b] = pmax[w];
+    if (grp.g == 0) {
+        ok_out[b] = s.ok ? 1 : 0;
+        n_acc_out[b] = s.n_acc;
+        n_rej_out[b] = s.n_rej;
+    }
+}
+
+// Threads a lane for a batch of B lanes on the current card: 4 below
+// kLanesPerSM lanes an SM, where the kernel lasts as long as its slowest
+// lane's chain of attempts, 1 from there on, where the card's issue rate
+// bounds it and a group's shuffles and repeated work cost more than they
+// save (chip_fwm4_groups.py; PERF.md).
+constexpr int kLanesPerSM = 256;
+
+int group_size(int B) {
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    return B >= kLanesPerSM * sms ? 1 : 4;
+}
+
+template <typename T, int G>
+void launch_group(const void* coef, const void* y0, void* pmax, void* y_last, void* ok,
+                  void* n_acc, void* n_rej, int B, int n_chunks, double seg_len,
+                  double tail_len, double dt0, double rtol, double atol, int max_steps,
+                  void* stream) {
+    const int blocks = static_cast<int>((static_cast<long long>(B) * G + kThreads - 1) / kThreads);
+    fwm4_rk45_kernel<T, G><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(coef), static_cast<const T*>(y0), static_cast<T*>(pmax),
+        static_cast<T*>(y_last), static_cast<uint8_t*>(ok), static_cast<int32_t*>(n_acc),
+        static_cast<int32_t*>(n_rej), B, n_chunks, seg_len, tail_len, dt0, static_cast<T>(rtol),
+        static_cast<T>(atol), max_steps);
 }
 
 template <typename T>
 int launch(const void* coef, const void* y0, void* pmax, void* y_last, void* ok, void* n_acc,
            void* n_rej, int B, int n_chunks, double seg_len, double tail_len, double dt0,
            double rtol, double atol, int max_steps, void* stream) {
-    const int blocks = (B + kThreads - 1) / kThreads;
-    fwm4_rk45_kernel<T><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(coef), static_cast<const T*>(y0), static_cast<T*>(pmax),
-        static_cast<T*>(y_last), static_cast<uint8_t*>(ok), static_cast<int32_t*>(n_acc),
-        static_cast<int32_t*>(n_rej), B, n_chunks, seg_len, tail_len, dt0, static_cast<T>(rtol),
-        static_cast<T>(atol), max_steps);
+    if (group_size(B) == 1) {
+        launch_group<T, 1>(coef, y0, pmax, y_last, ok, n_acc, n_rej, B, n_chunks, seg_len,
+                           tail_len, dt0, rtol, atol, max_steps, stream);
+    } else {
+        launch_group<T, 4>(coef, y0, pmax, y_last, ok, n_acc, n_rej, B, n_chunks, seg_len,
+                           tail_len, dt0, rtol, atol, max_steps, stream);
+    }
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -321,3 +388,7 @@ int launch(const void* coef, const void* y0, void* pmax, void* y_last, void* ok,
 
 FWM4_RK45_LAUNCHER(fwm4_rk45_f64, double)
 FWM4_RK45_LAUNCHER(fwm4_rk45_f32, float)
+
+// The threads a lane the launchers above give a batch of B lanes on the
+// current card.
+extern "C" int fwm4_rk45_group(int B) { return group_size(B); }

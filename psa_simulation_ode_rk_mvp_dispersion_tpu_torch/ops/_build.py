@@ -40,16 +40,18 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",  # registers, shared memory and spills, kept in the build log
 )
 
-# Per-source additions.  The rk45 kernels: no FMA contraction, so that the
-# kernel rounds as its plain version (one torch operation per product and
-# sum) and the two take the same adaptive steps; with contraction the fp32
-# 4-wave kernel takes other steps on about a sixth of the lanes
-# (chip_fma_ab.py builds both and compares them).
+# Per-source additions.  The comb rk45 kernel: no FMA contraction, so that
+# the kernel rounds as its plain version (one torch operation per product
+# and sum) and the two take the same adaptive steps.  The 4-wave rk45 kernel
+# (fwm4_rk45.cu) keeps its float32 products apart in the source instead
+# (__fmul_rn), which lets its float64 instantiation use FMA; with
+# contraction in float32 it took other steps on about a sixth of the lanes
+# (chip_fma_ab.py builds the source with and without -fmad=false).
 #
 # The two sources with the most kernels: ptxas compiles their kernels on
 # every core at once, which cuts the longest compile of the build (the SASS
 # is the one a single-threaded ptxas makes; PERF.md).
-SOURCE_FLAGS = {"fwm4_rk45": ("-fmad=false",), "comb_rk45": ("-fmad=false",),
+SOURCE_FLAGS = {"comb_rk45": ("-fmad=false",),
                 "gnlse_ssfm": ("-Xptxas", "--split-compile=0"),
                 "vgnlse_ssfm": ("-Xptxas", "--split-compile=0")}
 

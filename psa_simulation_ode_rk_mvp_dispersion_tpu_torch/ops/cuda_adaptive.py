@@ -14,10 +14,12 @@ serves ``x64``/``df32``, float32 serves ``x32``.
   integration through ``ops/adaptive.integrate_adaptive_reduce``, batched
   over ``(B, 4)`` complex tensors.  Its RHS, ``ops/rhs.rhs_yaman_autonomous``,
   is written in the kernel's real arithmetic, operation for operation, and
-  the kernel is compiled without FMA contraction (``ops/_build.py``), so the
-  two take the same steps: in float32 the error estimate is mostly rounding
-  noise, and any difference in rounding would flip accept/reject decisions.
-  The CPU path and the comparisons on the card use it.
+  the kernel's float32 instantiation forms its products without FMA
+  contraction (``__fmul_rn``), so the two take the same steps: in float32
+  the error estimate is mostly rounding noise, and any difference in
+  rounding would flip accept/reject decisions.  The float64 instantiation
+  contracts, and takes the same steps all the same.  The CPU path and the
+  comparisons on the card use it.
 
 Both integrate ``n_steps // save_every`` saved segments of length
 ``save_every * dz`` and then the trailing ``n_steps % save_every`` steps'

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Rehearse the split-step kernels (K6 nl, K7, K8, K9) and the comb kernels
-(K4, K5) on the CPU, before a card is at hand, with a block's threads run as
-host threads.
+"""Rehearse the split-step kernels (K6 nl, K7, K8, K9), the comb kernels (K4,
+K5) and the 4-wave kernels (K1/K2, K3) on the CPU, before a card is at hand,
+with a block's threads run as host threads.
 
 Run from the root of a checkout on a machine with g++ (C++20; no card, no
 nvcc):
@@ -9,8 +9,9 @@ nvcc):
     python3 ssfm_host_rehearsal.py
 
 It compiles ``csrc/gnlse_ssfm.cu``, ``csrc/lle_ssfm.cu``,
-``csrc/ssfm_rk45.cu``, ``csrc/vgnlse_ssfm.cu``, ``csrc/comb_rk.cu`` and
-``csrc/comb_rk45.cu`` as host C++ into
+``csrc/ssfm_rk45.cu``, ``csrc/vgnlse_ssfm.cu``, ``csrc/comb_rk.cu``,
+``csrc/comb_rk45.cu``, ``csrc/fwm4_rk.cu`` and ``csrc/fwm4_rk45.cu`` as
+host C++ into
 ``build/host_rehearsal/``.  A stub ``cuda_runtime.h`` defines the CUDA
 qualifiers away and runs each block of a ``<<<grid, block, ...>>>`` launch as
 ``block`` ``std::thread``s, one block after another: ``threadIdx`` is
@@ -19,9 +20,12 @@ block's threads, ``__syncthreads_and`` ANDs its argument over them at that
 barrier; each group of 32 threads is a warp with a barrier of its own:
 ``__syncwarp`` waits there, ``__all_sync`` ANDs over the warp, and
 ``__shfl_down_sync`` and ``__shfl_xor_sync`` exchange through the warp's
-array between two warp barriers; ``__ldg`` is a load and ``extern
-__shared__`` one static buffer; ``-ffp-contract=off`` as torch's CPU kernels
-round.  So the threads' ownership of samples and the barriers between passes
+array between two warp barriers, as does ``__shfl_sync`` within segments
+of its width, and ``__any_sync`` ORs over the warp; a thread that returns
+drops out of its warp's barrier; ``__ldg`` is a load and ``extern __shared__`` one static buffer; ``__fmul_rn`` and
+``__dmul_rn`` are products; the card reports ``host_sm_count`` SMs (132, an
+H100's, unless a caller sets it: :func:`sm_count`); ``-ffp-contract=off`` as
+torch's CPU kernels round.  So the threads' ownership of samples and the barriers between passes
 are rehearsed: a missing barrier shows as a wrong or varying result.  It
 then calls the launchers through ctypes with the arguments their wrappers
 pass and prints each against its plain version:
@@ -49,7 +53,12 @@ pass and prints each against its plain version:
   versions with the host build's ``sqrt`` and ``pow``, :func:`host_libm`);
   and the error norm of the failed 16-line comb's attempt at the smallest
   step, float32 (the kernels' coupling, dense DFT, FFT, the RHS in float64)
-  and float64.
+  and float64;
+- K1/K2 (``fwm4_*``) rk4, ab4 and abm4 and K3 (``fwm4_rk45_*``) on 130
+  lanes of the 4-wave bench powers, delta beta over [-1.66, 1.5] /m, one
+  lane blowing up, 253 steps at ``save_every=7`` (K3 in steps of 2^-5 m,
+  rtol 1e-10 / 1e-6, a lane over 4 threads and over one: the stub's card
+  with 132 SMs and with 0), fp64 and fp32.
 
 It cannot see what only the card's compiler refuses, nor the card's
 scheduling.
@@ -72,10 +81,12 @@ import torch
 
 import psa_torch as psa
 from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.models.gnlse import save_segments
+from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_adaptive as ca
 from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_comb as cc
 from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_comb_adaptive as cca
 from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_gnlse as cg
 from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_lle as cl
+from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_solver as cs
 from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_ssfm_adaptive as csa
 from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_vgnlse as cv
 from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops._build import CSRC_DIR
@@ -92,6 +103,7 @@ STUB = """#pragma once
 #include <memory>
 #include <thread>
 #include <vector>
+using std::fma;
 using std::fmax;
 using std::fmin;
 using std::isfinite;
@@ -132,7 +144,7 @@ struct WarpDone {
 struct HostWarp {
     std::atomic<int> acc{1};
     int res = 1;
-    double xch[32];
+    double xch[2][32];
     std::barrier<WarpDone>* bar = nullptr;
 };
 inline HostWarp hwarp[32];
@@ -144,15 +156,19 @@ inline int __all_sync(unsigned, int p) {
     w.bar->arrive_and_wait();
     return w.res;
 }
+// Each thread of a warp makes the same shuffles in the same order, so they
+// alternate between two exchange arrays: a thread can write the next one
+// only after every thread has arrived at this one's barrier, past its read
+// of the array before.
+inline thread_local unsigned host_shfl_count = 0;
 template <typename T, class Src> inline T host_shfl(T v, Src src) {
     const int l = threadIdx.x & 31;
     HostWarp& w = hwarp[threadIdx.x >> 5];
-    w.xch[l] = double(v);
+    double* xch = w.xch[host_shfl_count++ & 1];
+    xch[l] = double(v);
     __syncwarp();
     const int from = src(l);
-    const T r = from >= 0 && from < 32 ? T(w.xch[from]) : v;
-    __syncwarp();
-    return r;
+    return from >= 0 && from < 32 ? T(xch[from]) : v;
 }
 template <typename T> inline T __shfl_down_sync(unsigned, T v, int o) {
     return host_shfl(v, [o](int l) { return l + o; });
@@ -160,6 +176,12 @@ template <typename T> inline T __shfl_down_sync(unsigned, T v, int o) {
 template <typename T> inline T __shfl_xor_sync(unsigned, T v, int m) {
     return host_shfl(v, [m](int l) { return l ^ m; });
 }
+template <typename T> inline T __shfl_sync(unsigned, T v, int src, int width = 32) {
+    return host_shfl(v, [src, width](int l) { return (l & ~(width - 1)) + (src & (width - 1)); });
+}
+inline int __any_sync(unsigned m, int p) { return !__all_sync(m, !p); }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline double __dmul_rn(double a, double b) { return a * b; }
 template <class F> inline void host_launch(int grid, int block, F f) {
     blockDim.x = block;
     const int warps = (block + 31) / 32;
@@ -174,7 +196,15 @@ template <class F> inline void host_launch(int grid, int block, F f) {
             hwarp[w].bar = wbar.back().get();
         }
         std::vector<std::thread> ts;
-        for (int t = 0; t < block; ++t) ts.emplace_back([&f, t] { threadIdx.x = t; f(); });
+        // a thread that returns leaves its warp's barrier, as an exited
+        // thread leaves a warp's collective operations on the card
+        for (int t = 0; t < block; ++t)
+            ts.emplace_back([&f, t] {
+                threadIdx.x = t;
+                host_shfl_count = 0;
+                f();
+                hwarp[t >> 5].bar->arrive_and_drop();
+            });
         for (auto& th : ts) th.join();
     }
 }
@@ -185,9 +215,18 @@ inline float2 __ldg(const float2* p) { return *p; }
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
-       cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+       cudaFuncAttributeMaxDynamicSharedMemorySize = 8, cudaDevAttrMultiProcessorCount = 16 };
 template <typename F> inline int cudaFuncSetAttribute(F, int, int) { return 0; }
 inline int cudaGetLastError() { return 0; }
+// The SM count the stub's card reports (an H100 SXM's); a caller may set it.
+extern "C" {
+int host_sm_count = 132;
+}
+inline int cudaGetDevice(int* d) { *d = 0; return 0; }
+inline int cudaDeviceGetAttribute(int* v, int attr, int) {
+    *v = attr == cudaDevAttrMultiProcessorCount ? host_sm_count : 0;
+    return 0;
+}
 """
 LAUNCH = re.compile(r"([\w:]+(?:<[^<>;]*>)?)\s*<<<(.*?)>>>\((.*?)\);", re.S)
 
@@ -336,6 +375,76 @@ def _k8(lib, route, y0, p0, p1, ph, dt, n_steps, save_every, rtol, atol, max_ste
     if err:
         raise RuntimeError(f"{route} returned {err}")
     return pk, y, ok.bool(), na, nr
+
+
+def k1(lib, A0, gamma, alpha, delta_beta, dz, n_steps, save_every, method="rk4",
+       check_nan=True):
+    """One call of fwm4_<method>_* with the arguments of
+    cuda_solver.solve_batch_cuda; returns its ``KernelBatchResult``."""
+    B = A0.shape[0]
+    rdt = A0.real.dtype
+    coef = torch.stack([gamma, alpha, delta_beta])
+    y0 = torch.cat([A0.real.T, A0.imag.T]).contiguous()
+    pmax, y_last = torch.empty((4, B), dtype=rdt), torch.empty((8, B), dtype=rdt)
+    ok = torch.empty(B, dtype=torch.uint8)
+    fn = getattr(lib, f"fwm4_{method}_{'f64' if rdt == torch.float64 else 'f32'}")
+    err = fn(ptr(coef), ptr(y0), ptr(pmax), ptr(y_last), ptr(ok), B, n_steps, save_every,
+             int(check_nan), ctypes.c_double(dz), None)
+    if err:
+        raise RuntimeError(f"fwm4_{method} returned {err}")
+    A_rot = torch.complex(y_last[:4].T, y_last[4:].T).contiguous()
+    return cs.KernelBatchResult(
+        P_max=pmax.T, ok=ok.bool(),
+        A_end=cs._to_lab(A_rot, delta_beta, dz_m=dz, n_steps=n_steps, save_every=save_every))
+
+
+def k3(lib, A0, gamma, alpha, delta_beta, dz, n_steps, save_every, rtol, atol,
+       max_steps=1_000_000):
+    """One call of fwm4_rk45_* with the arguments of
+    cuda_adaptive.solve_batch_rk45_cuda; returns its ``AdaptiveBatchResult``."""
+    B = A0.shape[0]
+    rdt = A0.real.dtype
+    n_chunks, seg_len, tail_len, dt0 = kernel_segments(dz, n_steps, save_every)
+    coef = torch.stack([gamma, alpha, delta_beta])
+    y0 = torch.cat([A0.real.T, A0.imag.T]).contiguous()
+    pmax, y_last = torch.empty((4, B), dtype=rdt), torch.empty((8, B), dtype=rdt)
+    ok = torch.empty(B, dtype=torch.uint8)
+    na, nr = torch.empty(B, dtype=torch.int32), torch.empty(B, dtype=torch.int32)
+    fn = getattr(lib, f"fwm4_rk45_{'f64' if rdt == torch.float64 else 'f32'}")
+    d = ctypes.c_double
+    err = fn(ptr(coef), ptr(y0), ptr(pmax), ptr(y_last), ptr(ok), ptr(na), ptr(nr), B, n_chunks,
+             d(seg_len), d(tail_len), d(dt0), d(rtol), d(atol), max_steps, None)
+    if err:
+        raise RuntimeError(f"fwm4_rk45 returned {err}")
+    A_rot = torch.complex(y_last[:4].T, y_last[4:].T).contiguous()
+    return ca.AdaptiveBatchResult(
+        P_max=pmax.T, ok=ok.bool(), n_accepted=na, n_rejected=nr,
+        A_end=cs._to_lab(A_rot, delta_beta, dz_m=dz, n_steps=n_steps, save_every=save_every))
+
+
+@contextlib.contextmanager
+def sm_count(lib, n):
+    """Within the block, the stub's card reports ``n`` SMs to ``lib``'s
+    launchers (which pick a lane's threads from the batch and the SM
+    count)."""
+    v = ctypes.c_int.in_dll(lib, "host_sm_count")
+    old, v.value = v.value, n
+    try:
+        yield
+    finally:
+        v.value = old
+
+
+def fwm4_lanes(B, rdt, bad=7):
+    """``B`` lanes of the 4-wave bench configuration's powers (0.5 W pumps,
+    1e-7 W signal and idler), gamma 0.0115 /W/m, alpha 1.15e-4 /m, delta
+    beta spread over [-1.66, 1.5] /m; lane ``bad`` blows up."""
+    A0 = np.broadcast_to(np.sqrt([0.5, 0.5, 1e-7, 1e-7]).astype(np.complex128), (B, 4)).copy()
+    g, a = np.full(B, 0.0115), np.full(B, 1.15e-4)
+    A0[bad], g[bad] = [1e4, 1e4, 1.0, 0.0], 1e3
+    cdt = torch.complex128 if rdt == torch.float64 else torch.complex64
+    return (torch.as_tensor(A0).to(cdt),
+            *(torch.as_tensor(v, dtype=rdt) for v in (g, a, np.linspace(-1.66, 1.5, B))))
 
 
 def k4(lib, A0, gamma, alpha, beta, dz, n_steps, save_every, method="rk4", check_nan=True):
@@ -595,6 +704,33 @@ def failed_comb_norm():
               f"{float(en[0]):.4g}", flush=True)
 
 
+def fwm4(lib1, lib3):
+    """K1/K2 (one thread a lane) and K3 (a lane over 4 threads and over one)
+    against their plain versions, fp64 and fp32."""
+    for rdt in (torch.float64, torch.float32):
+        t = fwm4_lanes(130, rdt)
+        for method in ("rk4", "ab4", "abm4"):
+            rk = k1(lib1, *t, 0.2, 253, 7, method)
+            rp = cs.solve_batch_torch(*t, dz_m=0.2, n_steps=253, save_every=7, integrator=method)
+            print(f"K1/K2 {method} {str(rdt)[6:]}: ok {torch.equal(rk.ok, rp.ok)} "
+                  f"({int(rk.ok.sum())}/130), A_end {normwise(rk.A_end, rp.A_end):.2e}, P_max "
+                  f"{normwise(rk.P_max, rp.P_max):.2e}", flush=True)
+        rtol, atol = (1e-10, 1e-13) if rdt == torch.float64 else (1e-6, 1e-10)
+        for sms in (132, 0):
+            with sm_count(lib3, sms):
+                rk = k3(lib3, *t, 2.0 ** -5, 253, 7, rtol, atol)
+                G = lib3.fwm4_rk45_group(130)
+            with host_libm():
+                rp = ca.solve_batch_rk45_torch(*t, dz_m=2.0 ** -5, n_steps=253, save_every=7,
+                                               rtol=rtol, atol=atol)
+            same = torch.equal(rk.n_accepted, rp.n_accepted) and torch.equal(
+                rk.n_rejected, rp.n_rejected)
+            print(f"K3 {str(rdt)[6:]} G={G}: ok {torch.equal(rk.ok, rp.ok)}, counters equal "
+                  f"{same}, bit for bit "
+                  f"{torch.equal(rk.A_end, rp.A_end) and torch.equal(rk.P_max, rp.P_max)}",
+                  flush=True)
+
+
 def readings():
     """The plain vector version at chip_smoke.py's configuration on 8 of its
     1,024 instances (T = 1,024, 1,000 steps of 0.01 m, save_every=100,
@@ -683,6 +819,7 @@ def main():
     gnlse_rk45(lib8)
     comb(build("comb_rk"), build("comb_rk45"))
     failed_comb_norm()
+    fwm4(build("fwm4_rk"), build("fwm4_rk45"))
 
 
 if __name__ == "__main__":

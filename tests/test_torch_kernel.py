@@ -15,6 +15,8 @@ adaptive kernel rounds as its plain version does, so its counters must be
 equal and its results agree far inside the same bars.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 
@@ -138,14 +140,24 @@ def _rk45_pair(t, **kw):
 
 
 @pytest.mark.parametrize("rdt", [torch.float64, torch.float32], ids=["f64", "f32"])
-@pytest.mark.parametrize("n_steps,save_every", [(250, 10), (253, 10), (250, 7)])
-def test_rk45_kernel_matches_plain_version(card, rdt, n_steps, save_every):
+@pytest.mark.parametrize("n_steps,save_every,one_thread",
+                         [(250, 10, False), (253, 10, False), (250, 7, False), (53, 10, True)],
+                         ids=["250-10", "253-10", "250-7", "53-10-one-thread"])
+def test_rk45_kernel_matches_plain_version(card, rdt, n_steps, save_every, one_thread):
     """The kernel and its plain version take the same steps (the plain
-    version repeats the kernel's operations and the kernel is built without
-    FMA contraction): equal counters and ok flags, and results within
-    1e-11 (fp64) or 1e-4 (fp32) relative."""
+    version repeats the kernel's operations, and the float32 kernel forms
+    its products without FMA contraction): equal counters and ok flags, and
+    results within 1e-11 (fp64) or 1e-4 (fp32) relative.  130 lanes run 4
+    threads a lane; from 256 lanes an SM on, the launcher runs a lane on one
+    thread (``fwm4_rk45_group``)."""
+    B = 130
+    if one_thread:
+        group = _build.load_library("fwm4_rk45").fwm4_rk45_group
+        group.argtypes, group.restype = [ctypes.c_int], ctypes.c_int
+        B = 256 * torch.cuda.get_device_properties(card).multi_processor_count
+        assert group(B) == 1 and group(B - 1) == 4
     rtol, atol = RK45_TOL[rdt]
-    t = _rk45_inputs(130, rdt, card)
+    t = _rk45_inputs(B, rdt, card)
     kw = dict(dz_m=0.2, n_steps=n_steps, save_every=save_every, rtol=rtol, atol=atol)
     name = f"fwm4_rk45_{'f64' if rdt == torch.float64 else 'f32'}"
     launches = _build.LAUNCHES[name]
