@@ -166,6 +166,14 @@ Phases (any failure raises, and the script exits non-zero):
     (median of 2 for coherent and nl); beside the rotation and coherent
     bodies, their block as for K6 Kerr in phase 18.
 
+27. the command line on the card (``cli_phases``, ``CLI_RUNS``): the
+    4-wave ``spectrum`` at 10^4 points through ``__main__.main`` at df32
+    (no ``--device``), x32 and rk45 x32, one K1, K2 and K3 launch, the
+    df32 archive bit for bit the direct API call; ``single`` against the
+    45.292 dB anchor; the SBS golden on the card; every other ported
+    subcommand once (some cut, listed at ``CLI_RUNS``) and the
+    zero-argument demo, each exiting 0 with the JAX package's file names.
+
 Each main path is driven with the launch counts cleared just before it and
 read just after; the SSFM sources count each route apart (K6 Kerr and nl,
 K9 rotation, coherent and nl), and each route is a row of the kernels line.
@@ -1780,6 +1788,172 @@ def vgnlse_phases(psa, _build, cv, cg, dev, card, t_start, rec):
             f"{VG_B * GN_STEPS / sec:.1f} instance-steps/s")
 
 
+# The command-line runs of phase 27: (argv after the global options, the
+# files the run writes, the kernel its sweep launches or None).  Cuts from
+# the defaults: ``comb`` to 2 m (rk45; the default 100 m is 10^5 base steps
+# of plain torch), ``supercontinuum`` to the JAX test's 1,024 samples over
+# 3 cm (the default is 8,192 over 15 cm), ``sbs`` to 20 m (the default 200 m
+# takes minutes of launches, PERF.md); the others at their defaults.
+CLI_RUNS = (
+    (["spectrum-dbeta"], ("gain_spectrum_dbeta.npz", "gain_spectrum_dbeta.png"), "fwm4_rk_f64"),
+    (["mismatch"], ("mismatch_scan.npz", "mismatch_scan.png", "mismatch_best_si.png",
+                    "mismatch_best_powers.png"), "fwm4_rk_f64"),
+    (["psa-phase"], ("psa_phase_sweep.npz", "psa_phase_sweep.png"), "fwm4_rk_f64"),
+    (["gain-map"], ("gain_map.png",), "fwm4_rk_f64"),
+    (["comb", "--z-max", "2"], ("comb.npz", "comb.csv", "comb.json", "comb.png"), None),
+    (["kerr-cavity"], ("kerr_cavity.npz", "kerr_cavity_scan.png", "kerr_cavity_comb.png"), None),
+    (["gnlse"], ("gnlse.npz", "gnlse.png"), None),
+    (["vgnlse"], ("vgnlse.npz", "vgnlse.png"), None),
+    (["supercontinuum", "--samples", "1024", "--length", "0.03"],
+     ("supercontinuum.npz", "supercontinuum.png", "supercontinuum_t.png"), None),
+    (["sbs", "--z-max", "20"],
+     tuple(f"fwm_sbs_{d}.{e}" for d in ("forward", "backward") for e in ("npz", "csv", "json"))
+     + ("fwm_sbs_totals.png", "fwm_sbs_fwd.png", "fwm_sbs_bwd.png"), None),
+)
+
+
+def cli_phases(psa, _build, card, t_start):
+    """Phase 27, the command line on the card: ``__main__.main`` called in
+    this process with ``--no-show --quiet --save-dir <dir>`` (a new
+    directory a run) and matplotlib's Agg backend, each run's wall time
+    logged beside the card.  Without matplotlib (the port's plotting then
+    draws nothing and names each figure it does not write on stderr) the
+    figures are checked by those names, the data files as they are.
+
+    1. ``spectrum --points 10000 --precision df32`` (bench.py's 500 m in
+       steps of 0.2 m, 2,500 steps) with no ``--device``: exactly one
+       ``fwm4_rk_f64`` launch, and ``gain_spectrum.npz`` bit for bit the
+       direct ``gain_spectrum`` call with the experiment's arguments on the
+       card;
+    2. the same at ``--precision x32``: one ``fwm4_rk_f32`` launch;
+    3. ``--integrator rk45 --precision x32``: one ``fwm4_rk45_f32`` launch;
+    4. ``single`` at its defaults: the 45.292 dB anchor within 2e-3
+       (``tests/test_io_plotting.py``);
+    5. SBS: ``run_sbs_simulation`` on the card against
+       ``golden_sbs_bvp.npz`` at the JAX test's configuration
+       (``tests/test_sbs.py``): A and B within 1e-6, residual < 1e-12,
+       fewer than 2,000 sweeps; then ``sbs`` (in ``CLI_RUNS``);
+    6. once each, the runs of ``CLI_RUNS`` (cuts listed there), and the
+       zero-argument demo with ``PSA_TPU_DEMO_POINTS=6`` (no save
+       directory): each exits 0 and writes the JAX package's file names;
+       the 4-wave sweeps launch ``fwm4_rk_f64``.
+    """
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from psa_simulation_ode_rk_mvp_dispersion_tpu_torch import __main__ as cli
+    from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.experiments import (
+        _PM_DEFAULT, _dispersion_at_pump_center)
+    from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.utils.units import alpha_db_per_km_to_1_m
+
+    try:
+        import matplotlib
+        matplotlib.use("Agg")
+        has_mpl = True
+    except ImportError:
+        has_mpl = False
+    log(f"phase 27, the command line on the card ({card}); matplotlib "
+        f"{'present' if has_mpl else 'absent: figures checked by the names reported'}")
+    root = Path(tempfile.mkdtemp(prefix="psa_cli_"))
+    t_phase = time.perf_counter()
+
+    def run(argv, files, kernel, *, count=None, save=True):
+        out = root / f"run{len(list(root.iterdir()))}"
+        args = (["--no-show", "--quiet", "--save-dir", str(out)] if save else []) + argv
+        err = io.StringIO()
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            code = cli.main(args)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = dict(_build.LAUNCHES)
+        log(f"  cli {' '.join(argv) or '(no arguments)'}: exit {code}, {sec:.2f} s on {card}, "
+            f"launches {counts}")
+        if code != 0:
+            raise AssertionError(f"cli {argv}: exit {code}: {err.getvalue()[-2000:]}")
+        if kernel is not None and (counts.get(kernel, 0) < 1 or
+                                   (count is not None and counts != {kernel: count})):
+            raise AssertionError(f"cli {argv}: launches {counts}, expected {kernel}")
+        if save:
+            written = sorted(p.name for p in out.iterdir()) if out.exists() else []
+            missing = [] if has_mpl else sorted(
+                Path(m).name for m in re.findall(r"and (\S+) is not written", err.getvalue()))
+            data = sorted(f for f in files if has_mpl or not f.endswith(".png"))
+            figures = sorted(f for f in files if not has_mpl and f.endswith(".png"))
+            if written != data or missing != figures:
+                raise AssertionError(f"cli {argv}: wrote {written}, figures not drawn {missing}; "
+                                     f"expected {sorted(files)}")
+        return out
+
+    # 1-3: the main path's full width through the command line
+    lam3 = np.linspace(1540e-9, 1650e-9, N_POINTS)
+    _, _, disp = _dispersion_at_pump_center(1550e-9, 1555e-9, float(lam3[0]), D=0.2, S=0.02)
+    spec = ("gain_spectrum.npz", "gain_spectrum.png")
+    for flags, kernel, precision in ((["--precision", "df32"], "fwm4_rk_f64", "df32"),
+                                     (["--precision", "x32"], "fwm4_rk_f32", "x32"),
+                                     (["--integrator", "rk45", "--precision", "x32"],
+                                      "fwm4_rk45_f32", "x32")):
+        out = run(flags + ["spectrum", "--points", str(N_POINTS)], spec, kernel, count=1)
+        if kernel != "fwm4_rk_f64":
+            continue
+        direct = psa.gain_spectrum(
+            cfg=psa.custom_simulation_config(z_max=500.0, dz=0.2, precision=precision),
+            lambda_p1_m=1550e-9, lambda_p2_m=1555e-9, lambda_signal_m=lam3, gamma=11.5 / 1000.0,
+            alpha=alpha_db_per_km_to_1_m(0.5), p_in=np.asarray((0.5, 0.5, 1e-7, 1e-7)),
+            phase_in=np.zeros(4), dispersion=disp, phase_matching_cfg=_PM_DEFAULT,
+            length_unit="m", gain_unit="dB", device="cuda")
+        with np.load(out / "gain_spectrum.npz") as z:
+            same = (np.array_equal(z["x"], direct.x)
+                    and np.array_equal(z["gain"], direct.gain, equal_nan=True)
+                    and np.array_equal(z["ok"], direct.ok.astype(np.int8)))
+        log(f"  gain_spectrum.npz of the df32 run vs gain_spectrum called directly on the card: "
+            f"{'bit for bit' if same else 'DIFFERENT'}, ok {direct.ok.mean():.4f}, peak "
+            f"{np.nanmax(direct.gain):.4f} dB")
+        if not same or direct.ok.mean() < 0.99:
+            raise AssertionError("the command line's df32 spectrum is not the API's")
+
+    # 4: single at its defaults
+    out = run(["single"], tuple(f"single_simulation.{e}" for e in ("npz", "csv", "json", "png")),
+              None)
+    _z, A, _md = psa.load_result_npz(out / "single_simulation.npz")
+    gain_db = float(10 * np.log10(np.abs(A[-1, 2]) ** 2 / 1e-5))
+    log(f"  single at its defaults: {gain_db:.6f} dB (anchor 45.292 +- 2e-3)")
+    if abs(gain_db - 45.292) > 2e-3:
+        raise AssertionError(f"single: {gain_db} dB")
+
+    # 5: the SBS golden on the card
+    g = np.load(ROOT / "tests" / "golden" / "golden_sbs_bvp.npz")
+    t0 = time.perf_counter()
+    res = psa.run_sbs_simulation(
+        psa.custom_simulation_config(z_max=float(g["L"]), dz=0.002, save_every=50),
+        gamma=float(g["gamma"]), alpha=float(g["alpha"]), g_B=float(g["g_B"]),
+        delta_beta=float(g["delta_beta"]), p_in=g["p_in"], p_stokes_seed=g["p_stokes"],
+        length_unit="m", damping=0.5, tol=1e-13, max_iterations=2000, device="cuda")
+    sec = time.perf_counter() - t0
+    ea = float(np.max(np.abs(res.A - (g["A_re"] + 1j * g["A_im"]))))
+    eb = float(np.max(np.abs(res.B - (g["B_re"] + 1j * g["B_im"]))))
+    log(f"  run_sbs_simulation golden (1,000 steps, damping 0.5) on the card: {sec:.2f} s on "
+        f"{card}, {res.n_iterations} sweeps = {1e6 * sec / (res.n_iterations * 1000):.1f} us a "
+        f"step of a sweep, residual {res.residual:.3e}; A {ea:.3e}, B {eb:.3e} from solve_bvp "
+        "(bars 1e-6, residual < 1e-12, < 2,000 sweeps)")
+    if not (ea <= 1e-6 and eb <= 1e-6 and res.residual < 1e-12 and res.n_iterations < 2000):
+        raise AssertionError("SBS golden on the card")
+
+    # 6: the other subcommands, once each, and the zero-argument demo
+    for argv, files, kernel in CLI_RUNS:
+        run(argv, files, kernel)
+    os.environ["PSA_TPU_DEMO_POINTS"] = "6"
+    try:
+        run([], (), "fwm4_rk_f64", count=1, save=False)
+    finally:
+        del os.environ["PSA_TPU_DEMO_POINTS"]
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 27 done in "
+        f"{time.perf_counter() - t_phase:.1f} s on {card}")
+
+
 def main():
     # --- 1. device -----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2178,6 +2352,7 @@ def main():
     gnlse_phases(psa, _build, cg, csa, dev, card, t_start, rec)
     lle_phases(psa, _build, cl, csa, dev, card, t_start, rec)
     vgnlse_phases(psa, _build, cv, cg, dev, card, t_start, rec)
+    cli_phases(psa, _build, card, t_start)
     log(f"[{time.perf_counter() - t_start:.0f} s] all phases done")
 
     sources = {"fwm4_rk": f"{PKG}/csrc/fwm4_rk.cu", "fwm4_rk45": f"{PKG}/csrc/fwm4_rk45.cu",

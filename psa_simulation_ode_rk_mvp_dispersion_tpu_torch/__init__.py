@@ -9,8 +9,12 @@ path: parameter math, the RHS, the fixed-step (rk4/ab4/abm4) and adaptive
 mismatch scan, PSA phase sweep, power x wavelength gain map, batched
 trajectories), result persistence (``io_fwm``), the N-wave comb
 (``models/nwave``), the GNLSE pulse model (``models/gnlse``), the
-Lugiato-Lefever cavity (``models/lle``) and the vector (two-polarization)
-GNLSE (``models/vgnlse``).  The rotating-frame sweeps and the batched comb,
+Lugiato-Lefever cavity (``models/lle``), the vector (two-polarization)
+GNLSE (``models/vgnlse``) and the FWM + SBS forward/backward relaxation
+(``models/sbs``, plain torch), with the entry layer on top: the ready-made
+``experiments``, ``plotting``, ``utils/observability`` (profiler trace,
+throughput meter, run log), ``utils/debug`` (opt-in finiteness checks) and
+the command line ``python -m psa_simulation_ode_rk_mvp_dispersion_tpu_torch``.  The rotating-frame sweeps and the batched comb,
 pulse, cavity and vector solves run on a CUDA device through hand-written
 kernels: ``csrc/fwm4_rk.cu``
 (``ops/cuda_solver.py``), ``csrc/fwm4_rk45.cu`` (``ops/cuda_adaptive.py``),
@@ -107,7 +111,8 @@ from .ops.rhs import (
     rhs_yaman_simplified,
     rotating_to_lab,
 )
-from .models import fwm4, gnlse, lle, nwave, vgnlse
+from .models import fwm4, gnlse, lle, nwave, sbs, vgnlse
+from .models.sbs import SBSCoeffs, SBSResult, run_sbs_batch, run_sbs_simulation
 from .models.lle import (
     LLECoeffs,
     LLENormalization,
@@ -186,6 +191,8 @@ from .parallel.sweep import (
     solve_batch,
     solve_batch_trajectories,
 )
+from .utils import observability
+from . import experiments, plotting
 from .io_fwm import (
     load_gain_map_npz,
     load_metadata_json,

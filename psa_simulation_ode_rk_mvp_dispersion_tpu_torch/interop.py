@@ -4,7 +4,7 @@
 ``RHSCoeffs``, ``DispersionParams``, ``SymmetricPlan``,
 ``PhaseMatchingConfig``, ``ModelParams`` (with its parts), ``NWaveCoeffs``,
 ``CombGrid``, ``TimeGrid``, ``GNLSECoeffs``, ``NLTerms``, ``LLECoeffs``,
-``LLENormalization`` and ``VGNLSECoeffs`` into their counterparts here, reading every field by name through ``dataclasses.fields``
+``LLENormalization``, ``VGNLSECoeffs`` and ``SBSCoeffs`` into their counterparts here, reading every field by name through ``dataclasses.fields``
 and every array leaf through ``np.asarray``.  It never imports JAX: it only
 reads the objects it is given, so both packages can compute from
 bit-identical float64 inputs.
@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from .config import SimulationConfig
-from .models import fwm4, gnlse, lle, nwave, vgnlse
+from .models import fwm4, gnlse, lle, nwave, sbs, vgnlse
 from .ops.dispersion import DispersionParams
 from .ops.frequency_plan import SymmetricPlan
 from .ops.phase_matching import PhaseMatchingConfig, PhaseMatchingMethod
@@ -36,11 +36,12 @@ _CLASSES = {
         fwm4.SimulationGrid, fwm4.PhaseMatchingParams, fwm4.CacheParams,
         fwm4.ModelParams, nwave.NWaveCoeffs, nwave.CombGrid, gnlse.TimeGrid,
         gnlse.GNLSECoeffs, gnlse.NLTerms, lle.LLECoeffs, lle.LLENormalization,
-        vgnlse.VGNLSECoeffs,
+        vgnlse.VGNLSECoeffs, sbs.SBSCoeffs,
     )
 }
 _TENSOR_CLASSES = (RHSCoeffs, DispersionParams, SymmetricPlan, nwave.NWaveCoeffs,
-                   gnlse.GNLSECoeffs, gnlse.NLTerms, lle.LLECoeffs, vgnlse.VGNLSECoeffs)
+                   gnlse.GNLSECoeffs, gnlse.NLTerms, lle.LLECoeffs, vgnlse.VGNLSECoeffs,
+                   sbs.SBSCoeffs)
 # Fields of a tensor class that stay Python floats (static metadata in JAX).
 _STATIC_FIELDS = {("VGNLSECoeffs", "coherent")}
 _ENUMS = {PhaseMatchingMethod.__name__: PhaseMatchingMethod}
@@ -63,9 +64,10 @@ def from_reference(obj, *, device=None, dtype: torch.dtype = torch.float64):
     """The counterpart of a JAX-package parameter object.
 
     Array leaves of ``RHSCoeffs``, ``DispersionParams``, ``SymmetricPlan``,
-    ``NWaveCoeffs``, ``GNLSECoeffs``, ``NLTerms``, ``LLECoeffs`` and
-    ``VGNLSECoeffs`` become ``dtype`` tensors on ``device`` (``None``: the
-    CUDA card; ``VGNLSECoeffs.coherent`` stays a float); host
+    ``NWaveCoeffs``, ``GNLSECoeffs``, ``NLTerms``, ``LLECoeffs``,
+    ``VGNLSECoeffs`` and ``SBSCoeffs`` (its ``fwm`` an ``RHSCoeffs``) become
+    ``dtype`` tensors on ``device`` (``None``: the CUDA card;
+    ``VGNLSECoeffs.coherent`` stays a float); host
     containers (``CombGrid``, ``TimeGrid`` and ``LLENormalization`` among
     them) keep numpy copies and floats.
     ``DispersionParams`` and ``SymmetricPlan`` are float64 by definition and

@@ -11,6 +11,7 @@ torch = pytest.importorskip("torch")
 import psa_torch as T  # noqa: E402
 import psa_tpu as J  # noqa: E402
 from psa_simulation_ode_rk_mvp_dispersion_tpu_torch import interop  # noqa: E402
+from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.__main__ import main as cli_main  # noqa: E402
 from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.utils.checks import resolve_device  # noqa: E402
 
 _PM = dict(phase_matching_cfg=T.PhaseMatchingConfig(method="provided", provided_delta_beta=0.0))
@@ -93,6 +94,17 @@ ENTRY_POINTS = {
         _CFG, _VECTOR, _VECTOR_A0, **d),
     "from_reference": lambda **d: interop.from_reference(
         J.RHSCoeffs(gamma=np.ones(2), alpha=np.zeros(2), delta_beta=np.zeros(2)), **d),
+    "run_sbs_simulation": lambda **d: T.run_sbs_simulation(
+        _CFG, gamma=0.01, alpha=0.0, g_B=0.1, delta_beta=0.0, p_in=[0.1, 0.1, 1e-6, 0.0],
+        p_stokes_seed=[1e-6] * 4, n_iterations=2, **d),
+    "run_sbs_batch": lambda **d: T.run_sbs_batch(
+        _CFG, gamma=0.01, alpha=0.0, g_B=[0.1, 0.2], delta_beta=0.0,
+        P_in=np.full((2, 4), 0.1), P_stokes_seed=np.full((2, 4), 1e-6), n_iterations=2, **d),
+    "experiment_gain_spectrum": lambda **d: T.experiments.gain_spectrum(
+        n_points=2, z_max_m=1.0, dz_m=0.1, show=False, verbose=False, **d),
+    "cli_main": lambda **d: cli_main(
+        (["--device", d["device"]] if d else []) + ["--no-show", "--quiet", "spectrum",
+                                                    "--points", "2"]),
 }
 
 _MODEL_PARAMS = T.make_model_params(
@@ -122,7 +134,8 @@ def test_entry_point_without_device_raises_when_there_is_no_card(no_card, name):
                                   "solve_lle_batch_trajectories", "run_lle_ramp",
                                   "detuning_scan", "solve_vgnlse_batch",
                                   "solve_vgnlse_batch_rk45", "run_vgnlse_simulation",
-                                  "solve_vgnlse_batch_trajectories"])
+                                  "solve_vgnlse_batch_trajectories", "run_sbs_simulation",
+                                  "run_sbs_batch", "experiment_gain_spectrum", "cli_main"])
 def test_entry_point_runs_on_the_cpu_when_asked(no_card, name):
     assert ENTRY_POINTS[name](device="cpu") is not None
 
@@ -178,3 +191,19 @@ def test_from_reference_carries_the_lle_parameters():
     assert isinstance(tn, T.LLENormalization) and tn == T.normalize_ring_cavity(
         round_trip_length_m=100.0, t_roundtrip_s=5e-7, gamma_W_m=1.2e-3, beta2_s2_m=-21e-27,
         alpha_half_loss=0.1, coupling_theta=0.08, detuning_phase_rad=0.3, pump_power_W=1.5)
+
+
+def test_from_reference_carries_the_sbs_parameters():
+    """A JAX ``SBSCoeffs`` (its ``fwm`` an ``RHSCoeffs``, per-lane gB)
+    arrives as equal float64 tensors."""
+    from psa_simulation_ode_rk_mvp_dispersion_tpu.models import sbs as jsbs
+
+    jc = jsbs.SBSCoeffs(
+        fwm=J.RHSCoeffs(gamma=np.full(3, 2e-3), alpha=np.full(3, 1e-4),
+                        delta_beta=np.linspace(-0.5, 0.5, 3)),
+        g_B=np.array([0.1, 0.2, 0.3]))
+    got = interop.from_reference(jc, device="cpu")
+    assert isinstance(got, T.SBSCoeffs) and isinstance(got.fwm, T.RHSCoeffs)
+    for v, ref in ((got.g_B, jc.g_B), (got.fwm.gamma, jc.fwm.gamma),
+                   (got.fwm.alpha, jc.fwm.alpha), (got.fwm.delta_beta, jc.fwm.delta_beta)):
+        assert v.dtype == torch.float64 and np.array_equal(v.numpy(), np.asarray(ref))

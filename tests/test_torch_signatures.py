@@ -32,6 +32,8 @@ MODULES = [
     "models.nwave", "models.vgnlse", "ops.adaptive", "ops.analytic", "ops.dispersion",
     "ops.frequency_plan", "ops.integrators", "ops.phase_matching", "ops.rhs", "parallel.sweep",
     "utils.checks", "utils.precision", "utils.units",
+    "experiments.fwm4", "experiments.comb", "experiments.lle", "experiments.pulses",
+    "experiments.sbs", "models.sbs", "plotting", "utils.observability", "utils.debug",
 ]
 EXTRAS = {"device"}
 MODULE_EXTRAS = {"ops.integrators": {"batch_ndim", "comp"}, "ops.adaptive": {"batch_ndim"}}
@@ -80,3 +82,25 @@ def test_the_four_wave_solvers_accept_unroll():
     assert np.array_equal(a.A_end, b.A_end)
     z, A, ok = T.solve_batch_trajectories(cfg, coeffs, A0, unroll=1, device="cpu")
     assert ok.all() and A.shape[0] == 2 and A.shape[1] == len(z)
+
+
+def test_the_cli_has_the_jax_subcommands_but_those_waiting_in_the_roadmap():
+    """The JAX parser's subcommands are the port's plus the waiting list,
+    and ROADMAP.md names each waiting subcommand with its item."""
+    from pathlib import Path
+
+    from psa_simulation_ode_rk_mvp_dispersion_tpu import __main__ as jcli
+    from psa_simulation_ode_rk_mvp_dispersion_tpu_torch import __main__ as cli
+
+    def subcommands(parser):
+        (action,) = [a for a in parser._actions if a.__class__.__name__ == "_SubParsersAction"]
+        return set(action.choices)
+
+    port, ref = subcommands(cli.build_parser()), subcommands(jcli.build_parser())
+    assert not port & set(cli.WAITING)
+    assert ref == port | set(cli.WAITING)
+    roadmap = (Path(__file__).resolve().parent.parent / "ROADMAP.md").read_text()
+    for name, item in cli.WAITING.items():
+        assert f"`{name}`" in roadmap, name
+    for item in set(cli.WAITING.values()):
+        assert f"\n{item}. " in roadmap
