@@ -173,6 +173,23 @@ Phases (any failure raises, and the script exits non-zero):
     45.292 dB anchor; the SBS golden on the card; every other ported
     subcommand once (some cut, listed at ``CLI_RUNS``) and the
     zero-argument demo, each exiting 0 with the JAX package's file names.
+28. the Monte Carlo on the card (``noise_phases``, ``NOISE_RUNS``): the
+    seven noise subcommands and ``supercontinuum --coherence 16`` through
+    ``__main__.main`` at x64, each run's launches counted exactly (K1 21
+    times for ``noise-figure --spectrum-points 64``, whose NF(lambda) is
+    524,352 lanes in one launch; 20 for ``gain-ripple``; K6 40 times for
+    ``link``), its wall time split into kernels, solvers and host; the
+    quantum limits of the noise figure (PIA 2 - 1/G, PSA 0 dB, NF(lambda))
+    within 4 SE plus the JAX tests' floors, the gain ripple's nominal fibre
+    against one continuous solve (1e-9 dB), the link's control and its
+    Gordon-Haus onset; the vector (K9), comb (K4, K5) and rk45 Kerr (K8)
+    ensembles through the API, one launch each; the widest call of each
+    kernel held to its plain version on the card on the same inputs (the
+    524,352-lane K1 launch over its first and last 8,193 lanes, a
+    2,049-envelope link span, 4,097 mi-noise envelopes; fp64 bars, ``ok``
+    identical) and that K1 launch's ps a lane-step against 250,000 lanes;
+    then a 257-lane noise figure and a 65-envelope, 2-span link with the
+    kernel and with its plain version on the card.
 
 Each main path is driven with the launch counts cleared just before it and
 read just after; the SSFM sources count each route apart (K6 Kerr and nl,
@@ -1812,6 +1829,29 @@ CLI_RUNS = (
 )
 
 
+def check_cli_files(argv, out, err_text, files, has_mpl):
+    """A command-line run wrote ``files`` (the JAX package's names) into
+    ``out``: the data files as they are, and the figures, without
+    matplotlib, by the names the port's plotting reports on stderr."""
+    written = sorted(p.name for p in out.iterdir()) if out.exists() else []
+    missing = [] if has_mpl else sorted(
+        Path(m).name for m in re.findall(r"and (\S+) is not written", err_text))
+    data = sorted(f for f in files if has_mpl or not f.endswith(".png"))
+    figures = sorted(f for f in files if not has_mpl and f.endswith(".png"))
+    if written != data or missing != figures:
+        raise AssertionError(f"cli {argv}: wrote {written}, figures not drawn {missing}; "
+                             f"expected {sorted(files)}")
+
+
+def has_matplotlib():
+    try:
+        import matplotlib
+        matplotlib.use("Agg")
+        return True
+    except ImportError:
+        return False
+
+
 def cli_phases(psa, _build, card, t_start):
     """Phase 27, the command line on the card: ``__main__.main`` called in
     this process with ``--no-show --quiet --save-dir <dir>`` (a new
@@ -1848,12 +1888,7 @@ def cli_phases(psa, _build, card, t_start):
         _PM_DEFAULT, _dispersion_at_pump_center)
     from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.utils.units import alpha_db_per_km_to_1_m
 
-    try:
-        import matplotlib
-        matplotlib.use("Agg")
-        has_mpl = True
-    except ImportError:
-        has_mpl = False
+    has_mpl = has_matplotlib()
     log(f"phase 27, the command line on the card ({card}); matplotlib "
         f"{'present' if has_mpl else 'absent: figures checked by the names reported'}")
     root = Path(tempfile.mkdtemp(prefix="psa_cli_"))
@@ -1878,14 +1913,7 @@ def cli_phases(psa, _build, card, t_start):
                                    (count is not None and counts != {kernel: count})):
             raise AssertionError(f"cli {argv}: launches {counts}, expected {kernel}")
         if save:
-            written = sorted(p.name for p in out.iterdir()) if out.exists() else []
-            missing = [] if has_mpl else sorted(
-                Path(m).name for m in re.findall(r"and (\S+) is not written", err.getvalue()))
-            data = sorted(f for f in files if has_mpl or not f.endswith(".png"))
-            figures = sorted(f for f in files if not has_mpl and f.endswith(".png"))
-            if written != data or missing != figures:
-                raise AssertionError(f"cli {argv}: wrote {written}, figures not drawn {missing}; "
-                                     f"expected {sorted(files)}")
+            check_cli_files(argv, out, err.getvalue(), files, has_mpl)
         return out
 
     # 1-3: the main path's full width through the command line
@@ -1951,6 +1979,458 @@ def cli_phases(psa, _build, card, t_start):
     finally:
         del os.environ["PSA_TPU_DEMO_POINTS"]
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 27 done in "
+        f"{time.perf_counter() - t_phase:.1f} s on {card}")
+
+
+# The Monte-Carlo runs of phase 28, through ``__main__.main`` at x64 (the
+# experiments' default): (argv after the global options, the files the run
+# writes, the launches it makes).  All at their defaults but
+# ``noise-figure``, which adds the NF(lambda) spectrum at 64 wavelengths
+# (64 x 8,193 = 524,352 lanes in one K1 launch), and ``supercontinuum``,
+# cut as in phase 27 (1,024 samples over 3 cm) with 16 coherence shots.
+NOISE_RUNS = (
+    (["noise-figure", "--spectrum-points", "64"],
+     ("noise_figure.npz", "noise_figure.png", "noise_figure_spectrum.npz",
+      "noise_figure_spectrum.png"), {"fwm4_rk_f64": 21}),
+    (["gain-ripple"], ("gain_ripple.npz", "gain_ripple.png"), {"fwm4_rk_f64": 20}),
+    (["link"], ("soliton_link.npz", "soliton_link.png"), {"gnlse_ssfm_f64": 40}),
+    (["squeezing"], ("squeezing.npz", "squeezing.png"), {"fwm4_rk_f64": 1}),
+    (["soliton-squeezing"], ("soliton_squeezing.npz", "soliton_squeezing.png",
+                             "soliton_photon_statistics.png"), {"gnlse_ssfm_f64": 1}),
+    (["jitter"], ("soliton_jitter.npz", "soliton_jitter.png"), {"gnlse_ssfm_f64": 16}),
+    (["mi-noise"], ("mi_noise.npz", "mi_noise.png", "mi_coherence.png"), {"gnlse_ssfm_f64": 1}),
+    (["supercontinuum", "--samples", "1024", "--length", "0.03", "--coherence", "16"],
+     ("supercontinuum.npz", "supercontinuum.png", "supercontinuum_t.png",
+      "supercontinuum_coherence.npz", "supercontinuum_coherence.png"), {}),
+)
+
+
+def lane_normwise(k, p):
+    """Worst over lanes of max |k - p| / max |p| over each lane's other
+    axes (host arrays)."""
+    k, p = np.asarray(k), np.asarray(p)
+    axes = tuple(range(1, p.ndim))
+    return float((np.abs(k - p).max(axis=axes) / np.maximum(np.abs(p).max(axis=axes),
+                                                             1e-300)).max())
+
+
+def noise_api_runs(psa, nz):
+    """The ensembles of phase 28 that no subcommand runs, through the API
+    at x64 on the card, 1,024 noisy lanes each: (label, the kernel, call,
+    the launches it makes, the figures it logs).  The vector photon statistics on a
+    soliton split at theta = 0.4 (T = 256, 200 Strang steps over 50 m,
+    manakov: K9), the comb photon statistics of the JAX tests' 4-line PIA
+    (two 0.5 W pumps, 1 uW signal, 400 steps over 40 m) at rk4 (K4) and at
+    rk45 (K5), and the pulse squeezing of a fundamental soliton over half a
+    soliton period at rk45 with Kerr (K8); rk45 at the configuration's
+    rtol 1e-9 / atol 1e-12."""
+    t0, beta2, gamma, om0 = 1e-12, -2.0e-26, 2e-3, 1.2e15
+    grid = psa.gnlse.TimeGrid.for_pulse(t0, n_samples=256)
+    disp = psa.DispersionParams.from_betas(om0, beta2=beta2)
+    peak = psa.soliton_peak_power(beta2, gamma, t0)
+    sech = np.asarray(psa.sech_pulse(grid, peak_W=peak, t0_s=t0))
+    vco = psa.make_vgnlse_coeffs(grid, disp, gamma_W_m=gamma, coupling="manakov")
+    vA0 = np.asarray(psa.polarized_pulse(sech, 0.4))
+    vcfg = psa.custom_simulation_config(z_max=50.0, dz=0.25, save_every=50)
+    co = psa.make_gnlse_coeffs(grid, disp, gamma_W_m=gamma, alpha_1_m=0.0)
+    z_half = 0.25 * np.pi * t0 ** 2 / abs(beta2)
+    cfg45 = psa.custom_simulation_config(z_max=z_half, dz=z_half / 200, save_every=50,
+                                         integrator="rk45")
+    nw = psa.nwave
+    cgrid = nw.CombGrid.centered(2 * np.pi * 193.1e12, 2 * np.pi * 100e9, 4)
+    cco = nw.NWaveCoeffs(gamma=5e-3, alpha=0.0, beta_lin=np.zeros(4))
+    cA0 = np.asarray(nw.seed_comb(cgrid, pump_lines={0: 0.5, 3: 0.5, 1: 1e-6}))
+    ckw = dict(n_samples=1024, seed=1, noisy_lines=[False, True, True, False],
+               measure_lines=(1,), device="cuda")
+
+    def comb(integrator):
+        cfg = psa.custom_simulation_config(z_max=40.0, dz=0.1, save_every=100,
+                                           integrator=integrator)
+        return lambda: nz.comb_photon_statistics(cfg, cco, cgrid, cA0, **ckw)
+
+    def comb_figures(r):
+        return {"NF dB": r.nf_db, "2-1/G dB": 10 * np.log10(2 - 10 ** (-r.gain_db / 10)),
+                "n_mean max": float(np.max(r.n_mean))}
+    return (
+        ("vector_pulse_photon_statistics", "K9",
+         lambda: nz.vector_pulse_photon_statistics(vcfg, vco, vA0, grid, omega0=om0,
+                                                   n_samples=1024, seed=0, device="cuda"),
+         {"vgnlse_ssfm_f64": 1},
+         lambda r: {"total photons": r.total_photons, "total Fano": r.total_fano}),
+        ("comb_photon_statistics rk4", "K4", comb("rk4"), {"comb_rk_f64": 1}, comb_figures),
+        ("comb_photon_statistics rk45", "K5", comb("rk45"), {"comb_rk45_f64": 1},
+         comb_figures),
+        ("pulse_squeezing_monte_carlo rk45 Kerr", "K8",
+         lambda: nz.pulse_squeezing_monte_carlo(cfg45, co, sech, grid, omega0=om0,
+                                                n_samples=1024, seed=0, device="cuda"),
+         {"ssfm_rk45_f64": 1},
+         lambda r: {"squeezing dB": r.stats.squeezing_db, "photons": r.mean_photons}),
+    )
+
+
+def hold_to_plain(label, plain, call, lanes=None):
+    """Run ``plain`` on the inputs of a kernel call captured in phase 28
+    (``(args, kwargs, result, seconds)``) and hold the kernel's result to
+    it.  ``lanes`` (a device index tensor) keeps those lanes of a call whose
+    positional inputs all lead with the lane axis; lanes are independent,
+    so the plain version solves only them.  Bars: ``A_end`` and the peak
+    within 1e-11 of each lane's largest value (the fixed-step kernels' fp64
+    bar), ``ok`` identical; an adaptive kernel's step counters equal on
+    >= 99% of lanes, its results within 1e-9 there and 10 x rtol on all
+    (phases 12 and 16).  Returns the log line; raises on a miss."""
+    a, k, r, _sec = call
+    if lanes is not None:
+        a = tuple(x[lanes] for x in a)
+        r = type(r)(**{f.name: getattr(r, f.name)[lanes] for f in dataclasses.fields(r)})
+    t0 = time.perf_counter()
+    p = plain(*a, **k)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    peak = "P_max" if hasattr(r, "P_max") else "peak_max"
+    B = r.ok.shape[0]
+    same, share = np.ones(B, bool), 1.0
+    if hasattr(r, "n_accepted"):
+        same = ((r.n_accepted == p.n_accepted) & (r.n_rejected == p.n_rejected)).cpu().numpy()
+        share = float(same.mean())
+    errs = {}
+    for f in ("A_end", peak):
+        kf, pf = getattr(r, f).cpu().numpy(), getattr(p, f).cpu().numpy()
+        errs[f] = (lane_normwise(kf[same], pf[same]) if same.any() else 0.0,
+                   lane_normwise(kf, pf))
+    ok_same = torch.equal(r.ok, p.ok)
+    if hasattr(r, "n_accepted"):
+        rtol = float(k["rtol"])
+        held = share >= 0.99 and all(s <= 1e-9 and e <= 10 * rtol for s, e in errs.values())
+        bars = (f"counters equal on {share:.4f} (bar 0.99); A_end {errs['A_end'][0]:.3e} on "
+                f"those (bar 1e-9), {errs['A_end'][1]:.3e} on all (bar {10 * rtol:g}); peak "
+                f"{errs[peak][0]:.3e} / {errs[peak][1]:.3e}")
+    else:
+        held = all(e <= 1e-11 for _s, e in errs.values())
+        bars = f"A_end {errs['A_end'][1]:.3e}, peak {errs[peak][1]:.3e} (bar 1e-11)"
+    line = (f"  {label}: {B} lanes, kernel vs plain on the card ({1e3 * sec:.1f} ms plain): "
+            f"{bars}, ok equal {ok_same}")
+    if not (held and ok_same):
+        raise AssertionError(f"{label}: the kernel and its plain version differ: {line}")
+    return line
+
+
+def noise_phases(psa, _build, card, t_start):
+    """Phase 28, the Monte Carlo on the card: the seven noise subcommands
+    and ``supercontinuum --coherence 16`` through ``__main__.main``
+    (``NOISE_RUNS``), each with the launch counts cleared just before and
+    read just after, its wall time split into the kernel calls, the solver
+    entry points around them (copies, factors, the fetch) and the host (the
+    draws and the statistics), each bracketed by synchronize; the ensembles
+    no subcommand runs, through the API; every kernel of the phase against
+    its plain version at the shapes the runs gave it; then two
+    sub-ensembles, kernel against plain version on the card.
+
+    1. ``noise-figure --spectrum-points 64``: K1 launched 21 times (the
+       65-phase mean-field scan, PIA, PSA, 17 phases, the spectrum); the
+       PIA NF within 4 SE + 0.02 dB of 10 log10(2 - 1/G), the PSA NF within
+       4 SE + 0.05 dB of 0, and every ok point of NF(lambda) within 4 SE +
+       0.1 dB of 2 - 1/G (``tests/test_noise.py``'s bars);
+    2. ``gain-ripple``: K1 20 times, 4,097 fibres; the nominal lane equals
+       one continuous ``solve_batch`` of the fibre within 1e-9 dB;
+    3. ``link``: K6 40 times (20 spans with ASE, 20 without); the control
+       keeps its energy variance at its first value within 1e-6 relative,
+       and the ASE run's last/first frequency-variance ratio exceeds the
+       control's;
+    4. ``squeezing``, ``soliton-squeezing``, ``jitter``, ``mi-noise`` and
+       the cut ``supercontinuum --coherence 16``: their launches as listed,
+       the JAX file names;
+    5. ``noise_api_runs``: the vector photon statistics (K9), the comb
+       photon statistics at rk4 (K4) and rk45 (K5) and the rk45 Kerr pulse
+       squeezing (K8), one launch each, every lane ok, finite figures;
+    6. ``hold_to_plain`` on the widest call of each kernel: the spectrum's
+       524,352-lane K1 launch over its first and last 8,193 lanes, one
+       2,049-envelope span of ``link`` and ``mi-noise``'s 4,097 envelopes
+       (K6), and the calls of 5.; then that K1 launch warm and over its
+       first 250,000 lanes, ps a lane-step;
+    7. ``noise_figure_monte_carlo`` (the PIA of 1., 256 samples) with the
+       kernel (``engine='auto'``) and with the plain version on the card
+       (``engine='torch'``), the same seed: each lane's ``A_end`` within
+       1e-11 of its largest wave (K1's fp64 bar), ``ok`` identical, the NF
+       within 1e-6 dB and the gain within 1e-9 dB;
+    8. ``pulse_link_monte_carlo`` (the link of 3., 64 samples, 2 spans)
+       with K6 and with its plain version on the card: every span's
+       output within 1e-11 of each envelope's largest amplitude (K6's fp64
+       bar), ``ok`` identical.
+    """
+    import contextlib
+    import io
+    import tempfile
+
+    from psa_simulation_ode_rk_mvp_dispersion_tpu_torch import __main__ as cli
+    from psa_simulation_ode_rk_mvp_dispersion_tpu_torch import experiments as ex
+    from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.models import gnlse as gn
+    from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_comb as cc
+    from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_comb_adaptive as cca
+    from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_gnlse as cg
+    from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_solver as cs
+    from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_ssfm_adaptive as csa
+    from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_vgnlse as cv
+    from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.parallel import fluctuations as fl
+    from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.parallel import link as lk
+    from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.parallel import noise as nz
+    from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.parallel import sweep as sw
+    from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.utils.units import alpha_db_per_km_to_1_m
+
+    has_mpl = has_matplotlib()
+    log(f"phase 28, the Monte Carlo on the card ({card}), x64")
+    root = Path(tempfile.mkdtemp(prefix="psa_noise_"))
+    t_phase = time.perf_counter()
+    kernel_s, solve_s, depth = [], [], [0]
+    captured, widest, held, api_held = {}, {}, {}, []
+
+    def timed(name, fn):
+        """A kernel wrapper bracketed by synchronize; keeps the run's widest
+        call of it (inputs, outputs, seconds) for ``hold_to_plain``."""
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*a, **k)
+            torch.cuda.synchronize()
+            kernel_s.append(time.perf_counter() - t0)
+            if name not in widest or a[0].shape[0] > widest[name][0][0].shape[0]:
+                widest[name] = (a, k, r, kernel_s[-1])
+            return r
+        return call
+
+    def solver(fn):
+        """A solver entry point (the kernel wrapper, the copies around it
+        and the fetch) bracketed by synchronize, outermost calls only."""
+        def call(*a, **k):
+            if depth[0]:
+                return fn(*a, **k)
+            depth[0] += 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                solve_s.append(time.perf_counter() - t0)
+                depth[0] -= 1
+        return call
+
+    def capture(name, fn):
+        def call(**kw):
+            captured[name] = fn(**kw)
+            return captured[name]
+        return call
+
+    kernels = {(sw, "solve_batch_cuda"): "K1", (cg, "solve_gnlse_batch_cuda"): "K6",
+               (cv, "solve_vgnlse_batch_cuda"): "K9", (cc, "solve_comb_batch_cuda"): "K4",
+               (cca, "solve_comb_batch_rk45_cuda"): "K5",
+               (csa, "solve_gnlse_batch_rk45_cuda"): "K8"}
+    solvers = [(sw, "solve_batch"), (nz, "solve_batch"), (fl, "solve_batch"),
+               (gn, "solve_gnlse_batch")]
+    experiments = ("noise_figure", "gain_ripple", "soliton_link")
+    saved = {(m, n): getattr(m, n) for m, n in
+             list(kernels) + solvers + [(ex, name) for name in experiments]}
+    for (m, n), k_name in kernels.items():
+        setattr(m, n, timed(k_name, saved[(m, n)]))
+    for m, n in solvers:
+        setattr(m, n, solver(saved[(m, n)]))
+    for name in experiments:
+        setattr(ex, name, capture(name, saved[(ex, name)]))
+    try:
+        for argv, files, expected in NOISE_RUNS:
+            out = root / f"run{len(list(root.iterdir()))}"
+            err = io.StringIO()
+            _build.LAUNCHES.clear()
+            kernel_s.clear()
+            solve_s.clear()
+            widest.clear()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(err):
+                code = cli.main(["--no-show", "--quiet", "--save-dir", str(out)] + argv)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            counts = dict(_build.LAUNCHES)
+            ks, ss = sum(kernel_s), sum(solve_s)
+            each = (f"{1e3 * min(kernel_s):.2f}-{1e3 * max(kernel_s):.2f} ms each"
+                    if kernel_s else "none")
+            log(f"  cli {' '.join(argv)}: exit {code}, {sec:.2f} s on {card}, launches {counts}; "
+                f"{len(kernel_s)} kernel calls, {ks:.3f} s in all ({each}); {len(solve_s)} "
+                f"solver calls, {ss:.3f} s in all; shares of the wall time: kernels "
+                f"{ks / sec:.3f}, the solvers around them {(ss - ks) / sec:.3f}, host "
+                f"{1.0 - ss / sec:.3f}")
+            if code != 0:
+                raise AssertionError(f"cli {argv}: exit {code}: {err.getvalue()[-2000:]}")
+            if counts != expected:
+                raise AssertionError(f"cli {argv}: launches {counts}, expected {expected}")
+            check_cli_files(argv, out, err.getvalue(), files, has_mpl)
+            # the calls held to their plain versions below: the spectrum's
+            # 524,352-lane K1 launch, one 2,049-envelope span of the link,
+            # and mi-noise's 4,097 envelopes, the widest K6 call
+            if argv[0] in ("noise-figure", "link", "mi-noise"):
+                held[argv[0]] = dict(widest)
+        # 5: the vector, comb and rk45 Kerr ensembles through the API
+        for label, K, fn, expected, figures in noise_api_runs(psa, nz):
+            _build.LAUNCHES.clear()
+            widest.clear()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            counts = dict(_build.LAUNCHES)
+            fig = figures(res)
+            log(f"  {label} ({K}): {sec:.2f} s on {card}, launches {counts}, ok_fraction "
+                f"{res.ok_fraction}; " + ", ".join(f"{k} {v:.6g}" for k, v in fig.items()))
+            if not (counts == expected and res.ok_fraction == 1.0
+                    and np.isfinite(list(fig.values())).all()):
+                raise AssertionError(f"{label}: launches {counts}, expected {expected}; "
+                                     f"ok_fraction {res.ok_fraction}, {fig}")
+            api_held.append((label, K, widest[K]))
+    finally:
+        for (m, n), fn in saved.items():
+            setattr(m, n, fn)
+
+    # 1: the quantum limits of the noise figure
+    pia, psa_r, _curve, spec = captured["noise_figure"]
+    G = 10.0 ** (pia.gain_db / 10.0)
+    pia_dev = abs(pia.nf_db - 10.0 * np.log10(2.0 - 1.0 / G))
+    G_l = 10.0 ** (spec.gain_db / 10.0)
+    nf_t = 10.0 * np.log10(2.0 - 1.0 / np.maximum(G_l, 1.0 + 1e-12))
+    dev = np.abs(spec.nf_db - nf_t)[spec.ok]
+    slack = (dev - 4.0 * spec.nf_se_db[spec.ok]).max()
+    log(f"  PIA: gain {pia.gain_db:.3f} dB, NF {pia.nf_db:.4f} +- {pia.nf_se_db:.4f} dB, "
+        f"|NF - (2-1/G)| {pia_dev:.4f} dB (bar 4 SE + 0.02); PSA: gain {psa_r.gain_db:.3f} dB, "
+        f"NF {psa_r.nf_db:.4f} +- {psa_r.nf_se_db:.4f} dB (bar 4 SE + 0.05); NF(lambda): "
+        f"{int(spec.ok.sum())}/{spec.ok.size} points ok over "
+        f"{spec.ok.size * (spec.n_samples + 1)} lanes, "
+        f"max |NF - (2-1/G)| {dev.max():.4f} dB, worst excess over 4 SE {slack:.4f} dB "
+        "(bar 0.1)")
+    if not (pia_dev < 4.0 * pia.nf_se_db + 0.02 and abs(psa_r.nf_db) < 4.0 * psa_r.nf_se_db
+            + 0.05 and spec.ok.all() and slack < 0.1):
+        raise AssertionError("noise-figure: a quantum limit is missed")
+
+    # 2: the nominal fibre of the gain ripple against one continuous solve
+    rip = captured["gain_ripple"]
+    cfg = psa.custom_simulation_config(z_max=500.0, dz=0.25, save_every=100)
+    A0 = np.asarray(psa.make_initial_amplitudes([0.3, 0.3, 1e-5, 0.0], np.zeros(4)))[None]
+    rc = psa.solve_batch(cfg, psa.RHSCoeffs(gamma=np.full(1, 11.5e-3),
+                                            alpha=np.full(1, alpha_db_per_km_to_1_m(0.5)),
+                                            delta_beta=np.zeros(1)), A0, device="cuda")
+    g_cont = 10.0 * np.log10(np.abs(rc.A_end[0, 2]) ** 2 / 1e-5)
+    log(f"  gain-ripple: {rip.ok.sum()}/{rip.ok.size} fibres ok, nominal "
+        f"{rip.gain_nominal_db:.9f} dB vs one continuous solve {g_cont:.9f} dB "
+        f"(|diff| {abs(rip.gain_nominal_db - g_cont):.3e}, bar 1e-9), mean "
+        f"{rip.gain_mean_db:.4f} +- {rip.gain_mean_se_db:.4f} dB, sigma {rip.gain_std_db:.4f} dB")
+    if not (abs(rip.gain_nominal_db - g_cont) <= 1e-9 and rip.ok.all()):
+        raise AssertionError("gain-ripple: the nominal fibre is not the continuous solve")
+
+    # 3: the link's control and the Gordon-Haus onset
+    ms, mc = captured["soliton_link"]
+    e_dev = float(np.max(np.abs(mc.energy_var / mc.energy_var[0] - 1.0)))
+    r_ase, r_ctl = float(ms.f_var[-1] / ms.f_var[0]), float(mc.f_var[-1] / mc.f_var[0])
+    log(f"  link: control energy variance constant to {e_dev:.3e} (bar 1e-6); frequency "
+        f"variance last/first {r_ase:.3f} with ASE, {r_ctl:.6f} without")
+    if not (e_dev <= 1e-6 and r_ase > r_ctl and ms.ok_fraction == 1.0):
+        raise AssertionError("link: the control drifts or the ASE adds no frequency diffusion")
+
+    # 6: the kernels against their plain versions at the shapes the runs
+    # gave them; the spectrum's K1 launch over its first and last points
+    plain = {"K1": cs.solve_batch_torch, "K6": cg.solve_gnlse_batch_torch,
+             "K9": cv.solve_vgnlse_batch_torch, "K4": cc.solve_comb_batch_torch,
+             "K5": cca.solve_comb_batch_rk45_torch, "K8": csa.solve_gnlse_batch_rk45_torch}
+    k1 = held["noise-figure"]["K1"]
+    B, per = k1[0][0].shape[0], spec.n_samples + 1
+    ends = torch.cat([torch.arange(per), torch.arange(B - per, B)]).to(k1[0][0].device)
+    log(hold_to_plain(f"K1, noise-figure's spectrum launch ({B} lanes x {k1[1]['n_steps']} "
+                      f"steps), its first and last {per}", plain["K1"], k1, ends))
+    for run, K, call in [("link", "K6", held["link"]["K6"]),
+                         ("mi-noise", "K6", held["mi-noise"]["K6"])] + api_held:
+        log(hold_to_plain(f"{K}, {run}", plain[K], call))
+
+    # the spectrum's K1 launch warm, and over its first 250,000 lanes (the
+    # kernels line's shape): ps a lane-step, median of 3
+    a, k, _r, first_s = k1
+    warm = {}
+    for n in (B, N_STEADY):
+        args = tuple(x[:n] for x in a)
+        sw.solve_batch_cuda(*args, **k)
+        reps = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sw.solve_batch_cuda(*args, **k)
+            torch.cuda.synchronize()
+            reps.append(time.perf_counter() - t0)
+        warm[n] = float(np.median(reps))
+    log(f"  K1 at {B} lanes x {k['n_steps']} steps: {1e3 * warm[B]:.3f} ms warm "
+        f"({1e12 * warm[B] / (B * k['n_steps']):.2f} ps a lane-step; the run's own call "
+        f"{1e3 * first_s:.2f} ms); its first {N_STEADY} lanes {1e3 * warm[N_STEADY]:.3f} ms "
+        f"({1e12 * warm[N_STEADY] / (N_STEADY * k['n_steps']):.2f} ps a lane-step), on {card}")
+
+    # 7: the NF sub-ensemble, K1 against its plain version on the card
+    omega = np.asarray(psa.plan_from_wavelengths(1550e-9, 1552e-9, 1551.0e-9))
+    nf_kw = dict(gamma=5e-3, alpha=0.0, omega=omega, p_in=[0.5, 0.5, 1e-6, 0.0],
+                 delta_beta=0.0, n_samples=256, noisy_waves=(False, False, True, True),
+                 measure="signal", seed=0, device="cuda")
+    cfg_nf = psa.custom_simulation_config(z_max=200.0, dz=0.05, save_every=50)
+    runs = {}
+    for engine in ("auto", "torch"):
+        ends = []
+
+        def record(*a, **k):
+            r = sw.solve_batch(*a, **k)
+            ends.append(r)
+            return r
+        nz.solve_batch = record
+        try:
+            runs[engine] = (nz.noise_figure_monte_carlo(cfg_nf, engine=engine, **nf_kw), ends)
+        finally:
+            nz.solve_batch = sw.solve_batch
+    (rk, ek), (rp, ep) = runs["auto"], runs["torch"]
+    err = lane_normwise(ek[0].A_end, ep[0].A_end)
+    log(f"  noise_figure_monte_carlo, 257 lanes, K1 vs plain on the card: A_end {err:.3e} "
+        f"(bar 1e-11), NF {abs(rk.nf_db - rp.nf_db):.3e} dB (bar 1e-6), gain "
+        f"{abs(rk.gain_db - rp.gain_db):.3e} dB (bar 1e-9), ok equal "
+        f"{np.array_equal(ek[0].ok, ep[0].ok)}")
+    if not (err <= 1e-11 and np.array_equal(ek[0].ok, ep[0].ok)
+            and abs(rk.nf_db - rp.nf_db) <= 1e-6 and abs(rk.gain_db - rp.gain_db) <= 1e-9):
+        raise AssertionError("noise_figure_monte_carlo: K1 and its plain version differ")
+
+    # 8: the link sub-ensemble, K6 against its plain version on the card
+    grid = gn.TimeGrid.for_pulse(1e-12, n_samples=256)
+    disp = psa.DispersionParams.from_betas(1.2e15, beta2=-2.0e-26)
+    co = gn.make_gnlse_coeffs(grid, disp, gamma_W_m=2e-3, alpha_1_m=alpha_db_per_km_to_1_m(21.7))
+    A0 = np.asarray(gn.sech_pulse(grid, peak_W=gn.soliton_peak_power(-2.0e-26, 2e-3, 1e-12),
+                                  t0_s=1e-12))
+    cfg_span = psa.custom_simulation_config(z_max=50.0, dz=2.0, save_every=25)
+    spans, route = {}, gn.kernel_route
+    for label in ("K6", "plain"):
+        outs = []
+
+        def record(*a, **k):
+            r = saved_solve(*a, **k)
+            outs.append(r)
+            return r
+        saved_solve = gn.solve_gnlse_batch
+        gn.solve_gnlse_batch = record
+        if label == "plain":
+            gn.kernel_route = lambda *a, **k: None
+        try:
+            _build.LAUNCHES.clear()
+            m = lk.pulse_link_monte_carlo(cfg_span, co, A0, grid, omega0=1.2e15, n_spans=2,
+                                          n_samples=64, seed=0, device="cuda")
+            spans[label] = (m, outs, dict(_build.LAUNCHES))
+        finally:
+            gn.solve_gnlse_batch = saved_solve
+            gn.kernel_route = route
+    (mk, ok_, ck), (mp, op, cp) = spans["K6"], spans["plain"]
+    err = max(lane_normwise(a[1], b[1]) for a, b in zip(ok_, op))
+    same_ok = all(np.array_equal(a[2], b[2]) for a, b in zip(ok_, op))
+    log(f"  pulse_link_monte_carlo, 65 envelopes x 2 spans, K6 {ck} vs plain {cp} on the card: "
+        f"span outputs {err:.3e} (bar 1e-11), ok equal {same_ok}; t_var "
+        f"{max_rel(mk.t_var, mp.t_var):.3e}, f_var {max_rel(mk.f_var, mp.f_var):.3e}, "
+        f"energy_var {max_rel(mk.energy_var, mp.energy_var):.3e} relative")
+    if not (err <= 1e-11 and same_ok and ck == {"gnlse_ssfm_f64": 2} and not cp):
+        raise AssertionError("pulse_link_monte_carlo: K6 and its plain version differ")
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 28 done in "
         f"{time.perf_counter() - t_phase:.1f} s on {card}")
 
 
@@ -2353,6 +2833,7 @@ def main():
     lle_phases(psa, _build, cl, csa, dev, card, t_start, rec)
     vgnlse_phases(psa, _build, cv, cg, dev, card, t_start, rec)
     cli_phases(psa, _build, card, t_start)
+    noise_phases(psa, _build, card, t_start)
     log(f"[{time.perf_counter() - t_start:.0f} s] all phases done")
 
     sources = {"fwm4_rk": f"{PKG}/csrc/fwm4_rk.cu", "fwm4_rk45": f"{PKG}/csrc/fwm4_rk45.cu",

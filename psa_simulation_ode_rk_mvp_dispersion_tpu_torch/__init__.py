@@ -14,7 +14,12 @@ GNLSE (``models/vgnlse``) and the FWM + SBS forward/backward relaxation
 (``models/sbs``, plain torch), with the entry layer on top: the ready-made
 ``experiments``, ``plotting``, ``utils/observability`` (profiler trace,
 throughput meter, run log), ``utils/debug`` (opt-in finiteness checks) and
-the command line ``python -m psa_simulation_ode_rk_mvp_dispersion_tpu_torch``.  The rotating-frame sweeps and the batched comb,
+the command line ``python -m psa_simulation_ode_rk_mvp_dispersion_tpu_torch``, and the Monte-Carlo
+layer (``parallel/noise``: truncated-Wigner noise figures, squeezing,
+photon statistics, coherence, jitter; ``parallel/fluctuations``: gain
+ripple under delta-beta wander; ``parallel/link``: amplified soliton
+links), whose ensembles are the JAX package's draw for draw and run
+through the same kernels.  The rotating-frame sweeps and the batched comb,
 pulse, cavity and vector solves run on a CUDA device through hand-written
 kernels: ``csrc/fwm4_rk.cu``
 (``ops/cuda_solver.py``), ``csrc/fwm4_rk45.cu`` (``ops/cuda_adaptive.py``),
@@ -178,6 +183,42 @@ from .models.fwm4 import (
     run_single_simulation,
 )
 from .parallel import sweep as sweeps
+from .parallel import noise as noise
+from .parallel import fluctuations as fluctuations
+from .parallel.fluctuations import GainRippleResult, gain_ripple_monte_carlo
+from .parallel.link import pulse_link_monte_carlo, span_observed_length_m
+from .parallel.noise import (
+    CoherenceResult,
+    CombPhotonStatistics,
+    EPRResult,
+    NoiseFigureResult,
+    NoiseFigureSpectrumResult,
+    PulseMomentStatistics,
+    PulsePhotonStatistics,
+    PulseSqueezingEvolution,
+    PulseSqueezingResult,
+    QuadratureStats,
+    RINTransferResult,
+    SqueezingSpectrumResult,
+    comb_pair_squeezing_monte_carlo,
+    comb_photon_statistics,
+    epr_inseparability_monte_carlo,
+    noise_figure_monte_carlo,
+    noise_figure_spectrum,
+    psa_squeezing_monte_carlo,
+    pulse_coherence_monte_carlo,
+    pulse_moment_statistics,
+    pump_rin_transfer_monte_carlo,
+    pulse_photon_statistics,
+    pulse_squeezing_evolution,
+    pulse_squeezing_monte_carlo,
+    pulse_squeezing_spectrum,
+    quadrature_stats,
+    vector_pulse_coherence_monte_carlo,
+    vector_pulse_photon_statistics,
+    vector_pulse_squeezing_evolution,
+    vector_pulse_squeezing_monte_carlo,
+)
 from .parallel.sweep import (
     BatchSolveResult,
     GainMapResult,

@@ -7,7 +7,10 @@ command line runs on the CUDA card; without one it stops with an error
 unless ``--device cpu`` is given.  The 4-wave sweeps (``spectrum``,
 ``spectrum-dbeta``, ``gain-map``, ``mismatch``, ``psa-phase``) run through
 the kernels ``csrc/fwm4_rk.cu`` (rk4, ab4, abm4) and ``csrc/fwm4_rk45.cu``
-(rk45).
+(rk45); the Monte-Carlo subcommands (``noise-figure``, ``gain-ripple``,
+``squeezing``, ``soliton-squeezing``, ``jitter``, ``link``, ``mi-noise``,
+and ``supercontinuum --coherence N``) run their ensembles through the
+4-wave kernel and the GNLSE kernel ``csrc/gnlse_ssfm.cu``.
 
 Examples:
     python -m psa_simulation_ode_rk_mvp_dispersion_tpu_torch single --no-show
@@ -15,6 +18,8 @@ Examples:
         --points 10000 --precision df32 --save-dir out --no-show
     python -m psa_simulation_ode_rk_mvp_dispersion_tpu_torch --device cpu \
         mismatch --span 60 --no-show
+    python -m psa_simulation_ode_rk_mvp_dispersion_tpu_torch noise-figure \
+        --spectrum-points 64 --save-dir out --no-show
 """
 
 from __future__ import annotations
@@ -25,10 +30,8 @@ import sys
 # Subcommands of the JAX package that wait for a later slice of the port,
 # with the ROADMAP item that brings each.
 WAITING = {
-    "noise-figure": 15, "gain-ripple": 15, "squeezing": 15, "soliton-squeezing": 15,
-    "jitter": 15, "link": 15, "mi-noise": 15,   # the Monte-Carlo noise slice
-    "fit-gain": 16,                             # calibration
-    "bench": 7,                                 # the port's benchmark
+    "fit-gain": 16,   # calibration
+    "bench": 7,       # the port's benchmark
 }
 
 
@@ -155,8 +158,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "vector propagation)")
     s.add_argument("--coherence", type=int, default=0, metavar="N",
                    help="also measure shot-to-shot spectral coherence over N "
-                        "vacuum-seeded shots (not ported yet: N > 0 is refused, "
-                        "ROADMAP item 15)")
+                        "vacuum-seeded shots (0 disables; scalar only)")
     s.add_argument("--theta", type=float, default=30.0,
                    help="pump polarization angle [deg] (with --vector)")
 
@@ -168,6 +170,86 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--damping", type=float, default=1.0,
                    help="under-relaxation factor (use <1 above SBS threshold)")
     s.add_argument("--max-iterations", type=int, default=200)
+
+    s = sub.add_parser("noise-figure",
+                       help="quantum-limited NF by Wigner Monte Carlo "
+                            "(PIA 3 dB law, PSA 0 dB limit, NF vs phase)")
+    s.add_argument("--samples", type=int, default=8192,
+                   help="Monte-Carlo ensemble size per point")
+    s.add_argument("--z-max", type=float, default=200.0, help="fiber [m]")
+    s.add_argument("--phase-points", type=int, default=17,
+                   help="NF-vs-phase curve resolution (0 disables)")
+    s.add_argument("--spectrum-points", type=int, default=0,
+                   help="NF-vs-wavelength spectrum resolution (0 disables)")
+    s.add_argument("--alpha-db-km", type=float, default=0.0,
+                   help="fiber loss [dB/km]")
+    s.add_argument("--loss-model", default="deterministic",
+                   choices=("deterministic", "langevin"),
+                   help="'langevin' injects distributed-loss vacuum "
+                        "(beamsplitter model; quantum-correct NF)")
+    s.add_argument("--loss-segments", type=int, default=16,
+                   help="langevin injection segments (must divide the "
+                        "observed step count)")
+
+    s = sub.add_parser("gain-ripple",
+                       help="fiber-yield Monte Carlo: gain statistics under "
+                            "longitudinal delta-beta wander")
+    s.add_argument("--realizations", type=int, default=4096)
+    s.add_argument("--segments", type=int, default=20,
+                   help="delta-beta correlation segments along the fiber")
+    s.add_argument("--sigma", type=float, default=0.02,
+                   help="delta-beta standard deviation [1/m]")
+
+    s = sub.add_parser("squeezing",
+                       help="PSA vacuum squeezing: quadrature noise "
+                            "ellipses by Wigner Monte Carlo")
+    s.add_argument("--samples", type=int, default=8192)
+    s.add_argument("--z-max", type=float, default=150.0, help="fiber [m]")
+
+    s = sub.add_parser("soliton-squeezing",
+                       help="quantum soliton squeezing along the fiber "
+                            "(truncated-Wigner MC on the GNLSE solver)")
+    s.add_argument("--samples", type=int, default=2048,
+                   help="Wigner ensemble size")
+    s.add_argument("--periods", type=float, default=3.0,
+                   help="propagation length in soliton periods")
+    s.add_argument("--points", type=int, default=24,
+                   help="measurement distances along the fiber")
+
+    s = sub.add_parser("jitter",
+                       help="soliton timing/frequency jitter statistics: "
+                            "exact dispersive law vs Gordon-Haus onset "
+                            "under langevin loss")
+    s.add_argument("--samples", type=int, default=1024,
+                   help="Wigner ensemble size")
+    s.add_argument("--periods", type=float, default=3.0,
+                   help="propagation length in soliton periods")
+    s.add_argument("--points", type=int, default=16,
+                   help="measurement distances along the fiber")
+    s.add_argument("--alpha-db-km", type=float, default=8.7,
+                   help="distributed loss for the langevin run [dB/km]")
+
+    s = sub.add_parser("link",
+                       help="soliton transmission over lossy spans + lumped "
+                            "amplifiers: Gordon-Haus jitter accumulation "
+                            "(ASE vs noiseless control)")
+    s.add_argument("--samples", type=int, default=2048,
+                   help="Wigner ensemble size")
+    s.add_argument("--spans", type=int, default=20,
+                   help="number of fiber spans / amplifiers")
+    s.add_argument("--span-m", type=float, default=50.0,
+                   help="span length [m]")
+    s.add_argument("--alpha-db-km", type=float, default=21.7,
+                   help="span loss [dB/km] (amp gain restores it)")
+    s.add_argument("--nsp", type=float, default=1.0,
+                   help="amplifier spontaneous factor (>= 1)")
+
+    s = sub.add_parser("mi-noise",
+                       help="modulation-instability quantum sidebands: "
+                            "squeezing spectrum + shot-to-shot coherence")
+    s.add_argument("--samples", type=int, default=4096)
+    s.add_argument("--nonlinear-lengths", type=float, default=3.0,
+                   help="propagation distance in units of 1/(gamma P)")
     return p
 
 
@@ -201,7 +283,9 @@ def main(argv=None) -> int:
     if cmd in WAITING:
         parser.error(f"'{cmd}' is not ported yet: it comes with ROADMAP item {WAITING[cmd]}")
     args = parser.parse_args(argv)
-    if args.integrator is not None and args.cmd in ("sbs", "comb", "kerr-cavity"):
+    if args.integrator is not None and args.cmd in (
+            "sbs", "noise-figure", "comb", "gain-ripple", "squeezing",
+            "soliton-squeezing", "jitter", "link", "mi-noise", "kerr-cavity"):
         parser.error(
             f"--integrator is not honored by '{args.cmd}'"
             + (" (use --comb-integrator)" if args.cmd == "comb" else "")
@@ -209,9 +293,8 @@ def main(argv=None) -> int:
     if args.shard:
         parser.error("--shard is not ported: multi-device solves land with ROADMAP "
                      "item 17 (slice I)")
-    if args.cmd == "supercontinuum" and args.coherence > 0:
-        parser.error("--coherence needs the Monte-Carlo noise module, which is not "
-                     "ported yet: ROADMAP item 15")
+    if args.cmd == "supercontinuum" and args.vector and args.coherence:
+        parser.error("--coherence is scalar-only (drop --vector)")
 
     import torch
 
@@ -277,7 +360,8 @@ def main(argv=None) -> int:
     elif args.cmd == "supercontinuum":
         fn = (ex.vector_supercontinuum if args.vector
               else ex.supercontinuum)
-        kw = dict(theta_deg=args.theta) if args.vector else {}
+        kw = (dict(theta_deg=args.theta) if args.vector
+              else dict(coherence_samples=args.coherence))
         fn(
             t0_fs=args.t0, peak_kW=args.peak, length_m=args.length,
             n_samples=args.samples, rtol=args.rtol,
@@ -289,6 +373,42 @@ def main(argv=None) -> int:
                    tol=args.tol, damping=args.damping,
                    max_iterations=args.max_iterations,
                    **{k: v for k, v in common.items() if k != "precision"})
+    elif args.cmd == "noise-figure":
+        ex.noise_figure(
+            z_max_m=args.z_max, n_samples=args.samples,
+            phase_points=args.phase_points,
+            spectrum_points=args.spectrum_points,
+            alpha_db_km=args.alpha_db_km, loss_model=args.loss_model,
+            n_loss_segments=args.loss_segments, verbose=verbose, **common,
+        )
+    elif args.cmd == "gain-ripple":
+        ex.gain_ripple(
+            n_realizations=args.realizations, n_segments=args.segments,
+            sigma_dbeta_1_m=args.sigma, verbose=verbose, **common,
+        )
+    elif args.cmd == "squeezing":
+        ex.squeezing(n_samples=args.samples, z_max_m=args.z_max, verbose=verbose,
+                     **common)
+    elif args.cmd == "soliton-squeezing":
+        ex.soliton_squeezing(
+            n_samples=args.samples, periods=args.periods, points=args.points,
+            verbose=verbose, **common,
+        )
+    elif args.cmd == "jitter":
+        ex.soliton_jitter(
+            n_samples=args.samples, periods=args.periods, points=args.points,
+            alpha_db_km=args.alpha_db_km, verbose=verbose, **common,
+        )
+    elif args.cmd == "link":
+        ex.soliton_link(
+            n_samples=args.samples, n_spans=args.spans, span_m=args.span_m,
+            alpha_db_km=args.alpha_db_km, n_sp=args.nsp, verbose=verbose, **common,
+        )
+    elif args.cmd == "mi-noise":
+        ex.mi_sideband_noise(
+            n_samples=args.samples, nonlinear_lengths=args.nonlinear_lengths,
+            verbose=verbose, **common,
+        )
     return 0
 
 

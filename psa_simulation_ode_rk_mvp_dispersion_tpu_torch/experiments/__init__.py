@@ -4,15 +4,14 @@ Counterpart of the JAX package's ``experiments`` package, with the same
 names, defaults and file names (reference ``main.py``:
 ``main_single_simulation`` :22-117, ``main_gain_spectrum`` :119-203,
 ``main_gain_spectrum_dbeta`` :206-280), plus the mismatch scan, PSA phase
-sweep, 2-D gain map and the comb / Kerr-cavity / pulse / SBS family
-experiments.  Each takes ``device`` (``None``: the CUDA card) and forwards
-it to every solve; the command line (``__main__.py``) reaches them all.
+sweep, 2-D gain map, the comb / Kerr-cavity / pulse / SBS family
+experiments and the Monte-Carlo ones (the quantum-noise experiments of
+``noise.py`` and the fiber-yield ``gain_ripple``).  Each takes ``device``
+(``None``: the CUDA card) and forwards it to every solve; the command line
+(``__main__.py``) reaches them all.
 
-Not ported yet, and so not exported here: the quantum-noise experiments
-(``noise_figure``, ``squeezing``, ``soliton_squeezing``, ``soliton_jitter``,
-``soliton_link``, ``mi_sideband_noise``) and ``gain_ripple`` wait for the
-Monte-Carlo slice (ROADMAP item 15); ``fit_gain`` waits for the calibration
-slice (ROADMAP item 16).
+Not ported yet, and so not exported here: ``fit_gain`` waits for the
+calibration slice (ROADMAP item 16).
 """
 
 from ._shared import _PM_DEFAULT, _dispersion_at_pump_center  # noqa: F401
@@ -25,7 +24,16 @@ from .fwm4 import (  # noqa: F401
     psa_phase_sweep,
     single_simulation,
 )
+from .fluctuations import gain_ripple  # noqa: F401
 from .lle import kerr_cavity  # noqa: F401
+from .noise import (  # noqa: F401
+    mi_sideband_noise,
+    noise_figure,
+    soliton_jitter,
+    soliton_link,
+    soliton_squeezing,
+    squeezing,
+)
 from .pulses import (  # noqa: F401
     _SC_BETAS_PS_KM,
     gnlse_pulse,
@@ -39,5 +47,6 @@ __all__ = [
     "single_simulation", "gain_spectrum", "gain_spectrum_dbeta",
     "mismatch_scan", "psa_phase_sweep", "gain_map", "comb", "kerr_cavity",
     "gnlse_pulse", "vector_pulse", "supercontinuum", "vector_supercontinuum",
-    "fwm_sbs",
+    "noise_figure", "fwm_sbs", "gain_ripple", "squeezing", "soliton_squeezing",
+    "soliton_jitter", "soliton_link", "mi_sideband_noise",
 ]

@@ -7,8 +7,8 @@ is a single-run trajectory (``run_gnlse_simulation``,
 card), as it is a scan in the JAX package; the batched SSFM kernels serve
 ``solve_gnlse_batch`` and ``solve_vgnlse_batch``, not these runs.  The
 spectral-coherence measurement of :func:`supercontinuum`
-(``coherence_samples > 0``) needs the Monte-Carlo noise module, which is
-not ported yet (ROADMAP item 15), and raises."""
+(``coherence_samples > 0``) is a batched ensemble of
+``parallel/noise.pulse_coherence_monte_carlo``."""
 
 from __future__ import annotations
 
@@ -246,19 +246,15 @@ def supercontinuum(
     vacuum-seeded shots, one batched solve; Dudley & Coen OL 27, 1180):
     long-pump / high-soliton-number continua decohere, short-pump ones
     stay |g12| ~ 1 -- the figure of merit of Dudley RMP 2006 Eq. (25).
-    That measurement needs the Monte-Carlo noise module, which is not ported
-    yet: ``coherence_samples > 0`` raises ``NotImplementedError`` (ROADMAP
-    item 15), and so does a ``mesh`` (multi-device solves, ROADMAP item
-    17)."""
+    The ensemble is ``parallel/noise.pulse_coherence_monte_carlo`` on
+    ``device``: rk45 with Raman and steepening has no kernel in either
+    package, so it runs the plain torch controller there.  A ``mesh``
+    raises (multi-device solves, ROADMAP item 17)."""
     import numpy as _np
 
     from ..models import gnlse as gnl
     from ..ops.frequency_plan import omega_from_lambda
 
-    if int(coherence_samples) > 0:
-        raise NotImplementedError(
-            "coherence_samples > 0 needs the Monte-Carlo noise module "
-            "(pulse_coherence_monte_carlo), which is not ported yet: ROADMAP item 15")
     gnl._reject_mesh(mesh)
 
     t0 = float(t0_fs) * 1e-15
@@ -321,7 +317,31 @@ def supercontinuum(
         title="Supercontinuum temporal evolution",
         save_path=None if save_dir is None else f"{save_dir}/supercontinuum_t.png",
     )
-    return z, A
+    coh = None
+    if int(coherence_samples) > 0:
+        from ..parallel import noise as _nz
+
+        coh = _nz.pulse_coherence_monte_carlo(
+            cfg, coeffs, gnl.sech_pulse(grid, peak_W=P0, t0_s=t0), grid,
+            omega0=omega_c, n_samples=int(coherence_samples), seed=seed,
+            nl=nl, mesh=mesh, device=device,
+        )
+        if verbose:
+            print(
+                f"spectral coherence over {coh.n_samples} shots: "
+                f"<|g12|> = {coh.g12_avg:.4f}"
+            )
+        if save_dir is not None:
+            _np.savez(f"{save_dir}/supercontinuum_coherence.npz",
+                      omega=coh.omega, g12=coh.g12,
+                      mean_photons=coh.mean_photons, g12_avg=coh.g12_avg,
+                      n_samples=coh.n_samples)
+        plotting.plot_spectral_coherence(
+            coh, show=show,
+            save_path=None if save_dir is None
+            else f"{save_dir}/supercontinuum_coherence.png",
+        )
+    return (z, A) if coh is None else (z, A, coh)
 
 
 def vector_supercontinuum(

@@ -25,7 +25,8 @@ ROOT = Path(__file__).resolve().parent.parent
 PKG = "psa_simulation_ode_rk_mvp_dispersion_tpu_torch"
 JAX_PKG = "psa_simulation_ode_rk_mvp_dispersion_tpu"
 PORTED = ("single", "spectrum", "spectrum-dbeta", "mismatch", "psa-phase", "gain-map", "comb",
-          "kerr-cavity", "gnlse", "vgnlse", "supercontinuum", "sbs")
+          "kerr-cavity", "gnlse", "vgnlse", "supercontinuum", "sbs", "noise-figure",
+          "gain-ripple", "squeezing", "soliton-squeezing", "jitter", "link", "mi-noise")
 
 
 def _env(**extra):
@@ -132,14 +133,11 @@ def test_zero_arguments_are_the_spectrum_dbeta_demo_on_the_card(monkeypatch):
 
 @pytest.mark.parametrize("argv, says", [
     (["--shard", "spectrum"], "ROADMAP item 17"),
-    (["supercontinuum", "--coherence", "4"], "ROADMAP item 15"),
     (["--integrator", "rk45", "sbs"], "not honored by 'sbs'"),
     (["--integrator", "rk4", "comb"], "--comb-integrator"),
-    (["--device", "cpu", "noise-figure"], "'noise-figure' is not ported yet: it comes with "
-                                          "ROADMAP item 15"),
     (["--save-dir", "x", "fit-gain", "a.npz"], "ROADMAP item 16"),
     (["bench"], "ROADMAP item 7"),
-    (["--quiet", "mi-noise", "--samples", "8"], "ROADMAP item 15"),
+    (["supercontinuum", "--vector", "--coherence", "4"], "--coherence is scalar-only"),
 ])
 def test_refusals_name_what_they_wait_for(capsys, argv, says):
     with pytest.raises(SystemExit) as e:
@@ -181,6 +179,8 @@ except SystemExit as e:
     imported = set(out.stdout.split("imported ", 1)[1].splitlines()[0].split())
     for sub in ("__main__", "experiments", "experiments.fwm4", "experiments.comb",
                 "experiments.lle", "experiments.pulses", "experiments.sbs", "models.sbs",
-                "plotting", "utils.debug", "utils.observability", "parallel.sweep"):
+                "plotting", "utils.debug", "utils.observability", "parallel.sweep",
+                "parallel.noise", "parallel.fluctuations", "parallel.link",
+                "experiments.noise", "experiments.fluctuations"):
         assert f"{PKG}.{sub}" in imported, sub
     assert "usage: psa-torch" in out.stdout

@@ -34,6 +34,8 @@ MODULES = [
     "utils.checks", "utils.precision", "utils.units",
     "experiments.fwm4", "experiments.comb", "experiments.lle", "experiments.pulses",
     "experiments.sbs", "models.sbs", "plotting", "utils.observability", "utils.debug",
+    "parallel.noise", "parallel.fluctuations", "parallel.link", "experiments.noise",
+    "experiments.fluctuations",
 ]
 EXTRAS = {"device"}
 MODULE_EXTRAS = {"ops.integrators": {"batch_ndim", "comp"}, "ops.adaptive": {"batch_ndim"}}
