@@ -13,9 +13,9 @@ Phases (any failure raises, and the script exits non-zero):
    ``nvcc`` per source, all at once); registers and spills are printed;
 3. fixed-step kernel vs plain version on the card, at the main path's
    shapes: the bench configuration's 10^4 lanes with one lane made to blow
-   up, 2,500 steps, and runs with a trailing partial save interval: fp64
-   rk4/ab4/abm4 within rtol 1e-11, fp32 rk4 within rtol 1e-4, equal ``ok``
-   flags, the bad lane frozen and finite;
+   up, 2,500 steps (ab4 and abm4 1,250), and runs with a trailing partial
+   save interval: fp64 rk4/ab4/abm4 within rtol 1e-11, fp32 rk4 within
+   rtol 1e-4, equal ``ok`` flags, the bad lane frozen and finite;
 4. adaptive (rk45) kernel vs plain version on the card, 10^4 lanes, a bad
    lane, over the first 100 m of the main path's fiber (its plain version's
    time follows its step count, not its lanes; phase 6 drives the kernel
@@ -29,7 +29,8 @@ Phases (any failure raises, and the script exits non-zero):
    version on the CPU and the reference goldens;
 6. the rk45 main path: ``gain_spectrum(integrator='rk45')`` over 10^4
    points at ``df32`` and ``x32`` through the rk45 kernel, its 32-point
-   subset against the plain fp64 rk45 version on the CPU at rtol 1e-11;
+   subset against the plain fp64 rk45 version on the CPU at rtol 1e-11
+   (stored, ``CPU_REFERENCES``);
 7. the other sweeps, each once on the card against the plain version of
    the same call: ``gain_map_power_wavelength`` (16 x 640 cells, df32),
    ``mismatch_scan`` and ``psa_phase_sweep`` (rk45, x32),
@@ -127,7 +128,8 @@ Phases (any failure raises, and the script exits non-zero):
     over 4,096 points, one K7 or K8 launch each, every cavity ``ok``; an
     8-cavity subset against the plain fp64 version on the CPU in relative
     power (``bench_lle.py:277-284``; bars 1e-9, 1e-4, 1e-7, 5e-4; the rk45
-    reference is the plain fp64 rk4ip45 at rtol 1e-10, see PERF.md);
+    reference is the plain fp64 rk4ip45 at rtol 1e-10, stored,
+    ``CPU_REFERENCES``; see PERF.md);
     ``run_lle_ramp`` and ``run_lle_simulation`` on the card against the
     CPU, and one ``engine='auto'`` rk4ip45 call, which runs plain torch;
 22. LLE times (median of 5 warm reps) of the kernels, ``solve_lle_batch``
@@ -169,8 +171,9 @@ Phases (any failure raises, and the script exits non-zero):
 27. the command line on the card (``cli_phases``, ``CLI_RUNS``): the
     4-wave ``spectrum`` at 10^4 points through ``__main__.main`` at df32
     (no ``--device``), x32 and rk45 x32, one K1, K2 and K3 launch, the
-    df32 archive bit for bit the direct API call; ``single`` against the
-    45.292 dB anchor; the SBS golden on the card; every other ported
+    df32 archive bit for bit the direct API call; ``single`` over 100 m
+    bit for bit the API (phase 10 holds the default 1,000 m to the 45.292
+    dB anchor); the SBS golden on the card; every other ported
     subcommand once (some cut, listed at ``CLI_RUNS``) and the
     zero-argument demo, each exiting 0 with the JAX package's file names.
 28. the Monte Carlo on the card (``noise_phases``, ``NOISE_RUNS``): the
@@ -190,6 +193,16 @@ Phases (any failure raises, and the script exits non-zero):
     identical) and that K1 launch's ps a lane-step against 250,000 lanes;
     then a 257-lane noise figure and a 65-envelope, 2-span link with the
     kernel and with its plain version on the card.
+29. calibration on the card (``calibration_phases``): ``mismatch`` and
+    ``fit-gain`` on its archive through ``__main__.main`` at their defaults
+    (one K1t launch an adam step, ``csrc/fwm4_tangent.cu``; the sweep's
+    gamma within 2%), the recovery bars of ``tests/test_calibrate.py`` at
+    its sizes (the x64, x32 and df32 fits, the df32 polish's K1 launches
+    counted;
+    the gradient, the pump-RIN and phase transfers, the pulse model and its
+    spectrum fit at ``PULSE_FIT_STEPS`` adam steps), K1t against its plain
+    version at ``fit-gain``'s width (200 lanes x 500 steps, 3 fit and 8
+    launch directions), and its times.
 
 Each main path is driven with the launch counts cleared just before it and
 read just after; the SSFM sources count each route apart (K6 Kerr and nl,
@@ -678,10 +691,11 @@ def with_bad_lane(t, bad):
 def check_fixed_kernel(psa, cs, common, dev, max_err, plain_ms):
     """Phase 3: fwm4_rk.cu against its plain version at 10^4 lanes.  The
     plain version's run of rk4 over 2,500 steps, after a run of the same
-    ops over 2,497 steps, is its time."""
+    ops over 2,497 steps, is its time.  ab4 and abm4, untimed, run at half
+    depth, as phases 11 and 12 run theirs."""
     B, bad = N_POINTS, N_POINTS // 2
-    cases = [(torch.float64, "rk4", 2497)]
-    cases += [(torch.float64, m, 2500) for m in ("rk4", "ab4", "abm4")]
+    cases = [(torch.float64, "rk4", 2497), (torch.float64, "rk4", 2500)]
+    cases += [(torch.float64, m, 1250) for m in ("ab4", "abm4")]
     cases += [(torch.float32, "rk4", 2497), (torch.float32, "rk4", 2500)]
     for rdt, method, n_steps in cases:
         t = with_bad_lane(lanes(psa, common, B, rdt, dev), bad)
@@ -1274,6 +1288,65 @@ def check_lle_rk45_kernel(psa, csa, dev, max_err, plain_ms, steps):
             raise AssertionError(f"{label}: {ek_A:.3e} / {ek_pk:.3e} against fp64 over 5e-4")
 
 
+def lle_cfg_for(psa, precision, integrator, tol=None, z_max=LLE_STEPS * LLE_DT):
+    """The LLE configuration of ``bench_lle.py`` at ``precision``."""
+    r, a = tol or LLE_TOL[torch.float32 if precision == "x32" else torch.float64]
+    return psa.custom_simulation_config(z_max=z_max, dz=LLE_DT, save_every=LLE_SAVE,
+                                        precision=precision, integrator=integrator,
+                                        rtol=r, atol=a)
+
+
+# The two slowest plain fp64 references, phase 6's 32-point rk45 spectrum at
+# rtol 1e-11 and phase 21's 8 rk45 cavities through rk4ip45 at rtol 1e-10
+# (4th order; a rtol 1e-11 rk45 run would take ~320,000 attempts; PERF.md
+# section 6), take 50-63 s each on the CPU of an H100's host and need
+# no card: ``smoke_references.py`` computes them with ``cpu_references`` and
+# stores them with the inputs they were computed from.  Phases 6 and 21
+# check those inputs against this run's before they hold the card to them.
+CPU_REFERENCES = ROOT / "tests" / "golden" / "smoke_cpu_references.npz"
+LLE_REF_SUB = np.linspace(0, LLE_B45 - 1, 8).astype(int)
+
+
+def reference_inputs(psa):
+    """What the two CPU references are computed from: arrays, and each
+    configuration as its repr."""
+    psi, co = lle_setup(psa, "x64", LLE_B45)
+    return {"rk45_lambda_m": np.linspace(1541e-9, 1649e-9, 32),
+            "rk45_cfg": np.array(repr(cfg45_for(psa, "x64", rtol=1e-11, atol=1e-14))),
+            "rk45_dispersion": np.asarray(bench_common(psa)["dispersion"].coeffs),
+            "lle_psi0": psi[LLE_REF_SUB],
+            "lle_detuning": np.asarray(co.detuning)[LLE_REF_SUB],
+            "lle_cfg": np.array(repr(lle_cfg_for(psa, "x64", "rk4ip45", tol=(1e-10, 1e-13))))}
+
+
+def cpu_references(psa):
+    """``reference_inputs`` and the two references computed from them on the
+    CPU: the spectrum's gain in dB (``rk45_gain``) and the cavities' final
+    fields (``lle_A``)."""
+    inp = reference_inputs(psa)
+    ref45 = psa.gain_spectrum(cfg=cfg45_for(psa, "x64", rtol=1e-11, atol=1e-14),
+                              lambda_signal_m=inp["rk45_lambda_m"], device="cpu",
+                              engine="torch", **bench_common(psa))
+    psi, co = lle_setup(psa, "x64", LLE_B45)
+    co = dataclasses.replace(co, detuning=co.detuning[LLE_REF_SUB])
+    A = psa.lle.solve_lle_batch(lle_cfg_for(psa, "x64", "rk4ip45", tol=(1e-10, 1e-13)), co,
+                                psi[LLE_REF_SUB], engine="torch", device="cpu")[1]
+    return dict(inp, rk45_gain=np.asarray(ref45.gain), lle_A=np.asarray(A))
+
+
+def stored_reference(psa, name):
+    """``name`` of the stored CPU references, once every stored input is this
+    run's (configurations equal, arrays within 1e-12 relative)."""
+    with np.load(CPU_REFERENCES) as z:
+        for key, val in reference_inputs(psa).items():
+            same = (str(z[key]) == str(val) if val.dtype.kind == "U"
+                    else z[key].shape == val.shape and np.allclose(z[key], val, rtol=1e-12, atol=0))
+            if not same:
+                raise AssertionError(f"{CPU_REFERENCES.name}: {key} is not this run's input; "
+                                     "run smoke_references.py")
+        return z[name]
+
+
 def lle_phases(psa, _build, cl, csa, dev, card, t_start, rec):
     """Phases 19-22, the LLE path; ``rec`` holds the records the kernels
     line is made of."""
@@ -1294,12 +1367,7 @@ def lle_phases(psa, _build, cl, csa, dev, card, t_start, rec):
                  ("x64", "rk45", "ssfm_rk45_lle_f64", 1e-7),
                  ("x32", "rk45", "ssfm_rk45_lle_f32", 5e-4))
 
-    def lle_cfg(precision, integrator, tol=None, z_max=LLE_STEPS * LLE_DT):
-        r, a = tol or LLE_TOL[torch.float32 if precision == "x32" else torch.float64]
-        return psa.custom_simulation_config(z_max=z_max, dz=LLE_DT, save_every=LLE_SAVE,
-                                            precision=precision, integrator=integrator,
-                                            rtol=r, atol=a)
-
+    lle_cfg = functools.partial(lle_cfg_for, psa)
     lle_refs = {}
     for precision, integ, name, bar in lle_paths:
         B = LLE_B45 if integ == "rk45" else LLE_B
@@ -1316,18 +1384,19 @@ def lle_phases(psa, _build, cl, csa, dev, card, t_start, rec):
         launches[name] = launches.get(name, 0) + counts[name]
         if A.shape != (B, LLE_T) or not ok.all() or not np.isfinite(A).all():
             raise AssertionError(f"lle {precision} {integ}: shape {A.shape}, ok {ok.mean()}")
-        if integ not in lle_refs:
+        if integ not in lle_refs and integ == "rk45":
+            # the fp64 rk4ip45 at rtol 1e-10, stored (CPU_REFERENCES)
+            lle_refs[integ] = stored_reference(psa, "lle_A")
+            log(f"plain fp64 rk4ip45 at rtol 1e-10 reference on the CPU, 8 cavities: stored "
+                f"in {CPU_REFERENCES.name} (smoke_references.py), its inputs this run's")
+        elif integ not in lle_refs:
             psi_r, co_r = lle_setup(psa, "x64", B)
             co_r = dataclasses.replace(co_r, detuning=co_r.detuning[sub])
-            # rk45: the fp64 rk4ip45 at rtol 1e-10 (4th order; a rtol 1e-11
-            # rk45 run would take ~320,000 attempts; PERF.md section 6, PR 5)
-            ref_cfg = (lle_cfg("x64", "rk4ip45", tol=(1e-10, 1e-13)) if integ == "rk45"
-                       else lle_cfg("x64", "rk4"))
             t1 = time.perf_counter()
-            lle_refs[integ] = ll.solve_lle_batch(ref_cfg, co_r, psi_r[sub], engine="torch",
-                                                 device="cpu")[1]
-            log(f"plain fp64 {'rk4ip45 at rtol 1e-10' if integ == 'rk45' else 'Strang'} "
-                f"reference on the CPU, 8 cavities: {time.perf_counter() - t1:.1f} s")
+            lle_refs[integ] = ll.solve_lle_batch(lle_cfg("x64", "rk4"), co_r, psi_r[sub],
+                                                 engine="torch", device="cpu")[1]
+            log(f"plain fp64 Strang reference on the CPU, 8 cavities: "
+                f"{time.perf_counter() - t1:.1f} s")
         err = power_error(A[sub], lle_refs[integ])
         log(f"main path lle {integ} {precision}: {B} cavities of {LLE_T} samples, launches "
             f"{counts}, ok 1.0, {sec * 1e3:.1f} ms (first call); 8-cavity subset vs plain fp64 "
@@ -1808,9 +1877,9 @@ def vgnlse_phases(psa, _build, cv, cg, dev, card, t_start, rec):
 # The command-line runs of phase 27: (argv after the global options, the
 # files the run writes, the kernel its sweep launches or None).  Cuts from
 # the defaults: ``comb`` to 2 m (rk45; the default 100 m is 10^5 base steps
-# of plain torch), ``supercontinuum`` to the JAX test's 1,024 samples over
-# 3 cm (the default is 8,192 over 15 cm), ``sbs`` to 20 m (the default 200 m
-# takes minutes of launches, PERF.md); the others at their defaults.
+# of plain torch), ``sbs`` to 20 m (the default 200 m takes minutes of
+# launches, PERF.md); the others at their defaults.  ``supercontinuum``
+# runs in phase 28, with ``--coherence``, which writes its files too.
 CLI_RUNS = (
     (["spectrum-dbeta"], ("gain_spectrum_dbeta.npz", "gain_spectrum_dbeta.png"), "fwm4_rk_f64"),
     (["mismatch"], ("mismatch_scan.npz", "mismatch_scan.png", "mismatch_best_si.png",
@@ -1821,8 +1890,6 @@ CLI_RUNS = (
     (["kerr-cavity"], ("kerr_cavity.npz", "kerr_cavity_scan.png", "kerr_cavity_comb.png"), None),
     (["gnlse"], ("gnlse.npz", "gnlse.png"), None),
     (["vgnlse"], ("vgnlse.npz", "vgnlse.png"), None),
-    (["supercontinuum", "--samples", "1024", "--length", "0.03"],
-     ("supercontinuum.npz", "supercontinuum.png", "supercontinuum_t.png"), None),
     (["sbs", "--z-max", "20"],
      tuple(f"fwm_sbs_{d}.{e}" for d in ("forward", "backward") for e in ("npz", "csv", "json"))
      + ("fwm_sbs_totals.png", "fwm_sbs_fwd.png", "fwm_sbs_bwd.png"), None),
@@ -1867,8 +1934,9 @@ def cli_phases(psa, _build, card, t_start):
        card;
     2. the same at ``--precision x32``: one ``fwm4_rk_f32`` launch;
     3. ``--integrator rk45 --precision x32``: one ``fwm4_rk45_f32`` launch;
-    4. ``single`` at its defaults: the 45.292 dB anchor within 2e-3
-       (``tests/test_io_plotting.py``);
+    4. ``single --z-max 100``: bit for bit the direct
+       ``run_single_simulation`` call with the experiment's arguments on the
+       card (phase 10 holds the default 1,000 m to the 45.292 dB anchor);
     5. SBS: ``run_sbs_simulation`` on the card against
        ``golden_sbs_bvp.npz`` at the JAX test's configuration
        (``tests/test_sbs.py``): A and B within 1e-6, residual < 1e-12,
@@ -1943,14 +2011,23 @@ def cli_phases(psa, _build, card, t_start):
         if not same or direct.ok.mean() < 0.99:
             raise AssertionError("the command line's df32 spectrum is not the API's")
 
-    # 4: single at its defaults
-    out = run(["single"], tuple(f"single_simulation.{e}" for e in ("npz", "csv", "json", "png")),
-              None)
+    # 4: single over 100 m (phase 10 runs the default 1,000 m through the
+    # API to the 45.292 dB anchor), bit for bit the API call with the
+    # experiment's arguments
+    out = run(["single", "--z-max", "100"],
+              tuple(f"single_simulation.{e}" for e in ("npz", "csv", "json", "png")), None)
     _z, A, _md = psa.load_result_npz(out / "single_simulation.npz")
-    gain_db = float(10 * np.log10(np.abs(A[-1, 2]) ** 2 / 1e-5))
-    log(f"  single at its defaults: {gain_db:.6f} dB (anchor 45.292 +- 2e-3)")
-    if abs(gain_db - 45.292) > 2e-3:
-        raise AssertionError(f"single: {gain_db} dB")
+    omega, _sp, sdisp = _dispersion_at_pump_center(1550e-9, 1560e-9, 1555e-9, D=0.02, S=0.02)
+    _z, A_api = psa.run_single_simulation(
+        psa.custom_simulation_config(z_max=100.0, dz=0.1, precision="x64", integrator="rk4"),
+        gamma=11.5 / 1000.0, alpha=alpha_db_per_km_to_1_m(0.9), omega=omega,
+        p_in=np.asarray((0.5, 0.5, 1e-5, 1e-5)), phase_in=np.zeros(4), dispersion=sdisp,
+        phase_matching_cfg=_PM_DEFAULT, length_unit="m", return_length_unit="m", device="cuda")
+    same = A.shape == A_api.shape and np.array_equal(A, A_api)
+    log(f"  single over 100 m: {10 * np.log10(np.abs(A[-1, 2]) ** 2 / 1e-5):.6f} dB, "
+        f"{A.shape[0]} rows, {'bit for bit' if same else 'DIFFERENT from'} the API call")
+    if not (same and np.isfinite(A).all()):
+        raise AssertionError("the command line's single run is not the API's")
 
     # 5: the SBS golden on the card
     g = np.load(ROOT / "tests" / "golden" / "golden_sbs_bvp.npz")
@@ -1987,7 +2064,8 @@ def cli_phases(psa, _build, card, t_start):
 # writes, the launches it makes).  All at their defaults but
 # ``noise-figure``, which adds the NF(lambda) spectrum at 64 wavelengths
 # (64 x 8,193 = 524,352 lanes in one K1 launch), and ``supercontinuum``,
-# cut as in phase 27 (1,024 samples over 3 cm) with 16 coherence shots.
+# cut to the JAX test's 1,024 samples over 3 cm (the default is 8,192 over
+# 15 cm) with 16 coherence shots.
 NOISE_RUNS = (
     (["noise-figure", "--spectrum-points", "64"],
      ("noise_figure.npz", "noise_figure.png", "noise_figure_spectrum.npz",
@@ -2434,6 +2512,355 @@ def noise_phases(psa, _build, card, t_start):
         f"{time.perf_counter() - t_phase:.1f} s on {card}")
 
 
+# Phase 29's sizes: ``fit-gain``'s width (``mismatch``'s archive at its
+# defaults: 200 points over 0.5 km in steps of 1 m, gamma 10 1/(W km), pumps
+# of 0.1 W, a 1e-5 W signal) and ``tests/test_calibrate.py``'s fits.  The
+# pulse-spectrum fit runs 100 of that test's 400 adam steps: it is plain
+# torch through 200 Strang steps of 128 samples a step (0.26-0.32 s a step
+# on an H100, over 100 s for 400), and 100 steps reach the test's bars
+# (PERF.md).
+FIT_B, FIT_STEPS, FIT_DZ = 200, 500, 1.0
+PULSE_FIT_STEPS = 100
+# The derivative of one RHS evaluation along one direction, counted from
+# csrc/fwm4_tangent.cu as for RHS_FLOP (a product of duals 3 flop, a sum 1,
+# a fused multiply-add 4, a constant times a dual 1): the powers 28, the
+# FWM drive 84, the Kerr and detuning terms 126.
+TANGENT_RHS_FLOP = 238
+
+
+def tangent_lanes(rdt, dev, state):
+    """K1t's inputs at ``fit-gain``'s width: ``(coef (3, B), y0 (8, B), t0,
+    s)`` of the default ``mismatch`` sweep (delta beta +-40 1/km) with the 3
+    fit directions, or the 8 launch directions with ``state``."""
+    from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_tangent as ct
+
+    B = FIT_B
+    coef = torch.tensor(np.stack([np.full(B, 0.01), np.zeros(B), np.linspace(-0.04, 0.04, B)]),
+                        dtype=rdt, device=dev)
+    a = np.sqrt([0.1, 0.1, 1e-5, 0.0])
+    y0 = torch.tensor(np.concatenate([np.tile(a[:, None], (1, B)), np.zeros((4, B))]),
+                      dtype=rdt, device=dev)
+    t0, s = ct.directions(B, coef=not state, state=state, dtype=rdt, device=dev)
+    return coef, y0, t0, s
+
+
+def calibration_phases(psa, _build, card, t_start, rec):
+    """Phase 29, calibration on the card (``parallel/calibrate``,
+    ``experiments/fitting``, K1t ``csrc/fwm4_tangent.cu``):
+
+    1. ``mismatch`` and then ``fit-gain`` on its archive through
+       ``__main__.main`` at their defaults (no ``--device``): the sweep's
+       gamma of 10 1/(W km) within 2%, the offset under 0.5 1/km, the rms
+       residual under 0.01 dB (``test_fit_gain_experiment_roundtrip``'s
+       bars), the JAX file names, and exactly one K1t launch an adam step
+       and one for the curve at the fitted parameters; its wall time from
+       ``main()`` to the files;
+    2. the recovery bars of ``tests/test_calibrate.py`` at its sizes: the
+       x64 fit (24 points, 400 steps), the x32 model against x64 (value
+       rel 2e-4, gradient 2e-3) and the x32 fit (16 points), the df32
+       hybrid (gamma 1e-4, offset 1e-3, alpha 1e-2 relative; exactly one
+       K1t launch an explore step and one for its curve, and one K1 launch
+       a residual curve of the polish: 7 variants an LM iteration, one a
+       trial step, one for the history's last entry and one for the
+       returned curve), the gradient against central differences (1e-6), the
+       pump-RIN transfer against its Monte Carlo (4,096 lanes, within 4 SE
+       or 2e-3; gamma 0 all zero), the phase transfers' gauge structure,
+       and the pulse model (its field against the plain solver on the card,
+       its gradient against central differences at 1e-4) and its spectrum
+       fit at ``PULSE_FIT_STEPS`` adam steps (rms 0.5 dB, gamma 0.15, beta2
+       0.12 relative);
+    3. K1t against its plain version on the card at ``fit-gain``'s width
+       (200 lanes x 500 steps), 3 fit directions and 8 launch directions:
+       fp64 state within 1e-11 of each lane's largest value and tangents
+       within 1e-10 normwise a lane and direction, fp32 within 1e-4 of the
+       fp64 plain version;
+    4. times: K1t at that width (median of 5 warm reps), one adam step end
+       to end at ``fit-gain``'s width (a 60-step fit less a 10-step one,
+       over 50), the plain version once.
+    """
+    import contextlib
+    import io
+    import tempfile
+
+    from psa_simulation_ode_rk_mvp_dispersion_tpu_torch import __main__ as cli
+    from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.io_fwm import load_sweep_npz
+    from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.models import gnlse as gn
+    from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_tangent as ct
+    from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.parallel import calibrate as C
+
+    dev = torch.device("cuda")
+    has_mpl = has_matplotlib()
+    log(f"phase 29, calibration on the card ({card})")
+    t_phase = time.perf_counter()
+    launches, max_err, ms, plain_ms = rec["launches"], rec["max_err"], rec["ms"], rec["plain_ms"]
+    k64, k32 = "fwm4_tangent_f64", "fwm4_tangent_f32"
+
+    # 1: the command line at its defaults
+    root = Path(tempfile.mkdtemp(prefix="psa_fit_"))
+    archive = root / "sweep" / "mismatch_scan.npz"
+    runs = ((["mismatch"], root / "sweep", ("mismatch_scan.npz", "mismatch_scan.png",
+                                             "mismatch_best_si.png", "mismatch_best_powers.png")),
+            (["fit-gain", str(archive)], root / "fit", ("fit_gain.npz", "fit_gain.png")))
+    for argv, out, files in runs:
+        err = io.StringIO()
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            code = cli.main(["--no-show", "--quiet", "--save-dir", str(out)] + argv)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = dict(_build.LAUNCHES)
+        if code != 0:
+            raise AssertionError(f"cli {argv}: exit {code}: {err.getvalue()[-2000:]}")
+        check_cli_files(argv, out, err.getvalue(), files, has_mpl)
+        if argv[0] == "fit-gain":
+            with np.load(out / "fit_gain.npz") as z:
+                gamma_km, off_km = float(z["gamma"]) * 1e3, float(z["dbeta_offset"]) * 1e3
+                rms = float(np.sqrt(np.mean((z["model_gain_db"] - z["measured_gain_db"]) ** 2)))
+                steps = len(z["loss_history"]) - 1
+            log(f"  cli fit-gain at its defaults: exit 0, {sec:.2f} s from main() to its files on "
+                f"{card}, {steps} adam steps, launches {counts}; gamma {gamma_km:.6f} 1/(W km) "
+                f"(bar 10 +- 2%), offset {off_km:.3e} 1/km (bar 0.5), rms {rms:.3e} dB (bar 0.01)")
+            if counts != {k64: steps + 1}:
+                raise AssertionError(f"fit-gain: launches {counts}, not one {k64} a step + 1")
+            launches[k64] = counts.get(k64, 0)
+            if not (abs(gamma_km / 10.0 - 1.0) <= 0.02 and abs(off_km) < 0.5 and rms < 0.01):
+                raise AssertionError("fit-gain does not recover the sweep's fibre")
+        else:
+            log(f"  cli mismatch: exit 0, {sec:.2f} s, launches {counts}")
+
+    # 2: the recovery bars of tests/test_calibrate.py on the card
+    P_IN = [0.5, 0.5, 1e-5, 0.0]
+    cfg = psa.custom_simulation_config(z_max=100.0, dz=1.0, save_every=10)
+    truth = dict(gamma=0.0115, alpha=2.0e-4, dbeta_offset=-3e-3)
+    init = dict(gamma=0.008, alpha=0.0, dbeta_offset=0.0)
+
+    def model_curve(prec, db):
+        g = C.make_gain_model(cfg, p_in=P_IN, precision=prec, device=dev)
+        with torch.no_grad():
+            return g(psa.RHSCoeffs(truth["gamma"], truth["alpha"], torch.tensor(
+                db + truth["dbeta_offset"]))).double().cpu().numpy()
+
+    def fit(prec, db, curve, steps):
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        r = C.fit_gain_curve(cfg, delta_beta_grid=db, measured_gain_db=curve, p_in=P_IN,
+                             init=init, steps=steps, learning_rate=0.05, precision=prec,
+                             device=dev)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        rel = {k: r.params[k] / truth[k] - 1.0 for k in truth}
+        log(f"  fit_gain_curve {prec}, {len(db)} points: {sec:.2f} s, {r.n_steps} steps, "
+            f"launches {dict(_build.LAUNCHES)}, rms {np.sqrt(r.loss_db2):.3e} dB, gamma "
+            f"{rel['gamma']:+.3e}, alpha {rel['alpha']:+.3e}, offset "
+            f"{rel['dbeta_offset']:+.3e} relative")
+        return r, rel, dict(_build.LAUNCHES)
+
+    for prec, n_pts in (("x64", 24), ("x32", 16)):
+        db = np.linspace(-0.05, 0.03, n_pts)
+        r, rel, counts = fit(prec, db, model_curve(prec, db), 400)
+        if prec == "x32":
+            launches[k32] = counts.get(k32, 0)
+        if not (np.sqrt(r.loss_db2) < 0.05 and abs(rel["gamma"]) <= 0.05
+                and abs(rel["dbeta_offset"]) <= 0.10 and r.gain_db.shape == db.shape
+                and (prec == "x32" or r.loss_history[-1] < 1e-3 * r.loss_history[0])):
+            raise AssertionError(f"the {prec} fit misses test_calibrate's bars")
+    vals, grads = {}, {}
+    for prec in ("x64", "x32"):
+        g = C.make_gain_model(cfg, p_in=P_IN, precision=prec, device=dev)
+        gm = torch.tensor(0.0115, dtype=torch.float64, requires_grad=True)
+        v = g(psa.RHSCoeffs(gm, 2e-4, -3e-3))
+        (gr,) = torch.autograd.grad(v, gm)
+        vals[prec], grads[prec] = float(v.detach()), float(gr)
+    dv = abs(vals["x32"] - vals["x64"])
+    dg = abs(grads["x32"] / grads["x64"] - 1.0)
+    log(f"  x32 model vs x64: value {dv:.3e} dB (bar rel 2e-4, abs 1e-4), gradient {dg:.3e} "
+        "relative (bar 2e-3)")
+    if not (dv <= max(2e-4 * abs(vals["x64"]), 1e-4) and dg <= 2e-3):
+        raise AssertionError("the x32 model is off the x64 one")
+
+    db = np.linspace(-0.05, 0.03, 16)
+    gen = C._engine_gain_curve_fn(cfg, db, p_in=P_IN, phase_in=None, wave=2,
+                                  forward_precision="df32", device=dev)
+    curve = gen(np.array([[np.log(truth["gamma"]), truth["alpha"] * 100.0,
+                           truth["dbeta_offset"] * 100.0]]))[0]
+    # the polish's residual curves, counted by their number of variants: 7
+    # an LM iteration, 1 a trial step, the final history entry and the
+    # returned curve; each is one solve_batch, so one fwm4_rk_f64 launch
+    engine, polls = C._engine_gain_curve_fn, []
+
+    def counted(*a, **k):
+        curves = engine(*a, **k)
+
+        def each(th):
+            polls.append(np.asarray(th).reshape(-1, 3).shape[0])
+            return curves(th)
+        return each
+    C._engine_gain_curve_fn = counted
+    try:
+        r, rel, counts = fit("df32", db, curve, 300)
+    finally:
+        C._engine_gain_curve_fn = engine
+    n_lm = polls.count(7) + 1                   # the LM history: an iteration each, and the end
+    n_explore = len(r.loss_history) - n_lm - 1  # the explore's adam steps
+    want = {k64: n_explore + 1, "fwm4_rk_f64": len(polls)}
+    log(f"  df32 launches: {n_explore} adam steps + the curve = {want[k64]} {k64}; "
+        f"{n_lm - 1} LM iterations, {polls.count(1) - 2} trial steps, the history's last entry "
+        f"and the curve = {len(polls)} fwm4_rk_f64")
+    if counts != want or not 0 <= polls.count(1) - 2 <= 4 * (n_lm - 1):
+        raise AssertionError(f"the df32 hybrid's launches {counts}, not {want}")
+    if not (np.sqrt(r.loss_db2) < 1e-4 and abs(rel["gamma"]) <= 1e-4
+            and abs(rel["dbeta_offset"]) <= 1e-3 and abs(rel["alpha"]) <= 1e-2
+            and r.loss_history[-1] < 1e-2 * np.min(r.loss_history[:301])):
+        raise AssertionError("the df32 hybrid misses test_calibrate's bars")
+
+    gain = C.make_gain_model(cfg, p_in=P_IN, device=dev)
+    co = dict(alpha=2e-4, delta_beta=-3e-3)
+    gm = torch.tensor(0.0115, dtype=torch.float64, requires_grad=True)
+    (g,) = torch.autograd.grad(gain(psa.RHSCoeffs(gamma=gm, **co)), gm)
+    with torch.no_grad():
+        fd = (float(gain(psa.RHSCoeffs(gamma=0.0115 + 1e-7, **co)))
+              - float(gain(psa.RHSCoeffs(gamma=0.0115 - 1e-7, **co)))) / 2e-7
+    al = torch.tensor(2e-4, dtype=torch.float64, requires_grad=True)
+    (ga,) = torch.autograd.grad(gain(psa.RHSCoeffs(0.0115, al, -3e-3)), al)
+    log(f"  d gain / d gamma through K1t {float(g):.10g} vs central differences {fd:.10g}: "
+        f"{abs(float(g) / fd - 1.0):.3e} (bar 1e-6); d gain / d alpha {float(ga):.6g} (< 0)")
+    if not (abs(float(g) / fd - 1.0) <= 1e-6 and float(ga) < 0.0):
+        raise AssertionError("the gradient through K1t is off the central differences")
+
+    cfg_t = psa.custom_simulation_config(z_max=100.0, dz=0.5, save_every=20)
+    kw = dict(gamma=0.0115, alpha=2e-4, delta_beta=-3e-3, p_in=[0.5, 0.5, 1e-5, 0.0])
+    t0 = time.perf_counter()
+    rin = psa.pump_rin_transfer_monte_carlo(cfg_t, n_samples=4096, seed=0, device=dev, **kw)
+    rin0 = psa.pump_rin_transfer_monte_carlo(cfg_t, n_samples=1024, seed=1, gamma=0.0,
+                                             alpha=2e-4, delta_beta=0.0,
+                                             p_in=[0.5, 0.5, 1e-5, 0.0], device=dev)
+    dev_rin = np.abs(rin.transfer_db_per_db - rin.transfer_autodiff)
+    log(f"  pump_rin_transfer_monte_carlo, 4,096 lanes ({time.perf_counter() - t0:.2f} s with "
+        f"gamma 0): autodiff {np.array2string(rin.transfer_autodiff, precision=5)}, MC - autodiff "
+        f"{np.array2string(dev_rin, precision=2)} (bar max(4 SE, 2e-3)); gamma 0: autodiff "
+        f"{np.abs(rin0.transfer_autodiff).max():.1e} (bar 1e-9)")
+    if not (np.all(dev_rin < np.maximum(4.0 * rin.transfer_se, 2e-3))
+            and rin.transfer_autodiff[0] > 0.5 and abs(rin.transfer_autodiff[2]) < 1e-3
+            and rin.transfer_db_per_db[3] == 0.0 and rin.gain_std_db > 0.0
+            and np.all(np.abs(rin0.transfer_autodiff) < 1e-9)
+            and np.all(np.abs(rin0.transfer_db_per_db) < 1e-6)):
+        raise AssertionError("the pump-RIN transfer misses test_calibrate's bars")
+    t_pia = C.phase_transfer_db_per_rad(cfg_t, **kw, device=dev)
+    t = C.phase_transfer_db_per_rad(cfg_t, **dict(kw, p_in=[0.5, 0.5, 5e-6, 5e-6]),
+                                    phase_in=[0, 0, 0.8, 0], device=dev)
+    log(f"  phase transfers: PIA max {np.abs(t_pia).max():.1e} (bar 1e-9); PSA "
+        f"{np.array2string(t, precision=6)}, sum {t.sum():.1e} (bar 1e-9)")
+    if not (np.all(np.abs(t_pia) < 1e-9) and abs(t.sum()) < 1e-9 and t[2] > 0.1
+            and np.allclose(t[2], t[3], rtol=1e-9, atol=0) and np.allclose(
+                t[0], t[1], rtol=1e-9, atol=0) and np.allclose(t[0], -t[2], rtol=1e-9, atol=0)):
+        raise AssertionError("the phase transfers miss the gauge structure")
+
+    T0 = 1e-12
+    grid = gn.TimeGrid.for_pulse(T0, n_samples=128)
+    tr = dict(gamma=2e-3, beta2=-2e-26)
+    A0 = np.asarray(gn.sech_pulse(grid, peak_W=gn.soliton_peak_power(tr["beta2"], tr["gamma"], T0)
+                                  * 2.25, t0_s=T0))
+    zs = 0.5 * np.pi * T0 ** 2 / abs(tr["beta2"])
+    cfg_p = psa.custom_simulation_config(z_max=zs, dz=zs / 200, save_every=200)
+    field = C.make_pulse_model(cfg_p, grid, A0, device=dev)
+    with torch.no_grad():
+        y = field(tr)
+    co_p = gn.make_gnlse_coeffs(grid, psa.DispersionParams.from_betas(1.2e15, beta2=tr["beta2"]),
+                                gamma_W_m=tr["gamma"])
+    _, A_ref, _ = gn.solve_gnlse_batch(cfg_p, co_p, A0[None], engine="torch", device=dev)
+    y = y.cpu().numpy()
+    e_field = float(np.max(np.abs(y - A_ref[0])) / np.max(np.abs(A_ref[0])))
+    b2 = torch.tensor(tr["beta2"], dtype=torch.float64, requires_grad=True)
+    (gb,) = torch.autograd.grad(field({"gamma": tr["gamma"], "beta2": b2})[0].abs() ** 2, b2)
+    with torch.no_grad():
+        fd = (float(field({"gamma": tr["gamma"], "beta2": tr["beta2"] + 1e-31})[0].abs() ** 2)
+              - float(field({"gamma": tr["gamma"], "beta2": tr["beta2"] - 1e-31})[0].abs() ** 2)
+              ) / 2e-31
+    meas = 10 * np.log10(np.maximum(np.abs(np.fft.fft(y)) ** 2, 1e-300))
+    t0 = time.perf_counter()
+    pf = C.fit_pulse_spectrum(cfg_p, grid, A0, meas, init=dict(gamma=1.4e-3, beta2=-2.8e-26),
+                              steps=PULSE_FIT_STEPS, learning_rate=0.1, device=dev)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    prel = {k: pf.params[k] / tr[k] - 1.0 for k in tr}
+    log(f"  make_pulse_model (plain torch): field vs solve_gnlse_batch(engine='torch') on the "
+        f"card {e_field:.3e} ({'bit for bit' if e_field == 0.0 else 'not bit for bit'}; bar "
+        f"1e-12), d|A_0|^2/d beta2 vs central differences {abs(float(gb) / fd - 1.0):.3e} (bar "
+        f"1e-4); fit_pulse_spectrum at {PULSE_FIT_STEPS} of the test's 400 steps: {sec:.2f} s "
+        f"({1e3 * sec / max(pf.n_steps, 1):.1f} ms a step), rms {np.sqrt(pf.loss_db2):.3e} dB "
+        f"(bar 0.5), gamma {prel['gamma']:+.3e} (bar 0.15), beta2 {prel['beta2']:+.3e} (bar 0.12)")
+    if not (e_field <= 1e-12 and abs(float(gb) / fd - 1.0) <= 1e-4
+            and np.sqrt(pf.loss_db2) < 0.5 and abs(prel["gamma"]) <= 0.15
+            and abs(prel["beta2"]) <= 0.12):
+        raise AssertionError("the pulse model or its spectrum fit misses test_calibrate's bars")
+
+    # 3: K1t against its plain version at fit-gain's width
+    for state in (False, True):
+        coef, y0, t0_, s = tangent_lanes(torch.float64, dev, state)
+        D = t0_.shape[1] // FIT_B
+        t1 = time.perf_counter()
+        y_p, t_p = ct.solve_tangent_torch(coef, y0, t0_, s, dz_m=FIT_DZ, n_steps=FIT_STEPS)
+        torch.cuda.synchronize()
+        if not state:
+            plain_ms[k64] = plain_ms[k32] = 1e3 * (time.perf_counter() - t1)
+        for rdt, bar_y, bar_t in ((torch.float64, 1e-11, 1e-10), (torch.float32, 1e-4, 1e-4)):
+            args = [x.to(rdt).contiguous() for x in (coef, y0, t0_, s)]
+            y_k, t_k = ct.solve_tangent_cuda(*args, dz_m=FIT_DZ, n_steps=FIT_STEPS)
+            torch.cuda.synchronize()
+            ey = float(((y_k.double() - y_p).abs().amax(dim=0) / y_p.abs().amax(dim=0)).max())
+            tk, tp = t_k.double().reshape(8, D, FIT_B), t_p.reshape(8, D, FIT_B)
+            et = float(((tk - tp).norm(dim=0) / tp.norm(dim=0)).max())
+            key = f"fwm4_tangent_{suffix(rdt)}"
+            max_err[key] = max(max_err.get(key, 0.0), float((y_k.double() - y_p).abs().max()),
+                               float((tk - tp).abs().max()))
+            log(f"  K1t vs plain fp64 on the card, {FIT_B} lanes x {D} "
+                f"{'launch' if state else 'fit'} directions x {FIT_STEPS} steps, {suffix(rdt)}: "
+                f"state {ey:.3e} (bar {bar_y:g}), tangents {et:.3e} (bar {bar_t:g})")
+            if not (ey <= bar_y and et <= bar_t and bool(torch.isfinite(t_k).all())):
+                raise AssertionError(f"K1t {suffix(rdt)} differs from its plain version")
+
+    # 4: times
+    for rdt in (torch.float64, torch.float32):
+        key = f"fwm4_tangent_{suffix(rdt)}"
+        args = [x.to(rdt).contiguous() for x in tangent_lanes(rdt, dev, False)]
+        ms[key] = 1e3 * timed(lambda: ct.solve_tangent_cuda(*args, dz_m=FIT_DZ,
+                                                            n_steps=FIT_STEPS))
+        # the function needs the state's RK4 once a lane and the tangent's
+        # once a lane and direction (the kernel repeats the state in each
+        # direction's thread: its design, not work the function needs)
+        n_thr = FIT_B * 3
+        rec["bound_flop"][key] = flop = FIT_STEPS * (
+            FIT_B * RK4_STEP_FLOP[rdt] + n_thr * (4 * TANGENT_RHS_FLOP + 88 + 8))
+        # inputs: coef (3), y0 (8) a lane, t0 (8), s (3) a thread; outputs
+        # y_end (8) a lane, t_end (8) a thread
+        rec["bound"](key, rdt, flop, (19 * FIT_B + 19 * n_thr) * rdt.itemsize)
+        rec["library_ms"][key] = None
+    x, gain_lin, _db, ok, _md = load_sweep_npz(archive)
+    g_db = 10.0 * np.log10(gain_lin[ok])
+    fits = {}
+    for n in (10, 60):
+        t1 = time.perf_counter()
+        C.fit_gain_curve(psa.custom_simulation_config(z_max=500.0, dz=1.0),
+                         delta_beta_grid=x[ok] / 1e3, measured_gain_db=g_db,
+                         p_in=[0.1, 0.1, 1e-5, 0.0], init=dict(gamma=8e-3), steps=n,
+                         tol_db=0.0, device=dev)
+        torch.cuda.synchronize()
+        fits[n] = time.perf_counter() - t1
+    step_ms = 1e3 * (fits[60] - fits[10]) / 50
+    log(f"phase 29 times on {card} (median of {REPS} warm reps, host clock with synchronize):")
+    for key in (k64, k32):
+        log(f"  {key} {FIT_B} lanes x 3 directions x {FIT_STEPS} steps: {ms[key]:.3f} ms; "
+            f"bound {rec['bound_ms'][key]:.4f} ms ({rec['bound_by'][key]}; "
+            f"{rec['bound_flop'][key]:.4g} flop; the kernel at "
+            f"{100 * rec['bound_ms'][key] / ms[key]:.2f}% of it); plain fp64 version on the "
+            f"card (one run) {plain_ms[key]:.1f} ms; launches on the main path {launches[key]}")
+    log(f"  one adam step end to end at fit-gain's width ({int(ok.sum())} points, a 60-step "
+        f"fit less a 10-step one, over 50): {step_ms:.3f} ms")
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 29 done in "
+        f"{time.perf_counter() - t_phase:.1f} s on {card}")
+
+
 def main():
     # --- 1. device -----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2542,15 +2969,15 @@ def main():
         log(f"main path rk45 {precision}: {N_POINTS} points, launches {counts}, "
             f"ok {ok_frac:.4f}, peak gain {np.nanmax(res.gain):.4f} dB, "
             f"{res.points_per_s:.1f} pts/s (first call)")
-    t0 = time.perf_counter()
-    ref45 = psa.gain_spectrum(cfg=cfg45_for(psa, "x64", rtol=1e-11, atol=1e-14),
-                              lambda_signal_m=sub, device="cpu", engine="torch", **common)
-    log(f"plain fp64 rk45 reference on the CPU, 32 points at rtol 1e-11: "
-        f"{time.perf_counter() - t0:.1f} s")
+    ref45_gain = stored_reference(psa, "rk45_gain")
+    if not np.array_equal(sub, reference_inputs(psa)["rk45_lambda_m"]):
+        raise AssertionError("the 32-point subset is not the stored reference's")
+    log(f"plain fp64 rk45 reference on the CPU, 32 points at rtol 1e-11: stored in "
+        f"{CPU_REFERENCES.name} (smoke_references.py), its inputs this run's")
     for precision, bar in (("df32", 1e-7), ("x32", 5e-4)):
         fast = psa.gain_spectrum(cfg=cfg45_for(psa, precision), lambda_signal_m=sub,
                                  device="cuda", **common)
-        err = float(np.nanmax(np.abs(lin(fast.gain) / lin(ref45.gain) - 1.0)))
+        err = float(np.nanmax(np.abs(lin(fast.gain) / lin(ref45_gain) - 1.0)))
         log(f"32-point subset rk45 {precision} (card, kernel) vs plain fp64 rk45 (CPU, "
             f"rtol 1e-11): max rel err {err:.3e} in linear gain (bar {bar:g})")
         if not (err <= bar and fast.ok.all()):
@@ -2828,12 +3255,14 @@ def main():
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 14 done")
 
     rec = dict(max_err=max_err, plain_ms=plain_ms, steps=steps, launches=launches, ms=ms,
-               bound_ms=bound_ms, bound_by=bound_by, bytes_of=bytes_of, library_ms=library_ms)
+               bound_ms=bound_ms, bound_by=bound_by, bytes_of=bytes_of, library_ms=library_ms,
+               bound=bound, bound_flop={})
     gnlse_phases(psa, _build, cg, csa, dev, card, t_start, rec)
     lle_phases(psa, _build, cl, csa, dev, card, t_start, rec)
     vgnlse_phases(psa, _build, cv, cg, dev, card, t_start, rec)
     cli_phases(psa, _build, card, t_start)
     noise_phases(psa, _build, card, t_start)
+    calibration_phases(psa, _build, card, t_start, rec)
     log(f"[{time.perf_counter() - t_start:.0f} s] all phases done")
 
     sources = {"fwm4_rk": f"{PKG}/csrc/fwm4_rk.cu", "fwm4_rk45": f"{PKG}/csrc/fwm4_rk45.cu",
@@ -2843,7 +3272,8 @@ def main():
                "vgnlse_ssfm": f"{PKG}/csrc/vgnlse_ssfm.cu",
                "gnlse_ssfm_nl": f"{PKG}/csrc/gnlse_ssfm.cu",
                "vgnlse_ssfm_coherent": f"{PKG}/csrc/vgnlse_ssfm.cu",
-               "vgnlse_ssfm_nl": f"{PKG}/csrc/vgnlse_ssfm.cu"}
+               "vgnlse_ssfm_nl": f"{PKG}/csrc/vgnlse_ssfm.cu",
+               "fwm4_tangent": f"{PKG}/csrc/fwm4_tangent.cu"}
     replaces = {
         "fwm4_rk_f64": f"{JAX_PKG}/ops/pallas_df32.py:442",
         "fwm4_rk_f32": f"{JAX_PKG}/ops/pallas_solver.py:300",
@@ -2869,6 +3299,9 @@ def main():
         "vgnlse_ssfm_coherent_f32": f"{JAX_PKG}/ops/pallas_vgnlse.py:58",
         "vgnlse_ssfm_nl_f64": f"{JAX_PKG}/ops/pallas_vgnlse.py:58",
         "vgnlse_ssfm_nl_f32": f"{JAX_PKG}/ops/pallas_vgnlse.py:58",
+        # no pallas_call: jax.grad of the lax.scan RK4 in one XLA program
+        "fwm4_tangent_f64": f"{JAX_PKG}/parallel/calibrate.py:154",
+        "fwm4_tangent_f32": f"{JAX_PKG}/parallel/calibrate.py:154",
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name.rsplit("_", 1)[0]],
@@ -2881,7 +3314,8 @@ def main():
                      "lle_ssfm_f64", "lle_ssfm_f32", "ssfm_rk45_lle_f64", "ssfm_rk45_lle_f32",
                      "vgnlse_ssfm_f64", "vgnlse_ssfm_f32", "gnlse_ssfm_nl_f64",
                      "gnlse_ssfm_nl_f32", "vgnlse_ssfm_nl_f64", "vgnlse_ssfm_nl_f32",
-                     "vgnlse_ssfm_coherent_f64", "vgnlse_ssfm_coherent_f32")
+                     "vgnlse_ssfm_coherent_f64", "vgnlse_ssfm_coherent_f32",
+                     "fwm4_tangent_f64", "fwm4_tangent_f32")
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

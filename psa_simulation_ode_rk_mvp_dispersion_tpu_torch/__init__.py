@@ -19,7 +19,9 @@ layer (``parallel/noise``: truncated-Wigner noise figures, squeezing,
 photon statistics, coherence, jitter; ``parallel/fluctuations``: gain
 ripple under delta-beta wander; ``parallel/link``: amplified soliton
 links), whose ensembles are the JAX package's draw for draw and run
-through the same kernels.  The rotating-frame sweeps and the batched comb,
+through the same kernels, and the calibration layer (``parallel/calibrate``:
+gain models differentiable by ``torch.autograd``, the gain-curve and
+pulse-spectrum fits, the launch-power and launch-phase transfers).  The rotating-frame sweeps and the batched comb,
 pulse, cavity and vector solves run on a CUDA device through hand-written
 kernels: ``csrc/fwm4_rk.cu``
 (``ops/cuda_solver.py``), ``csrc/fwm4_rk45.cu`` (``ops/cuda_adaptive.py``),
@@ -28,7 +30,9 @@ kernels: ``csrc/fwm4_rk.cu``
 (``ops/cuda_gnlse.py``), ``csrc/lle_ssfm.cu`` (``ops/cuda_lle.py``),
 ``csrc/ssfm_rk45.cu``
 (``ops/cuda_ssfm_adaptive.py``, GNLSE and LLE routes) and
-``csrc/vgnlse_ssfm.cu`` (``ops/cuda_vgnlse.py``).
+``csrc/vgnlse_ssfm.cu`` (``ops/cuda_vgnlse.py``); the 4-wave RK4 in tangent
+(forward) mode, which carries the calibration's gradients, is
+``csrc/fwm4_tangent.cu`` (``ops/cuda_tangent.py``).
 
 Precision tiers: ``x64`` and ``df32`` run in float64/complex128, ``x32`` in
 float32/complex64.  Public entry points take ``device=``; ``None`` means the
@@ -56,6 +60,7 @@ from .ops import (
     cuda_lle,
     cuda_solver,
     cuda_ssfm_adaptive,
+    cuda_tangent,
     cuda_vgnlse,
     dispersion,
     frequency_plan,
@@ -183,8 +188,19 @@ from .models.fwm4 import (
     run_single_simulation,
 )
 from .parallel import sweep as sweeps
+from .parallel import calibrate as calibrate
 from .parallel import noise as noise
 from .parallel import fluctuations as fluctuations
+from .parallel.calibrate import (
+    FitResult,
+    fit_gain_curve,
+    fit_pulse_spectrum,
+    make_gain_model,
+    make_launch_gain_model,
+    make_pulse_model,
+    phase_transfer_db_per_rad,
+    power_transfer_db_per_db,
+)
 from .parallel.fluctuations import GainRippleResult, gain_ripple_monte_carlo
 from .parallel.link import pulse_link_monte_carlo, span_observed_length_m
 from .parallel.noise import (

@@ -10,7 +10,9 @@ the kernels ``csrc/fwm4_rk.cu`` (rk4, ab4, abm4) and ``csrc/fwm4_rk45.cu``
 (rk45); the Monte-Carlo subcommands (``noise-figure``, ``gain-ripple``,
 ``squeezing``, ``soliton-squeezing``, ``jitter``, ``link``, ``mi-noise``,
 and ``supercontinuum --coherence N``) run their ensembles through the
-4-wave kernel and the GNLSE kernel ``csrc/gnlse_ssfm.cu``.
+4-wave kernel and the GNLSE kernel ``csrc/gnlse_ssfm.cu``; ``fit-gain``
+fits a ``mismatch`` archive with one launch of the tangent kernel
+``csrc/fwm4_tangent.cu`` an adam step.
 
 Examples:
     python -m psa_simulation_ode_rk_mvp_dispersion_tpu_torch single --no-show
@@ -20,6 +22,8 @@ Examples:
         mismatch --span 60 --no-show
     python -m psa_simulation_ode_rk_mvp_dispersion_tpu_torch noise-figure \
         --spectrum-points 64 --save-dir out --no-show
+    python -m psa_simulation_ode_rk_mvp_dispersion_tpu_torch fit-gain \
+        out/mismatch_scan.npz --save-dir out --no-show
 """
 
 from __future__ import annotations
@@ -30,7 +34,6 @@ import sys
 # Subcommands of the JAX package that wait for a later slice of the port,
 # with the ROADMAP item that brings each.
 WAITING = {
-    "fit-gain": 16,   # calibration
     "bench": 7,       # the port's benchmark
 }
 
@@ -250,6 +253,19 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--samples", type=int, default=4096)
     s.add_argument("--nonlinear-lengths", type=float, default=3.0,
                    help="propagation distance in units of 1/(gamma P)")
+
+    s = sub.add_parser("fit-gain",
+                       help="calibrate (gamma, alpha, delta-beta offset) "
+                            "from a saved mismatch sweep NPZ by gradient "
+                            "descent through the solver")
+    s.add_argument("npz", help="mismatch_scan.npz artifact (gain_mode=end)")
+    s.add_argument("--p-pump", type=float, default=0.1,
+                   help="per-pump launch power [W] used in the sweep")
+    s.add_argument("--p-signal", type=float, default=1e-5)
+    s.add_argument("--init-gamma", type=float, default=8.0,
+                   help="starting gamma [1/(W km)]")
+    s.add_argument("--steps", type=int, default=500)
+    s.add_argument("--lr", type=float, default=0.05)
     return p
 
 
@@ -285,7 +301,7 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     if args.integrator is not None and args.cmd in (
             "sbs", "noise-figure", "comb", "gain-ripple", "squeezing",
-            "soliton-squeezing", "jitter", "link", "mi-noise", "kerr-cavity"):
+            "soliton-squeezing", "jitter", "link", "mi-noise", "fit-gain", "kerr-cavity"):
         parser.error(
             f"--integrator is not honored by '{args.cmd}'"
             + (" (use --comb-integrator)" if args.cmd == "comb" else "")
@@ -408,6 +424,12 @@ def main(argv=None) -> int:
         ex.mi_sideband_noise(
             n_samples=args.samples, nonlinear_lengths=args.nonlinear_lengths,
             verbose=verbose, **common,
+        )
+    elif args.cmd == "fit-gain":
+        ex.fit_gain(
+            args.npz, p_pump_W=args.p_pump, p_signal_W=args.p_signal,
+            init_gamma_km=args.init_gamma, steps=args.steps,
+            learning_rate=args.lr, verbose=verbose, **common,
         )
     return 0
 

@@ -6,12 +6,9 @@ names, defaults and file names (reference ``main.py``:
 ``main_gain_spectrum_dbeta`` :206-280), plus the mismatch scan, PSA phase
 sweep, 2-D gain map, the comb / Kerr-cavity / pulse / SBS family
 experiments and the Monte-Carlo ones (the quantum-noise experiments of
-``noise.py`` and the fiber-yield ``gain_ripple``).  Each takes ``device``
-(``None``: the CUDA card) and forwards it to every solve; the command line
-(``__main__.py``) reaches them all.
-
-Not ported yet, and so not exported here: ``fit_gain`` waits for the
-calibration slice (ROADMAP item 16).
+``noise.py`` and the fiber-yield ``gain_ripple``) and the calibration
+``fit_gain``.  Each takes ``device`` (``None``: the CUDA card) and forwards
+it to every solve; the command line (``__main__.py``) reaches them all.
 """
 
 from ._shared import _PM_DEFAULT, _dispersion_at_pump_center  # noqa: F401
@@ -24,6 +21,7 @@ from .fwm4 import (  # noqa: F401
     psa_phase_sweep,
     single_simulation,
 )
+from .fitting import fit_gain  # noqa: F401
 from .fluctuations import gain_ripple  # noqa: F401
 from .lle import kerr_cavity  # noqa: F401
 from .noise import (  # noqa: F401
@@ -48,5 +46,5 @@ __all__ = [
     "mismatch_scan", "psa_phase_sweep", "gain_map", "comb", "kerr_cavity",
     "gnlse_pulse", "vector_pulse", "supercontinuum", "vector_supercontinuum",
     "noise_figure", "fwm_sbs", "gain_ripple", "squeezing", "soliton_squeezing",
-    "soliton_jitter", "soliton_link", "mi_sideband_noise",
+    "soliton_jitter", "soliton_link", "mi_sideband_noise", "fit_gain",
 ]

@@ -50,10 +50,15 @@ NVCC_FLAGS = (
 #
 # The two sources with the most kernels: ptxas compiles their kernels on
 # every core at once, which cuts the longest compile of the build (the SASS
-# is the one a single-threaded ptxas makes; PERF.md).
+# is the one a single-threaded ptxas makes; PERF.md).  The two longest
+# builds also run nvcc's own optimizer on every core (--split-compile):
+# vgnlse_ssfm.cu, the build's longest, in 170 s instead of ~250 (its SASS
+# differs in 194 of 1.5 million lines), ssfm_rk45.cu with the same SASS
+# (chip_build_ab.py; PERF.md).
 SOURCE_FLAGS = {"comb_rk45": ("-fmad=false",),
                 "gnlse_ssfm": ("-Xptxas", "--split-compile=0"),
-                "vgnlse_ssfm": ("-Xptxas", "--split-compile=0")}
+                "ssfm_rk45": ("--split-compile=0",),
+                "vgnlse_ssfm": ("--split-compile=0", "-Xptxas", "--split-compile=0")}
 
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
 

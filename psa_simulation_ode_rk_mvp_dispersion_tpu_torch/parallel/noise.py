@@ -1908,55 +1908,6 @@ def vector_pulse_coherence_monte_carlo(
                            float(ok[1:].mean()), elapsed)
 
 
-def _power_transfer_db_per_db(cfg, *, gamma, alpha, delta_beta, p_in,
-                              phase_in=None, wave: int = 2,
-                              device=None) -> np.ndarray:
-    """EXACT small-signal transfer of each launch power to the measured
-    gain, in dB-per-dB (``d gain_dB / d P_j_dB``), by one reverse-mode
-    gradient through the plain float64 rotating-frame RK4 on ``device``
-    (the kernels have no backward).  The port's copy of the JAX package's
-    ``calibrate.power_transfer_db_per_db`` (its default x64 precision),
-    which the calibration slice brings in full; measured at the last saved
-    grid point, like the batched solvers."""
-    from ..ops.integrators import integrate_reduce
-    from ..ops.rhs import rhs_yaman_autonomous
-    from ..utils.checks import resolve_device
-
-    device = resolve_device(device)
-    n_steps = int(round(float(cfg.z_max) / float(cfg.dz)))
-    n_obs = (n_steps // int(cfg.save_every)) * int(cfg.save_every)
-    if n_obs < 1:
-        raise ValueError(
-            f"no saved grid points: {n_steps} steps with "
-            f"save_every={cfg.save_every}"
-        )
-    p = np.asarray(p_in, dtype=np.float64).reshape(4)
-    if p[wave] <= 0.0:
-        raise ValueError(f"wave {wave} carries no input power")
-    f64 = dict(dtype=torch.float64, device=device)
-    pv = torch.tensor(p, **f64, requires_grad=True)
-    ph = torch.tensor(np.zeros(4) if phase_in is None
-                      else np.asarray(phase_in, dtype=np.float64), **f64)
-    # the tiny floor keeps d sqrt/dp finite at exactly-zero launches
-    # (vacuum idler): the dB-transfer of a zero-power wave is 0 anyway
-    A0 = torch.sqrt(torch.clamp(pv, min=1e-300)) * torch.complex(
-        torch.cos(ph), torch.sin(ph))
-    coeffs = RHSCoeffs(gamma=torch.tensor(float(gamma), **f64),
-                       alpha=torch.tensor(float(alpha), **f64),
-                       delta_beta=torch.tensor(float(delta_beta), **f64))
-    res = integrate_reduce(
-        rhs_yaman_autonomous, A0, coeffs, z0=0.0, dz=float(cfg.dz),
-        n_steps=n_obs, save_every=n_obs, reduce_init=None,
-        reduce_fn=lambda acc, _y: acc, check_nan=False,
-    )
-    gain_db = 10.0 * torch.log10(res.y_final[wave].abs() ** 2 / pv[wave])
-    (g,) = torch.autograd.grad(gain_db, pv)
-    g = g.detach().cpu().numpy()
-    # dG/d(10 log10 P_j) = dG/dP_j * P_j ln(10)/10; exactly-zero launches
-    # have zero dB-transfer by definition
-    return np.where(p > 0.0, g * p * (np.log(10.0) / 10.0), 0.0)
-
-
 # ---------------------------------------------------------------------------
 # Pump-RIN transfer
 # ---------------------------------------------------------------------------
@@ -1965,10 +1916,9 @@ def _power_transfer_db_per_db(cfg, *, gamma, alpha, delta_beta, p_in,
 class RINTransferResult:
     """Pump-RIN -> signal-gain transfer: Monte-Carlo regression slopes of
     the measured gain [dB] on each jittered launch power [dB], against
-    the EXACT autodiff sensitivities (the JAX package's
-    ``calibrate.power_transfer_db_per_db``, here
-    :func:`_power_transfer_db_per_db`) -- a relative-intensity-noise
-    budget for the amplifier."""
+    the EXACT autodiff sensitivities
+    (``calibrate.power_transfer_db_per_db``) -- a relative-intensity-
+    noise budget for the amplifier."""
 
     transfer_db_per_db: np.ndarray     # (4,) MC regression slopes
     transfer_se: np.ndarray            # (4,) slope standard errors
@@ -2008,8 +1958,9 @@ def pump_rin_transfer_monte_carlo(
     gain [dB] is regressed on each launch power [dB] jointly (ordinary
     least squares over the jittered designs).  Small-signal oracle: the
     slopes equal the autodiff sensitivities of
-    :func:`_power_transfer_db_per_db` within the regression standard
-    errors."""
+    :func:`~.calibrate.power_transfer_db_per_db` within the regression
+    standard errors."""
+    from .calibrate import power_transfer_db_per_db
 
     p_in = np.asarray(p_in, dtype=np.float64).reshape(4)
     if p_in[wave] <= 0.0:
@@ -2056,7 +2007,7 @@ def pump_rin_transfer_monte_carlo(
     slopes[cols] = beta[:-1]
     ses[cols] = np.sqrt(np.diag(cov)[:-1])
 
-    auto = _power_transfer_db_per_db(
+    auto = power_transfer_db_per_db(
         cfg, gamma=gamma, alpha=alpha, delta_beta=delta_beta, p_in=p_in,
         phase_in=phase_in, wave=wave, device=device,
     )

@@ -26,7 +26,8 @@ PKG = "psa_simulation_ode_rk_mvp_dispersion_tpu_torch"
 JAX_PKG = "psa_simulation_ode_rk_mvp_dispersion_tpu"
 PORTED = ("single", "spectrum", "spectrum-dbeta", "mismatch", "psa-phase", "gain-map", "comb",
           "kerr-cavity", "gnlse", "vgnlse", "supercontinuum", "sbs", "noise-figure",
-          "gain-ripple", "squeezing", "soliton-squeezing", "jitter", "link", "mi-noise")
+          "gain-ripple", "squeezing", "soliton-squeezing", "jitter", "link", "mi-noise",
+          "fit-gain")
 
 
 def _env(**extra):
@@ -135,7 +136,7 @@ def test_zero_arguments_are_the_spectrum_dbeta_demo_on_the_card(monkeypatch):
     (["--shard", "spectrum"], "ROADMAP item 17"),
     (["--integrator", "rk45", "sbs"], "not honored by 'sbs'"),
     (["--integrator", "rk4", "comb"], "--comb-integrator"),
-    (["--save-dir", "x", "fit-gain", "a.npz"], "ROADMAP item 16"),
+    (["--integrator", "rk4", "fit-gain", "a.npz"], "not honored by 'fit-gain'"),
     (["bench"], "ROADMAP item 7"),
     (["supercontinuum", "--vector", "--coherence", "4"], "--coherence is scalar-only"),
 ])
@@ -144,6 +145,19 @@ def test_refusals_name_what_they_wait_for(capsys, argv, says):
         cli.main(argv)
     assert e.value.code == 2
     assert says in capsys.readouterr().err
+
+
+def test_cli_fit_gain(tmp_path, capsys):
+    """``mismatch`` and then ``fit-gain`` on its archive, on the CPU: the
+    fit's line on stdout and ``fit_gain.npz`` (the calibration slice,
+    ROADMAP item 16)."""
+    common = ["--device", "cpu", "--no-show", "--save-dir", str(tmp_path)]
+    assert cli.main(common + ["--quiet", "mismatch", "--points", "8", "--span", "30"]) == 0
+    assert cli.main(common + ["fit-gain", str(tmp_path / "mismatch_scan.npz"), "--steps",
+                              "3"]) == 0
+    assert "fitted over 8 points in 3 steps" in capsys.readouterr().out
+    with np.load(tmp_path / "fit_gain.npz") as z:
+        assert z["loss_history"].shape == (4,) and np.isfinite(z["gamma"])
 
 
 def test_the_port_runs_without_jax():
@@ -181,6 +195,7 @@ except SystemExit as e:
                 "experiments.lle", "experiments.pulses", "experiments.sbs", "models.sbs",
                 "plotting", "utils.debug", "utils.observability", "parallel.sweep",
                 "parallel.noise", "parallel.fluctuations", "parallel.link",
-                "experiments.noise", "experiments.fluctuations"):
+                "experiments.noise", "experiments.fluctuations", "parallel.calibrate",
+                "experiments.fitting", "ops.cuda_tangent"):
         assert f"{PKG}.{sub}" in imported, sub
     assert "usage: psa-torch" in out.stdout

@@ -756,3 +756,60 @@ def test_solve_vgnlse_batch_auto_runs_the_kernel(card):
         if name is None:
             with pytest.raises(ValueError, match="rk4 only"):
                 tv.solve_vgnlse_batch(cfg, cof, A0, engine="cuda", **kw)
+
+
+# ---------------------------------------------------------------------------
+# K1t: the 4-wave RK4 in tangent mode (csrc/fwm4_tangent.cu)
+# ---------------------------------------------------------------------------
+
+from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_tangent as ct  # noqa: E402
+from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.parallel import calibrate as tcal  # noqa: E402,E501
+
+
+@pytest.mark.parametrize("rdt", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("state", [False, True], ids=["fit", "launch"])
+def test_tangent_kernel_matches_plain_version(card, rdt, state):
+    """130 lanes (not a multiple of a block), 3 fit or 11 directions, 253
+    steps: fp64 within 1e-11 (state) and 1e-10 (tangents, normwise a lane
+    and direction) of the plain version, fp32 within 1e-4 of the fp64 one."""
+    B, n = 130, 253
+    rng = np.random.default_rng(8)
+    coef = torch.tensor(np.stack([rng.uniform(5e-3, 2e-2, B), rng.uniform(0.0, 1e-3, B),
+                                  rng.uniform(-0.05, 0.05, B)]), device=card)
+    A = np.sqrt([0.5, 0.5, 1e-5, 1e-6]) * np.exp(1j * rng.uniform(0.0, 6.0, (B, 4)))
+    y0 = torch.tensor(np.concatenate([A.real.T, A.imag.T]), device=card).contiguous()
+    t0, s = ct.directions(B, coef=True, state=state, dtype=torch.float64, device=card)
+    y_p, t_p = ct.solve_tangent_torch(coef, y0, t0, s, dz_m=0.4, n_steps=n)
+    name = f"fwm4_tangent_{'f64' if rdt == torch.float64 else 'f32'}"
+    launches = _build.LAUNCHES[name]
+    y_k, t_k = ct.solve_tangent_cuda(*(x.to(rdt).contiguous() for x in (coef, y0, t0, s)),
+                                     dz_m=0.4, n_steps=n)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[name] == launches + 1
+    bars = (1e-11, 1e-10) if rdt == torch.float64 else (1e-4, 1e-4)
+    D = t0.shape[1] // B
+    ey = (y_k.double() - y_p).abs().amax(dim=0) / y_p.abs().amax(dim=0)
+    et = ((t_k.double() - t_p).reshape(8, D, B).norm(dim=0)
+          / t_p.reshape(8, D, B).norm(dim=0))
+    assert float(ey.max()) <= bars[0] and float(et.max()) <= bars[1]
+
+
+def test_fit_on_the_card_is_one_tangent_launch_a_step(card):
+    """``fit_gain_curve`` on the card launches K1t once an adam step and
+    once for the curve at the fitted parameters, and follows the CPU fit
+    (the plain version) to 1e-9."""
+    cfg = T.custom_simulation_config(z_max=100.0, dz=5.0, save_every=2)
+    db = np.linspace(-0.05, 0.03, 8)
+    p_in = [0.5, 0.5, 1e-5, 0.0]
+    with torch.no_grad():
+        curve = tcal.make_gain_model(cfg, p_in=p_in, device="cpu")(T.RHSCoeffs(
+            0.0115, 2e-4, torch.tensor(db - 3e-3))).numpy()
+    kw = dict(delta_beta_grid=db, measured_gain_db=curve, p_in=p_in, steps=6,
+              init=dict(gamma=0.008), tol_db=0.0)
+    _build.LAUNCHES.clear()
+    fc = tcal.fit_gain_curve(cfg, **kw, device=card)
+    assert dict(_build.LAUNCHES) == {"fwm4_tangent_f64": 7}
+    fh = tcal.fit_gain_curve(cfg, **kw, device="cpu")
+    np.testing.assert_allclose(fc.loss_history, fh.loss_history, rtol=1e-9)
+    for k, v in fh.params.items():
+        assert fc.params[k] == pytest.approx(v, rel=1e-9, abs=1e-15)
