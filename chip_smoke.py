@@ -118,8 +118,9 @@ Phases (any failure raises, and the script exits non-zero):
     cavity frozen at its input;
 20. LLE kernel K8 (the affine instantiation of ``csrc/ssfm_rk45.cu``) vs
     its plain version on the first 512 cavities, one of them overflowing,
-    fp64 at rtol 1e-8/atol 1e-11 and fp32 at 1e-5/1e-8, 2,000 steps and,
-    in fp32, 2,005: fp64 step counters equal on >= 99% of cavities and results
+    fp64 at rtol 1e-8/atol 1e-11 over the first 600 steps and fp32 at
+    1e-5/1e-8, 2,000 steps and 2,005: fp64 step counters equal on >= 99%
+    of cavities and results
     within 1e-9 there; fp32 equal ``ok`` and results within 5e-4 of the
     fp64 plain version at the same tolerance, beside the fp32 plain
     version's own error and the plain version with F 0.1% off;
@@ -203,6 +204,14 @@ Phases (any failure raises, and the script exits non-zero):
     spectrum fit at ``PULSE_FIT_STEPS`` adam steps), K1t against its plain
     version at ``fit-gain``'s width (200 lanes x 500 steps, 3 fit and 8
     launch directions), and its times.
+30. the batch split over a mesh on the card (``mesh_phases``): the main
+    path at full width through 2 slots of the card, one K1 and one K3
+    launch a shard, held to the unsharded call (rtol 1e-10, ``ok`` equal)
+    with both wall times; every family (K4-K9, SBS) at a cut depth through
+    3 slots, which pads the batch, at the JAX mesh tests' bars; the
+    two-process gloo worker of ``tests/test_torch_multihost.py`` on the
+    card and a one-rank NCCL group's gather; the command line's
+    ``spectrum`` with and without ``--shard``.
 
 Each main path is driven with the launch counts cleared just before it and
 read just after; the SSFM sources count each route apart (K6 Kerr and nl,
@@ -1221,11 +1230,14 @@ def check_lle_rk45_kernel(psa, csa, dev, max_err, plain_ms, steps):
     """Phase 20: K8's LLE route against its plain version on the rk45
     lane's 512 cavities, one of them overflowing (rejected to dt_min within
     a few dozen attempts); the first run of each dtype is the plain
-    version's time.  The trailing span runs in fp32 only: an fp64 plain run
-    takes ~75 s (one loop iteration an attempt, ~30,000 attempts)."""
+    version's time.  The fp64 run covers the first 600 of the 2,000 steps,
+    three save intervals (phase 21 drives the kernel over all of them): its
+    plain version takes one loop iteration an attempt, 67-98 s over ~30,000
+    attempts at 2,000 steps, its time following its steps, not its
+    cavities.  The trailing span runs in fp32 only."""
     B, bad = LLE_B45, LLE_B45 // 2
     ref64 = None
-    for rdt, n_steps in ((torch.float64, LLE_STEPS), (torch.float32, LLE_STEPS),
+    for rdt, n_steps in ((torch.float64, 3 * LLE_SAVE), (torch.float32, LLE_STEPS),
                          (torch.float32, LLE_STEPS + 5)):
         rtol, atol = LLE_TOL[rdt]
         t = lle_lanes(psa, rdt, dev, B=B, bad=True)
@@ -1496,8 +1508,8 @@ def lle_phases(psa, _build, cl, csa, dev, card, t_start, rec):
                   LLE_B45 * (4 * LLE_T * item + 4 * item + 9) + (item + 16) * LLE_T)
         steps[name + "_timed"] = (float(attempts.mean()), int(attempts.max()))
         # the library call, the same rk45 integration through torch.fft, is
-        # the plain version itself: its phase-20 run (an fp64 run takes
-        # ~75 s, so it is not repeated)
+        # the plain version itself: its phase-20 run (fp64 over the first
+        # 600 steps; an fp64 run of 2,000 takes 67-98 s, so it is not made)
         library_ms[name] = plain_ms[name]
     lle_e2e = {}
     for precision, integ, _name, _bar in lle_paths:
@@ -1521,12 +1533,13 @@ def lle_phases(psa, _build, cl, csa, dev, card, t_start, rec):
             f"{plain_ms[name]:.1f} ms")
     for name in ("ssfm_rk45_lle_f64", "ssfm_rk45_lle_f32"):
         mean, mx = steps[name + "_timed"]
+        depth = ", fp64 over the first 600 steps" if name.endswith("f64") else ""
         log(f"  {name} {LLE_B45} cavities: {ms[name]:.3f} ms = "
             f"{LLE_B45 / ms[name] * 1e3:.1f} cavities/s; bound {bound_ms[name]:.3f} ms "
             f"({bound_by[name]}; {lle_flop[name]:.4g} flop, {bytes_of[name]} bytes; the kernel at "
             f"{100 * bound_ms[name] / ms[name]:.2f}% of it); attempted steps per cavity mean "
             f"{mean:.1f}, max {mx}; plain version on the card, the torch.fft rk45 integration "
-            f"and the library call (one run, phase 20) {plain_ms[name]:.1f} ms")
+            f"and the library call (one run, phase 20{depth}) {plain_ms[name]:.1f} ms")
     for label, (B, integ, sec) in lle_e2e.items():
         rate = (f"{B * LLE_STEPS / sec:.1f} instance-steps/s" if integ == "rk4"
                 else f"{B / sec:.1f} cavities/s")
@@ -2861,6 +2874,258 @@ def calibration_phases(psa, _build, card, t_start, rec):
         f"{time.perf_counter() - t_phase:.1f} s on {card}")
 
 
+# Phase 30's sizes: the main path at full width over a mesh of 2 slots on
+# the card; the families through a mesh of 3 slots (the batch pads) at a cut
+# depth: MESH_B instances (not a multiple of 3) over a tenth of each bench's
+# steps, SBS over 50 steps of 7 lanes.
+MESH_B = 301
+
+
+def held(label, got, ref, bars):
+    """Hold a sharded call's host outputs ``got`` to the unsharded call's
+    ``ref``, output by output: ``bars`` gives each output's check,
+    ``("rtol", x)`` or ``("rtol", x, atol)`` (|got - ref| within x |ref|,
+    or within atol where that is larger), ``("atol", x)``, ``("scaled", x)``
+    (x times the largest |ref|), ``("normwise", x)`` (each instance's
+    largest error over its largest |ref|) or ``("equal",)``.  Returns the
+    log line; raises on a miss."""
+    parts, bad = [], []
+    for i, (g, r, check) in enumerate(zip(got, ref, bars)):
+        kind = check[0]
+        g, r = np.asarray(g), np.asarray(r)
+        if g.shape != r.shape or kind == "equal":
+            same = g.shape == r.shape and np.array_equal(g, r)
+            parts.append(f"[{i}] {'equal' if same else 'DIFFERENT'}")
+            bad += [] if same else [f"output {i} differs"]
+            continue
+        d, bar = np.abs(g - r), check[1]
+        if kind == "rtol":
+            floor = check[2] / bar if len(check) > 2 else 1e-300
+            err = float(np.max(d / np.maximum(np.abs(r), floor)))
+        elif kind == "atol":
+            err = float(np.max(d))
+        elif kind == "scaled":
+            err = float(np.max(d) / np.max(np.abs(r)))
+        else:
+            ax = tuple(range(1, r.ndim))
+            err = float(np.max(np.max(d, axis=ax) / np.max(np.abs(r), axis=ax)))
+        parts.append(f"[{i}] {kind} {err:.3e} (bar {bar:g})")
+        if not err <= bar:
+            bad.append(f"output {i}: {kind} {err:.3e} > {bar:g}")
+    same = all(np.array_equal(np.asarray(g), np.asarray(r)) for g, r in zip(got, ref))
+    line = f"  {label}: {'; '.join(parts)}; bit for bit {same}"
+    if bad:
+        raise AssertionError(f"{label}: the sharded call is not the unsharded one: "
+                             f"{'; '.join(bad)}")
+    return line
+
+
+def mesh_phases(psa, _build, card, t_start):
+    """Phase 30, the batch split over a mesh (``parallel/mesh``) on the one
+    card: every slot of a mesh on ``cuda:0`` (shards on one card run one
+    after the other), each sharded call with the launch counts cleared just
+    before and read just after (one launch a shard), held to the unsharded
+    call at the JAX package's mesh bars (``tests/test_torch_mesh.py``).
+
+    (a) the main path at full width, ``gain_spectrum`` over 10^4 points at
+        df32 rk4 (K1) and df32 rk45 (K3), through a mesh of 2 slots: two
+        launches, ``ok`` equal, the gain within rtol 1e-10 (bit for bit is
+        logged: a shard of 5,000 lanes may take the other K3 design), the
+        sharded and unsharded wall times (median of 5 warm reps) and the
+        gather of such a call's outputs;
+    (b) comb rk4 and rk45 (K4, K5), GNLSE Kerr, nl and rk45 (K6, K6 nl,
+        K8), LLE rk4 and rk45 (K7, K8-LLE), vector rotation, coherent and nl
+        (K9) over ``MESH_B`` instances at a tenth of each bench's steps, and
+        SBS (plain torch, no launch) over 7 lanes, through a mesh of 3
+        slots, which pads every batch;
+    (c) the two-process worker of ``tests/test_torch_multihost.py`` on
+        ``cuda:0`` over gloo (NCCL refuses two ranks on one card): a (dcn=2,
+        batch=2) mesh, each process's gathered spectrum its unsharded one;
+        then a one-rank NCCL group, the main path's df32 spectrum gathered
+        through NCCL's all-gather;
+    (d) the command line's ``spectrum`` at 10^4 points with and without
+        ``--shard``: on one card ``default_mesh`` is None, and the two write
+        the same files, one K1 launch each.
+    """
+    import contextlib
+    import io
+    import tempfile
+
+    from psa_simulation_ode_rk_mvp_dispersion_tpu_torch import __main__ as cli
+    from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.parallel import mesh as pm
+
+    t_phase = time.perf_counter()
+    log(f"phase 30, the batch split over a mesh on the card ({card})")
+    common = bench_common(psa)
+    lam3 = np.linspace(1540e-9, 1650e-9, N_POINTS)
+
+    def run(name, call, mesh, n_launch):
+        _build.LAUNCHES.clear()
+        out = call(mesh)
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+        want = {name: n_launch} if name else {}
+        if counts != want:
+            raise AssertionError(f"{name}: launches {counts}, expected {want}")
+        return out
+
+    # (a) the main path at full width over 2 slots
+    mesh2 = pm.default_mesh(2, device="cuda:0")
+    for label, cfg, name in (("rk4 df32", cfg_for(psa, "df32"), "fwm4_rk_f64"),
+                             ("rk45 df32", cfg45_for(psa, "df32"), "fwm4_rk45_f64")):
+        def call(mesh):
+            return psa.gain_spectrum(cfg=cfg, lambda_signal_m=lam3, mesh=mesh, device="cuda",
+                                     **common)
+        plain = run(name, call, None, 1)
+        sharded = run(name, call, mesh2, 2)
+        ok = plain.ok
+        err = max_rel(lin(sharded.gain)[ok], lin(plain.gain)[ok])
+        same = np.array_equal(sharded.gain, plain.gain, equal_nan=True)
+        t_plain, t_sharded = timed(lambda: call(None)), timed(lambda: call(mesh2))
+        log(f"  gain_spectrum {label}, {N_POINTS} points over {mesh2}: launches {{{name!r}: 2}}, "
+            f"ok equal {np.array_equal(sharded.ok, ok)}, max rel err {err:.3e} in linear gain "
+            f"(bar 1e-10), bit for bit {same}; wall time sharded {1e3 * t_sharded:.3f} ms, "
+            f"unsharded {1e3 * t_plain:.3f} ms on {card}")
+        if not (err <= 1e-10 and np.array_equal(sharded.ok, ok) and ok.mean() >= 0.99):
+            raise AssertionError(f"sharded gain_spectrum {label}: error {err:.3e}")
+        if name == "fwm4_rk_f64":
+            plain_df32 = plain
+    # the gather of such a call's outputs: (B, 4) float64, (B, 4) complex128
+    # and (B,) bool in two shards of the card
+    sh = pm.batch_sharding(mesh2)
+    outs = [pm.put_global(x, sh) for x in (np.zeros((N_POINTS, 4)),
+                                           np.zeros((N_POINTS, 4), np.complex128),
+                                           np.ones(N_POINTS, bool))]
+    t_gather = timed(lambda: [pm.fetch_global(x) for x in outs])
+    log(f"  gather of a {N_POINTS}-point call's outputs from 2 shards: {1e3 * t_gather:.3f} ms")
+
+    # (b) every family through 3 slots, at a cut depth
+    mesh3 = pm.default_mesh(3, device="cuda:0")
+    sub = slice(0, MESH_B)
+    nw, gn, ll, vg = psa.nwave, psa.gnlse, psa.lle, psa.vgnlse
+    A0c, coc = comb_setup(psa)
+    co_c = nw.NWaveCoeffs(gamma=coc.gamma[sub], alpha=coc.alpha[sub], beta_lin=coc.beta_lin)
+    cut = 10
+    fams = []
+    for integ, name, prec in (("rk4", "comb_rk_f64", "df32"), ("rk45", "comb_rk45_f64", "x64")):
+        cfg = psa.custom_simulation_config(
+            z_max=COMB_Z / cut, dz=COMB_Z / COMB_STEPS, save_every=COMB_SAVE, precision=prec,
+            integrator=integ, rtol=COMB_TOL[torch.float64][0], atol=COMB_TOL[torch.float64][1])
+        fams.append((f"comb {integ} {prec}", name,
+                     functools.partial(lambda cfg, m: nw.solve_comb_batch(
+                         cfg, co_c, A0c[sub], mesh=m, device="cuda"), cfg),
+                     (("rtol", 1e-12), ("normwise", 1e-12), ("equal",))))
+    gn_bars = (("rtol", 1e-11), ("atol", 1e-11), ("equal",))
+    for label, name, prec, nl, integ in (("Kerr", "gnlse_ssfm_f64", "df32", False, "rk4"),
+                                         ("nl", "gnlse_ssfm_nl_f64", "df32", True, "rk4"),
+                                         ("rk45", "ssfm_rk45_f64", "x64", False, "rk45")):
+        A0g, cog, terms = gnlse_setup(psa, prec, nl, MESH_B)
+        cfg = psa.custom_simulation_config(
+            z_max=GN_Z / cut, dz=GN_Z / GN_STEPS, save_every=GN_SAVE, precision=prec,
+            integrator=integ, rtol=GN_TOL[torch.float64][0], atol=GN_TOL[torch.float64][1])
+        fams.append((f"GNLSE {label} {prec}", name,
+                     functools.partial(lambda cfg, A0, co, terms, m: gn.solve_gnlse_batch(
+                         cfg, co, A0, nl=terms, mesh=m, device="cuda"), cfg, A0g, cog, terms),
+                     gn_bars))
+    for integ, name, prec in (("rk4", "lle_ssfm_f64", "df32"),
+                              ("rk45", "ssfm_rk45_lle_f64", "x64")):
+        psi0, col = lle_setup(psa, prec, MESH_B)
+        cfg = lle_cfg_for(psa, prec, integ, z_max=LLE_STEPS * LLE_DT / cut)
+        bars = ((("rtol", 1e-12), ("rtol", 1e-12, 1e-18), ("equal",)) if integ == "rk4" else
+                (("rtol", 1e-9), ("scaled", 1e-9), ("equal",)))
+        fams.append((f"LLE {integ} {prec}", name,
+                     functools.partial(lambda cfg, psi0, co, m: ll.solve_lle_batch(
+                         cfg, co, psi0, mesh=m, device="cuda"), cfg, psi0, col), bars))
+    for label, name, coupling, nl in (("manakov", "vgnlse_ssfm_f64", "manakov", False),
+                                      ("isotropic", "vgnlse_ssfm_coherent_f64", "isotropic", False),
+                                      ("manakov nl", "vgnlse_ssfm_nl_f64", "manakov", True)):
+        A0v, cov, terms = vgnlse_setup(psa, "df32", coupling, nl, B=MESH_B)
+        cfg = psa.custom_simulation_config(z_max=GN_Z / cut, dz=GN_Z / GN_STEPS,
+                                           save_every=GN_SAVE, precision="df32")
+        fams.append((f"vector {label} df32", name,
+                     functools.partial(lambda cfg, A0, co, terms, m: vg.solve_vgnlse_batch(
+                         cfg, co, A0, nl=terms, mesh=m, device="cuda"), cfg, A0v, cov, terms),
+                     gn_bars))
+    B_s = 7
+    sbs_kw = dict(gamma=0.5, alpha=0.01, g_B=np.linspace(0.1, 1.2, B_s), delta_beta=0.2,
+                  P_in=np.broadcast_to([0.2, 0.1, 1e-5, 0.0], (B_s, 4)).copy(),
+                  P_stokes_seed=np.broadcast_to([1e-4, 0.0, 0.0, 0.0], (B_s, 4)).copy(),
+                  length_unit="m", tol=1e-11, max_iterations=10)
+    sbs_cfg = psa.custom_simulation_config(z_max=0.5, dz=0.01, save_every=10)
+    fams.append(("SBS (plain torch)", None,
+                 lambda m: psa.run_sbs_batch(sbs_cfg, mesh=m, device="cuda", **sbs_kw),
+                 (("equal",), ("rtol", 1e-12, 1e-14), ("rtol", 1e-12, 1e-14),
+                  ("rtol", 1e-12, 1e-14), ("rtol", 1e-12, 1e-14), ("equal",), ("equal",))))
+    for label, name, call, bars in fams:
+        t0 = time.perf_counter()
+        plain = run(name, call, None, 1)
+        sharded = run(name, call, mesh3, 3)
+        sec = time.perf_counter() - t0
+        if not np.all(sharded[5 if name is None else 2]):
+            raise AssertionError(f"{label}: not every instance ok")
+        launched = f"launches {{{name!r}: 3}}" if name else "no launch"
+        log(held(f"{label}, {len(plain[1])} instances over {mesh3}, {launched} ({sec:.2f} s "
+                 "for both calls)", sharded, plain, bars))
+
+    # (c) the two-process gloo cluster on the card, and a one-rank NCCL group
+    sys.path.insert(0, str(ROOT / "tests"))
+    import test_torch_multihost as tmh
+
+    t0 = time.perf_counter()
+    results = tmh.run_cluster("cuda:0")
+    sec = time.perf_counter() - t0
+    for rank, (code, out) in enumerate(results):
+        lines = [ln for ln in out.splitlines() if "bit for bit" in ln or "MULTIHOST_OK" in ln]
+        log(f"  gloo worker {rank} on cuda:0: exit {code}; " + "; ".join(lines))
+        if code != 0 or f"MULTIHOST_OK p{rank}/2 mesh={{'dcn': 2, 'batch': 2}}" not in out:
+            raise AssertionError(f"gloo worker {rank} failed (code {code}):\n{out[-3000:]}")
+    log(f"  the two-process cluster: {sec:.1f} s from start to both exits")
+    if pm.initialize_distributed(f"localhost:{tmh._free_port()}", 1, 0):
+        raise AssertionError("a group of one process reads as more")
+    try:
+        backend = torch.distributed.get_backend()
+        gmesh = pm.group_mesh(["cuda:0", "cuda:0"])
+        _build.LAUNCHES.clear()
+        res = psa.gain_spectrum(cfg=cfg_for(psa, "df32"), lambda_signal_m=lam3, mesh=gmesh,
+                                **common)
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+    finally:
+        torch.distributed.destroy_process_group()
+    err = max_rel(lin(res.gain)[plain_df32.ok], lin(plain_df32.gain)[plain_df32.ok])
+    log(f"  one-rank {backend} group, gain_spectrum df32 over {gmesh} (spans the group: "
+        f"{gmesh.spans_processes}): launches {counts}, gathered through {backend}'s all-gather; "
+        f"vs unsharded max rel err {err:.3e} (bar 1e-10), bit for bit "
+        f"{np.array_equal(res.gain, plain_df32.gain, equal_nan=True)}")
+    if not (backend == "nccl" and gmesh.spans_processes and counts == {"fwm4_rk_f64": 2}
+            and err <= 1e-10 and np.array_equal(res.ok, plain_df32.ok)):
+        raise AssertionError(f"one-rank NCCL group: {backend}, {counts}, {err:.3e}")
+
+    # (d) the command line with and without --shard
+    root = Path(tempfile.mkdtemp(prefix="psa_shard_"))
+    saved = []
+    for extra in ([], ["--shard"]):
+        out = root / f"run{len(saved)}"
+        _build.LAUNCHES.clear()
+        with contextlib.redirect_stderr(io.StringIO()):
+            code = cli.main(["--no-show", "--quiet", "--save-dir", str(out), *extra, "spectrum",
+                             "--points", str(N_POINTS)])
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+        if code != 0 or counts != {"fwm4_rk_f64": 1}:
+            raise AssertionError(f"cli {extra} spectrum: exit {code}, launches {counts}")
+        with np.load(out / "gain_spectrum.npz") as z:
+            saved.append({k: z[k] for k in ("x", "gain", "ok")})
+    same = all(np.array_equal(saved[0][k], saved[1][k], equal_nan=True) for k in saved[0])
+    log(f"  cli spectrum --points {N_POINTS} with and without --shard (default_mesh on one "
+        f"card: {pm.default_mesh(device='cuda')}): one fwm4_rk_f64 launch each, "
+        f"gain_spectrum.npz {'the same' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError("--shard wrote other files on one card")
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 30 done in "
+        f"{time.perf_counter() - t_phase:.1f} s on {card}")
+
+
 def main():
     # --- 1. device -----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -3263,6 +3528,7 @@ def main():
     cli_phases(psa, _build, card, t_start)
     noise_phases(psa, _build, card, t_start)
     calibration_phases(psa, _build, card, t_start, rec)
+    mesh_phases(psa, _build, card, t_start)
     log(f"[{time.perf_counter() - t_start:.0f} s] all phases done")
 
     sources = {"fwm4_rk": f"{PKG}/csrc/fwm4_rk.cu", "fwm4_rk45": f"{PKG}/csrc/fwm4_rk45.cu",

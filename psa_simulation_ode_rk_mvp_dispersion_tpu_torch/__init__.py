@@ -37,6 +37,10 @@ kernels: ``csrc/fwm4_rk.cu``
 Precision tiers: ``x64`` and ``df32`` run in float64/complex128, ``x32`` in
 float32/complex64.  Public entry points take ``device=``; ``None`` means the
 CUDA card, and without one they raise (pass ``device='cpu'`` for the CPU).
+Every batched solver takes ``mesh=`` (``parallel/mesh``, exported as
+``mesh_utils``), which splits its batch over the cards of a process and the
+processes of a ``torch.distributed`` group, each shard through its family's
+kernel.
 
 Import alias: ``import psa_torch`` (see repo-root ``psa_torch.py``).
 """
@@ -187,6 +191,7 @@ from .models.fwm4 import (
     make_model_params,
     run_single_simulation,
 )
+from .parallel import mesh as mesh_utils
 from .parallel import sweep as sweeps
 from .parallel import calibrate as calibrate
 from .parallel import noise as noise
@@ -234,6 +239,13 @@ from .parallel.noise import (
     vector_pulse_photon_statistics,
     vector_pulse_squeezing_evolution,
     vector_pulse_squeezing_monte_carlo,
+)
+from .parallel.mesh import (
+    default_mesh,
+    fetch_global,
+    initialize_distributed,
+    multihost_mesh,
+    put_global,
 )
 from .parallel.sweep import (
     BatchSolveResult,

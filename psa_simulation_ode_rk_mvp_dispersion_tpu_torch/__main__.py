@@ -13,6 +13,9 @@ and ``supercontinuum --coherence N``) run their ensembles through the
 4-wave kernel and the GNLSE kernel ``csrc/gnlse_ssfm.cu``; ``fit-gain``
 fits a ``mismatch`` archive with one launch of the tangent kernel
 ``csrc/fwm4_tangent.cu`` an adam step.
+``--shard`` splits each batch over the cards of ``--device``
+(``parallel/mesh.default_mesh``); on one card it runs unsharded, as in the
+JAX package.
 
 Examples:
     python -m psa_simulation_ode_rk_mvp_dispersion_tpu_torch single --no-show
@@ -60,8 +63,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "commands/families that cannot honor an explicit "
                         "choice raise)")
     p.add_argument("--shard", action="store_true",
-                   help="shard the batch over all local devices (not ported yet: "
-                        "refused, ROADMAP item 17)")
+                   help="shard the batch over all local devices (default_mesh over "
+                        "the cards of --device; one card runs unsharded)")
     p.add_argument("--device", default="cuda",
                    help="torch device every solve runs on (default: the CUDA card; "
                         "'cpu' for the CPU)")
@@ -306,9 +309,6 @@ def main(argv=None) -> int:
             f"--integrator is not honored by '{args.cmd}'"
             + (" (use --comb-integrator)" if args.cmd == "comb" else "")
         )
-    if args.shard:
-        parser.error("--shard is not ported: multi-device solves land with ROADMAP "
-                     "item 17 (slice I)")
     if args.cmd == "supercontinuum" and args.vector and args.coherence:
         parser.error("--coherence is scalar-only (drop --vector)")
 
@@ -321,13 +321,18 @@ def main(argv=None) -> int:
             "(device='cpu' in the Python API)")
     from . import experiments as ex
 
+    mesh = None
+    if args.shard:
+        from .parallel.mesh import default_mesh
+
+        mesh = default_mesh(device=args.device)
     common = dict(
         precision=args.precision,
         show=not args.no_show,
         save_dir=args.save_dir,
         device=args.device,
     )
-    sweep_common = dict(common, integrator=args.integrator or "rk4")
+    sweep_common = dict(common, integrator=args.integrator or "rk4", mesh=mesh)
     verbose = not args.quiet
 
     if args.cmd == "single":
@@ -377,7 +382,7 @@ def main(argv=None) -> int:
         fn = (ex.vector_supercontinuum if args.vector
               else ex.supercontinuum)
         kw = (dict(theta_deg=args.theta) if args.vector
-              else dict(coherence_samples=args.coherence))
+              else dict(coherence_samples=args.coherence, mesh=mesh))
         fn(
             t0_fs=args.t0, peak_kW=args.peak, length_m=args.length,
             n_samples=args.samples, rtol=args.rtol,
@@ -395,34 +400,35 @@ def main(argv=None) -> int:
             phase_points=args.phase_points,
             spectrum_points=args.spectrum_points,
             alpha_db_km=args.alpha_db_km, loss_model=args.loss_model,
-            n_loss_segments=args.loss_segments, verbose=verbose, **common,
+            n_loss_segments=args.loss_segments, mesh=mesh, verbose=verbose, **common,
         )
     elif args.cmd == "gain-ripple":
         ex.gain_ripple(
             n_realizations=args.realizations, n_segments=args.segments,
-            sigma_dbeta_1_m=args.sigma, verbose=verbose, **common,
+            sigma_dbeta_1_m=args.sigma, mesh=mesh, verbose=verbose, **common,
         )
     elif args.cmd == "squeezing":
-        ex.squeezing(n_samples=args.samples, z_max_m=args.z_max, verbose=verbose,
-                     **common)
+        ex.squeezing(n_samples=args.samples, z_max_m=args.z_max, mesh=mesh,
+                     verbose=verbose, **common)
     elif args.cmd == "soliton-squeezing":
         ex.soliton_squeezing(
             n_samples=args.samples, periods=args.periods, points=args.points,
-            verbose=verbose, **common,
+            mesh=mesh, verbose=verbose, **common,
         )
     elif args.cmd == "jitter":
         ex.soliton_jitter(
             n_samples=args.samples, periods=args.periods, points=args.points,
-            alpha_db_km=args.alpha_db_km, verbose=verbose, **common,
+            alpha_db_km=args.alpha_db_km, mesh=mesh, verbose=verbose, **common,
         )
     elif args.cmd == "link":
         ex.soliton_link(
             n_samples=args.samples, n_spans=args.spans, span_m=args.span_m,
-            alpha_db_km=args.alpha_db_km, n_sp=args.nsp, verbose=verbose, **common,
+            alpha_db_km=args.alpha_db_km, n_sp=args.nsp, mesh=mesh, verbose=verbose,
+            **common,
         )
     elif args.cmd == "mi-noise":
         ex.mi_sideband_noise(
-            n_samples=args.samples, nonlinear_lengths=args.nonlinear_lengths,
+            n_samples=args.samples, nonlinear_lengths=args.nonlinear_lengths, mesh=mesh,
             verbose=verbose, **common,
         )
     elif args.cmd == "fit-gain":

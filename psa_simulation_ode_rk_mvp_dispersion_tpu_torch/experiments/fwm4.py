@@ -5,8 +5,8 @@ Counterpart of the JAX package's ``experiments/fwm4.py``, with its defaults
 and file names.  Each experiment takes ``device`` (``None``: the CUDA card)
 and forwards it to every solve; the sweeps run on the card through the
 4-wave kernels (``csrc/fwm4_rk.cu`` for rk4/ab4/abm4, ``csrc/fwm4_rk45.cu``
-for rk45).  ``mesh`` must be None: multi-device solves are not ported yet,
-and the sweeps raise for any other value."""
+for rk45).  ``mesh`` (``parallel/mesh.Mesh``) splits each sweep's batch
+over its slots."""
 
 from __future__ import annotations
 

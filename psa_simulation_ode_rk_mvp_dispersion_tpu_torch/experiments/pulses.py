@@ -248,15 +248,16 @@ def supercontinuum(
     stay |g12| ~ 1 -- the figure of merit of Dudley RMP 2006 Eq. (25).
     The ensemble is ``parallel/noise.pulse_coherence_monte_carlo`` on
     ``device``: rk45 with Raman and steepening has no kernel in either
-    package, so it runs the plain torch controller there.  A ``mesh``
-    raises (multi-device solves, ROADMAP item 17)."""
+    package, so it runs the plain torch controller there; ``mesh`` splits
+    that ensemble (``parallel/mesh.Mesh``)."""
     import numpy as _np
 
     from ..models import gnlse as gnl
     from ..ops.frequency_plan import omega_from_lambda
+    from ..parallel.mesh import check_mesh
 
-    gnl._reject_mesh(mesh)
-
+    if mesh is not None:
+        check_mesh(mesh)   # before the run, which the mesh's ensemble follows
     t0 = float(t0_fs) * 1e-15
     omega_c = float(omega_from_lambda(lambda_pump))
     # ps^n/km -> s^n/m

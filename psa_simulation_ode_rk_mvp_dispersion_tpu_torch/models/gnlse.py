@@ -49,6 +49,7 @@ import torch
 from ..config import SimulationConfig, reject_multistep, validate_config
 from ..ops.dispersion import DispersionParams
 from ..ops.integrators import rk4ip_step
+from ..parallel.mesh import mesh_device, shard_batch
 from ..parallel.sweep import VALID_ENGINES   # 'torch' is JAX's 'scan', 'cuda' its 'pallas'
 from ..utils.checks import resolve_device
 from ..utils.precision import dtypes_for, real_dtype, validate_precision
@@ -727,13 +728,6 @@ def _batch_state(A0, cdt: torch.dtype, device: torch.device) -> torch.Tensor:
     return A0.to(device=device, dtype=cdt)
 
 
-def _reject_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported: multi-device solves land with ROADMAP slice I "
-            "(torch.distributed batch split)")
-
-
 def _saved_z(z0: float, n_steps: int, save_every: int, dz_m: float, scale: float) -> np.ndarray:
     n_chunks = n_steps // save_every
     return z0 + np.arange(n_chunks + 1, dtype=np.float64) * (save_every * dz_m) / scale
@@ -830,18 +824,32 @@ def solve_gnlse_batch_trajectories(
     (B, S+1, T) complex, ok (B,))`` as host arrays -- use
     :func:`solve_gnlse_batch` for large sweeps.  ``z0`` offsets the returned
     grid (resume; the equation is autonomous).  Plain torch on ``device``
-    (``None``: the CUDA card); ``mesh`` must be None."""
+    (``None``: the CUDA card); ``mesh`` splits the envelopes over its slots
+    as in :func:`solve_gnlse_batch`."""
     precision, integrator, dz_m, n_steps, scale = _prepare(cfg, length_unit)
-    _reject_mesh(mesh)
-    device = resolve_device(device)
+    device = mesh_device(mesh, device)
     rdt, cdt = dtypes_for(precision)
     y0 = _batch_state(A0, cdt, device)
     B, T = y0.shape
-    rows, ok = _solve_trajectories(cfg, precision, integrator, dz_m, n_steps, y0,
-                                   lane_coeffs(coeffs, B, T, rdt, device),
-                                   _cast_nl(nl, rdt, device))
-    z = _saved_z(float(z0), n_steps, int(cfg.save_every), dz_m, scale)
-    return z, _host(rows.to(torch.complex128)), _host(ok)
+    gamma, alpha, phase = lane_coeffs(coeffs, B, T, rdt, device)
+
+    def solve(_dev, y0, gamma, alpha, phase, nl_t):
+        rows, ok = _solve_trajectories(cfg, precision, integrator, dz_m, n_steps, y0,
+                                       (gamma, alpha, phase), nl_t)
+        return rows.to(torch.complex128), ok
+
+    args = (y0, gamma, alpha, phase, _cast_nl(nl, rdt, device))
+    if mesh is None:
+        A, ok = (_host(t) for t in solve(device, *args))
+    else:
+        A, ok = shard_batch(mesh, solve, args, in_axes=(0, 0, 0, _lane_axis(phase), None))
+    return _saved_z(float(z0), n_steps, int(cfg.save_every), dz_m, scale), A, ok
+
+
+def _lane_axis(x: torch.Tensor):
+    """A shard's ``in_axes`` entry for a lane coefficient: 0 for one with a
+    leading batch axis, None for a shared ``(T,)`` row."""
+    return 0 if x.ndim == 2 else None
 
 
 def kernel_route(integrator: str, nl, alpha: torch.Tensor, T: int, rdt: torch.dtype,
@@ -915,16 +923,18 @@ def solve_gnlse_batch(
     ``cfg.integrator='rk45'`` runs the adaptive split-step; the peak is over
     the same saved grid, and the state stops at the last saved grid point.
     Checkpoint/resume: ``A_last`` is the restart state.  ``df32`` is Strang
-    rk4 only and runs in float64.  ``mesh`` must be None; ``device=None``
-    means the CUDA card.
+    rk4 only and runs in float64.  ``device=None`` means the CUDA card.
+    ``mesh`` (``parallel/mesh.Mesh``) splits the envelopes over its slots,
+    one launch a slot, as :func:`~..parallel.sweep.solve_batch` does (a
+    shared phase row and the ``nl`` terms put on each device once);
+    ``device`` is then None or one the mesh uses.
     """
     from ..ops import cuda_gnlse, cuda_ssfm_adaptive   # they import this module
 
     precision, integrator, dz_m, n_steps, _scale = _prepare(cfg, length_unit)
     if engine not in VALID_ENGINES:
         raise ValueError(f"engine must be one of {VALID_ENGINES}, got {engine!r}")
-    _reject_mesh(mesh)
-    device = resolve_device(device)
+    device = mesh_device(mesh, device)
     if engine == "cuda" and device.type != "cuda":
         raise ValueError(f"engine='cuda' needs a CUDA device, got {device}")
     rdt, cdt = dtypes_for(precision)
@@ -932,22 +942,28 @@ def solve_gnlse_batch(
     B, T = y0.shape
     gamma, alpha, phase = lane_coeffs(coeffs, B, T, rdt, device)
     nl_t = _cast_nl(nl, rdt, device)
-    route = kernel_route(integrator, nl_t, alpha, T, rdt, device, engine)
     kw = dict(dz_m=dz_m, n_steps=n_steps, save_every=int(cfg.save_every))
     if integrator in ("rk45", "rk4ip45"):
         kw.update(rtol=float(cfg.rtol), atol=float(cfg.atol), max_steps=int(cfg.max_steps))
+
+    def solve(dev, y0, gamma, alpha, phase, nl_t):
+        route = kernel_route(integrator, nl_t, alpha, T, rdt, dev, engine)
         if route == "ssfm_rk45":
             r = cuda_ssfm_adaptive.solve_gnlse_batch_rk45_cuda(y0, gamma, alpha, phase, **kw)
-        else:
+        elif integrator in ("rk45", "rk4ip45"):
             r = cuda_ssfm_adaptive.solve_gnlse_batch_rk45_torch(
                 y0, gamma, alpha, phase, nl=nl_t, method=_adaptive_method(integrator), **kw)
-    elif route == "gnlse_ssfm":
-        r = cuda_gnlse.solve_gnlse_batch_cuda(y0, gamma, alpha, phase, nl=nl_t, **kw)
-    else:
-        r = cuda_gnlse.solve_gnlse_batch_torch(y0, gamma, alpha, phase, nl=nl_t,
-                                               method=_ssfm_method(integrator), **kw)
-    return (_host(r.peak_max.to(torch.float64)), _host(r.A_end.to(torch.complex128)),
-            _host(r.ok))
+        elif route == "gnlse_ssfm":
+            r = cuda_gnlse.solve_gnlse_batch_cuda(y0, gamma, alpha, phase, nl=nl_t, **kw)
+        else:
+            r = cuda_gnlse.solve_gnlse_batch_torch(y0, gamma, alpha, phase, nl=nl_t,
+                                                   method=_ssfm_method(integrator), **kw)
+        return r.peak_max.to(torch.float64), r.A_end.to(torch.complex128), r.ok
+
+    args = (y0, gamma, alpha, phase, nl_t)
+    if mesh is None:
+        return tuple(_host(t) for t in solve(device, *args))
+    return shard_batch(mesh, solve, args, in_axes=(0, 0, 0, _lane_axis(phase), None))
 
 
 # ---------------------------------------------------------------------------

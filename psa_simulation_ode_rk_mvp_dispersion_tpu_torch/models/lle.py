@@ -47,6 +47,7 @@ import torch
 
 from ..config import SimulationConfig, validate_config
 from ..ops.integrators import rk4ip_step
+from ..parallel.mesh import mesh_device, shard_batch
 from ..parallel.sweep import VALID_ENGINES   # 'torch' is JAX's 'scan', 'cuda' its 'pallas'
 from ..utils.checks import resolve_device
 from ..utils.precision import (dtypes_for, require_f64_leaves, require_non_df32,
@@ -56,8 +57,8 @@ from .gnlse import (  # noqa: F401 -- TimeGrid is part of this module's API, as 
     TimeGrid,
     _finite_mask,
     _kerr_step,
+    _lane_axis,
     _lfft,
-    _reject_mesh,
     _scalar,
     _tensor,
     _times_i,
@@ -576,36 +577,44 @@ def solve_lle_batch(
     - ``'torch'``: the plain torch versions on ``device``.
     - ``'cuda'``: the kernels; a call they do not take raises.
 
-    ``df32`` is Strang rk4 only and runs in float64; ``mesh`` must be None;
-    ``device=None`` means the CUDA card."""
+    ``df32`` is Strang rk4 only and runs in float64; ``device=None`` means
+    the CUDA card.  ``mesh`` (``parallel/mesh.Mesh``) splits the cavities
+    over its slots, one launch a slot, as
+    :func:`~..parallel.sweep.solve_batch` does (a shared phase row put on
+    each device once); ``device`` is then None or one the mesh uses."""
     from ..ops import cuda_lle, cuda_ssfm_adaptive   # they import this module
 
     method, precision, dt, n_steps = _setup(cfg, coeffs)
     if engine not in VALID_ENGINES:
         raise ValueError(f"engine must be one of {VALID_ENGINES}, got {engine!r}")
-    _reject_mesh(mesh)
-    device = resolve_device(device)
+    device = mesh_device(mesh, device)
     if engine == "cuda" and device.type != "cuda":
         raise ValueError(f"engine='cuda' needs a CUDA device, got {device}")
     rdt, cdt = dtypes_for(precision)
     y0 = _state(psi0, 2, cdt, device)
     B, T = y0.shape
-    lanes = lane_coeffs(coeffs, B, T, rdt, device)
-    route = lle_kernel_route(cfg.integrator.lower(), T, rdt, device, engine)
+    det, F, phase = lane_coeffs(coeffs, B, T, rdt, device)
     kw = dict(dt=dt, n_steps=n_steps, save_every=int(cfg.save_every))
     if method in ("rk45", "rk4ip45"):
         kw.update(rtol=float(cfg.rtol), atol=float(cfg.atol), max_steps=int(cfg.max_steps))
+
+    def solve(dev, y0, det, F, phase):
+        route = lle_kernel_route(cfg.integrator.lower(), T, rdt, dev, engine)
         if route == "ssfm_rk45_lle":
-            r = cuda_ssfm_adaptive.solve_lle_batch_rk45_cuda(y0, *lanes, **kw)
-        else:
+            r = cuda_ssfm_adaptive.solve_lle_batch_rk45_cuda(y0, det, F, phase, **kw)
+        elif method in ("rk45", "rk4ip45"):
             r = cuda_ssfm_adaptive.solve_lle_batch_rk45_torch(
-                y0, *lanes, method=_adaptive_family(method), **kw)
-    elif route == "lle_ssfm":
-        r = cuda_lle.solve_lle_batch_cuda(y0, *lanes, **kw)
-    else:
-        r = cuda_lle.solve_lle_batch_torch(y0, *lanes, method=method, **kw)
-    return (_host(r.peak_max.to(torch.float64)), _host(r.A_end.to(torch.complex128)),
-            _host(r.ok))
+                y0, det, F, phase, method=_adaptive_family(method), **kw)
+        elif route == "lle_ssfm":
+            r = cuda_lle.solve_lle_batch_cuda(y0, det, F, phase, **kw)
+        else:
+            r = cuda_lle.solve_lle_batch_torch(y0, det, F, phase, method=method, **kw)
+        return r.peak_max.to(torch.float64), r.A_end.to(torch.complex128), r.ok
+
+    args = (y0, det, F, phase)
+    if mesh is None:
+        return tuple(_host(t) for t in solve(device, *args))
+    return shard_batch(mesh, solve, args, in_axes=(0, 0, 0, _lane_axis(phase)))
 
 
 def solve_lle_batch_trajectories(

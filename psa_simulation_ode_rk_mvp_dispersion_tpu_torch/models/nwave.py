@@ -40,7 +40,8 @@ from ..ops.adaptive import integrate_adaptive_grid
 from ..ops.cuda_adaptive import save_grid
 from ..ops.dispersion import DispersionParams, beta_taylor
 from ..ops.integrators import integrate_fixed_grid
-from ..utils.checks import as_f64, resolve_device
+from ..parallel.mesh import mesh_device, shard_batch
+from ..utils.checks import as_f64, device_key, resolve_device
 from ..utils.precision import dtypes_for, real_dtype, validate_precision
 from ..utils.units import length_scale_to_m
 from ..parallel.sweep import VALID_ENGINES   # 'torch' is JAX's 'scan', 'cuda' its 'pallas'
@@ -111,7 +112,7 @@ def fwm_polarization_dft(a: torch.Tensor) -> torch.Tensor:
     two dense real matrix products over stacked ``[Ar | Ai]`` rows (the
     kernels' sums: ``8 N L`` real multiply-adds per state)."""
     n = a.shape[-1]
-    wf, wi = _dft_mats(int(n), a.real.dtype, str(a.device))
+    wf, wi = _dft_mats(int(n), a.real.dtype, device_key(a.device))
     L = wf.shape[1] // 2
     F = torch.cat([a.real, a.imag], dim=-1) @ wf
     Fr, Fi = F[..., :L], F[..., L:]
@@ -491,24 +492,22 @@ def solve_comb_batch(
     working precision's accumulation floor, which grows with the cascade's
     gain ``gamma P z``: below it, per-line weak powers need ``x64``/``df32``
     (see the JAX docstring for its measured floors).  ``mxu_precision``
-    accepts only 'highest' (API parity); ``mesh`` must be None;
-    ``unroll`` has no effect.  ``device=None`` means the CUDA card.
+    accepts only 'highest' (API parity); ``unroll`` has no effect.
+    ``mesh`` (``parallel/mesh.Mesh``) splits the combs over its slots, one
+    launch a slot, as :func:`~..parallel.sweep.solve_batch` does; ``device``
+    is then None or one the mesh uses.  ``device=None`` means the CUDA card.
     """
     from ..ops import cuda_comb, cuda_comb_adaptive   # they import this module
 
     precision, integrator, dz_m, n_steps, _scale = _prepare(cfg, length_unit, coupling)
     if engine not in VALID_ENGINES:
         raise ValueError(f"engine must be one of {VALID_ENGINES}, got {engine!r}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported: multi-device solves land with ROADMAP slice I "
-            "(torch.distributed batch split)")
     _check_mxu_precision(mxu_precision)
     if precision == "df32" and integrator != "rk4":
         raise ValueError(
             "precision='df32' comb solves are fixed-step rk4 only "
             "(as in the JAX package; use 'x64' for the other integrators)")
-    device = resolve_device(device)
+    device = mesh_device(mesh, device)
     if engine == "cuda" and device.type != "cuda":
         raise ValueError(f"engine='cuda' needs a CUDA device, got {device}")
 
@@ -520,15 +519,22 @@ def solve_comb_batch(
     use_kernel = device.type == "cuda" and engine in ("auto", "cuda")
     if integrator == "rk45":
         kw.update(rtol=float(cfg.rtol), atol=float(cfg.atol), max_steps=int(cfg.max_steps))
-        if use_kernel:
-            r = cuda_comb_adaptive.solve_comb_batch_rk45_cuda(y0, *lanes, **kw)
-        else:
-            r = cuda_comb_adaptive.solve_comb_batch_rk45_torch(y0, *lanes, coupling=coupling, **kw)
     else:
         kw.update(integrator=integrator, check_nan=bool(cfg.check_nan))
-        if use_kernel:
-            r = cuda_comb.solve_comb_batch_cuda(y0, *lanes, **kw)
+
+    def solve(_dev, y0, gamma, alpha, beta_lin):
+        if integrator == "rk45" and use_kernel:
+            r = cuda_comb_adaptive.solve_comb_batch_rk45_cuda(y0, gamma, alpha, beta_lin, **kw)
+        elif integrator == "rk45":
+            r = cuda_comb_adaptive.solve_comb_batch_rk45_torch(y0, gamma, alpha, beta_lin,
+                                                               coupling=coupling, **kw)
+        elif use_kernel:
+            r = cuda_comb.solve_comb_batch_cuda(y0, gamma, alpha, beta_lin, **kw)
         else:
-            r = cuda_comb.solve_comb_batch_torch(y0, *lanes, coupling=coupling, **kw)
-    return (_host(r.P_max.to(torch.float64)), _host(r.A_end.to(torch.complex128)),
-            _host(r.ok))
+            r = cuda_comb.solve_comb_batch_torch(y0, gamma, alpha, beta_lin, coupling=coupling,
+                                                 **kw)
+        return r.P_max.to(torch.float64), r.A_end.to(torch.complex128), r.ok
+
+    if mesh is None:
+        return tuple(_host(t) for t in solve(device, y0, *lanes))
+    return shard_batch(mesh, solve, (y0, *lanes))

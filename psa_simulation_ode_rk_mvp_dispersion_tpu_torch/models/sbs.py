@@ -42,11 +42,11 @@ import torch
 
 from ..config import SimulationConfig, validate_config
 from ..ops.rhs import RHSCoeffs
+from ..parallel.mesh import mesh_device, shard_batch
 from ..utils.checks import resolve_device
 from ..utils.precision import dtypes_for, require_non_df32
 from ..utils.units import length_scale_to_m
 from .fwm4 import make_initial_amplitudes
-from .gnlse import _reject_mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -361,13 +361,16 @@ def run_sbs_batch(
     them alone) while slow lanes keep relaxing.  ``B_init`` (shape (B, S+1,
     4)) warm-starts every lane from a previous call's backward trajectories
     (checkpoint/resume; see :func:`run_sbs_simulation`).  Plain torch on
-    ``device`` (``None``: the CUDA card); ``mesh`` must be None:
-    multi-device solves are not ported yet.
+    ``device`` (``None``: the CUDA card).  ``mesh`` (``parallel/mesh.Mesh``)
+    splits the lanes over its slots, padded to a multiple of them with edge
+    rows; each slot's lanes relax on its device, one slot after another
+    (the relaxation reads its residuals back every sweep), and the results
+    gather back trimmed, each lane's iteration count its own.  ``device``
+    is then None or one the mesh uses.
     """
     max_it = _check_controls(cfg, n_iterations, damping, tol, max_iterations)
     require_non_df32(cfg.precision, family="SBS relaxation")
-    _reject_mesh(mesh)
-    device = resolve_device(device)
+    device = mesh_device(mesh, device)
     scale = length_scale_to_m(length_unit)
     dz_m = float(cfg.dz) * scale
     n_steps = int(round(float(cfg.z_max) * scale / dz_m))
@@ -399,8 +402,12 @@ def run_sbs_batch(
                 f"B_init must have shape (B={nb}, S+1, 4), got {B_init.shape}"
             )
         b_init = _b_init_on_step_grid(B_init, n_steps, int(cfg.save_every))
-    A, Bw, resid, n_it = _solve(cfg, A0, BL, b_init, g, al, db, gb, dz_m, max_it=max_it,
-                                damping=damping, tol=tol, device=device)
+    def solve(dev, A0, BL, b_init, g, al, db, gb):
+        return _solve(cfg, A0, BL, b_init, g, al, db, gb, dz_m, max_it=max_it,
+                      damping=damping, tol=tol, device=dev)
+
+    args = (A0, BL, b_init, g, al, db, gb)
+    A, Bw, resid, n_it = solve(device, *args) if mesh is None else shard_batch(mesh, solve, args)
 
     # batch semantics: NaN instances are flagged, not raised (the per-instance
     # analog of run_sbs_simulation's FloatingPointError)

@@ -35,7 +35,8 @@ co-moving frame
   and run plain torch on their device.
 - ``precision='df32'`` is Strang rk4 only and runs in float64 (the JAX
   package's two-float engine, ``ops/df32_vgnlse.py``, is not ported);
-  ``device=None`` means the CUDA card; ``mesh=`` raises.
+  ``device=None`` means the CUDA card; ``mesh=`` splits a batch over the
+  slots of a ``parallel/mesh.Mesh``.
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ import torch
 from ..config import SimulationConfig, reject_multistep, validate_config
 from ..ops.dispersion import DispersionParams
 from ..ops.integrators import rk4ip_step
+from ..parallel.mesh import mesh_device, shard_batch
 from ..parallel.sweep import VALID_ENGINES   # 'torch' is JAX's 'scan', 'cuda' its 'pallas'
 from ..utils.checks import resolve_device
 from ..utils.precision import dtypes_for, real_dtype, require_f64_leaves, validate_precision
@@ -62,7 +64,6 @@ from .gnlse import (
     _cast_nl,
     _lfft,
     _ndim,
-    _reject_mesh,
     _saved_z,
     _scalar,
     _ssfm_method,
@@ -559,14 +560,17 @@ def solve_vgnlse_batch(
 
     ``nl`` (:func:`~.gnlse.make_nl_terms`) enables Raman and
     self-steepening.  ``df32`` is Strang rk4 only and runs in float64.
-    ``mesh`` must be None; ``device=None`` means the CUDA card."""
+    ``device=None`` means the CUDA card.  ``mesh`` (``parallel/mesh.Mesh``)
+    splits the instances over its slots, one launch a slot, as
+    :func:`~..parallel.sweep.solve_batch` does (shared loss and phase planes
+    and the ``nl`` terms put on each device once); ``device`` is then None
+    or one the mesh uses."""
     from ..ops import cuda_vgnlse   # it imports this module
 
     precision, integrator, dz_m, n_steps, _scale = _prepare(cfg, coeffs, length_unit)
     if engine not in VALID_ENGINES:
         raise ValueError(f"engine must be one of {VALID_ENGINES}, got {engine!r}")
-    _reject_mesh(mesh)
-    device = resolve_device(device)
+    device = mesh_device(mesh, device)
     if engine == "cuda" and device.type != "cuda":
         raise ValueError(f"engine='cuda' needs a CUDA device, got {device}")
     rdt, cdt = dtypes_for(precision)
@@ -574,21 +578,30 @@ def solve_vgnlse_batch(
     B, _, T = y0.shape
     gamma, alpha, b, phase = lane_coeffs(coeffs, B, T, rdt, device)
     coherent = float(coeffs.coherent)
-    nl_t = _cast_nl(nl, rdt, device)
-    route = vgnlse_kernel_route(integrator, nl_t, coherent, T, rdt, device, engine)
-    kw = dict(dz_m=dz_m, n_steps=n_steps, save_every=int(cfg.save_every), nl=nl_t)
-    if integrator in ("rk45", "rk4ip45"):
-        _rows, pk, y, ok, _na, _nr = vgnlse_adaptive(
-            y0, gamma, alpha, b, phase, coherent, rtol=float(cfg.rtol), atol=float(cfg.atol),
-            max_steps=int(cfg.max_steps), method=_adaptive_method(integrator), **kw)
-        r = cuda_vgnlse.VGNLSEBatchResult(peak_max=pk, A_end=y, ok=ok)
-    elif route == "vgnlse_ssfm":
-        r = cuda_vgnlse.solve_vgnlse_batch_cuda(y0, gamma, alpha, b, phase, coherent, **kw)
-    else:
-        r = cuda_vgnlse.solve_vgnlse_batch_torch(y0, gamma, alpha, b, phase, coherent,
-                                                 method=_ssfm_method(integrator), **kw)
-    return (_host(r.peak_max.to(torch.float64)), _host(r.A_end.to(torch.complex128)),
-            _host(r.ok))
+    kw = dict(dz_m=dz_m, n_steps=n_steps, save_every=int(cfg.save_every))
+
+    def solve(dev, y0, gamma, alpha, b, phase, nl_t):
+        route = vgnlse_kernel_route(integrator, nl_t, coherent, T, rdt, dev, engine)
+        if integrator in ("rk45", "rk4ip45"):
+            _rows, pk, y, ok, _na, _nr = vgnlse_adaptive(
+                y0, gamma, alpha, b, phase, coherent, rtol=float(cfg.rtol),
+                atol=float(cfg.atol), max_steps=int(cfg.max_steps),
+                method=_adaptive_method(integrator), nl=nl_t, **kw)
+            r = cuda_vgnlse.VGNLSEBatchResult(peak_max=pk, A_end=y, ok=ok)
+        elif route == "vgnlse_ssfm":
+            r = cuda_vgnlse.solve_vgnlse_batch_cuda(y0, gamma, alpha, b, phase, coherent,
+                                                    nl=nl_t, **kw)
+        else:
+            r = cuda_vgnlse.solve_vgnlse_batch_torch(y0, gamma, alpha, b, phase, coherent,
+                                                     method=_ssfm_method(integrator), nl=nl_t,
+                                                     **kw)
+        return r.peak_max.to(torch.float64), r.A_end.to(torch.complex128), r.ok
+
+    args = (y0, gamma, alpha, b, phase, _cast_nl(nl, rdt, device))
+    if mesh is None:
+        return tuple(_host(t) for t in solve(device, *args))
+    lane = (0 if alpha.ndim != 2 else None), (0 if phase.ndim == 3 else None)
+    return shard_batch(mesh, solve, args, in_axes=(0, 0, lane[0], None, lane[1], None))
 
 
 # ---------------------------------------------------------------------------

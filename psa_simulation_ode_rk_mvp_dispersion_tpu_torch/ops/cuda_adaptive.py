@@ -158,10 +158,11 @@ def solve_batch_rk45_cuda(A0, gamma, alpha, delta_beta, *, dz_m: float, n_steps:
     na = torch.empty((B,), dtype=torch.int32, device=dev)
     nr = torch.empty((B,), dtype=torch.int32, device=dev)
     name = f"fwm4_rk45_{_DTYPE_SUFFIX[rdt]}"
-    err = _launcher(rdt)(
-        coef.data_ptr(), y0.data_ptr(), pmax.data_ptr(), y_last.data_ptr(), ok.data_ptr(),
-        na.data_ptr(), nr.data_ptr(), B, n_chunks, seg_len, tail_len, dt0,
-        float(rtol), float(atol), int(max_steps), torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):   # the C side reads the current card
+        err = _launcher(rdt)(
+            coef.data_ptr(), y0.data_ptr(), pmax.data_ptr(), y_last.data_ptr(), ok.data_ptr(),
+            na.data_ptr(), nr.data_ptr(), B, n_chunks, seg_len, tail_len, dt0,
+            float(rtol), float(atol), int(max_steps), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     _build.LAUNCHES[name] += 1

@@ -46,6 +46,7 @@ import torch
 from . import _build
 from .cuda_solver import _COMPLEX_OF, _DTYPE_SUFFIX, reduce_pmax_last
 from ..models.nwave import NWaveCoeffs, _fft_len, _rhs_of, dft_roots, make_rhs_nwave
+from ..utils.checks import device_key
 
 METHODS = ("rk4", "ab4", "abm4")
 # The plain versions' default coupling: the comb kernels' arithmetic.
@@ -153,7 +154,7 @@ def _pass(z, R: int, ns: int, inv: bool, post=None):
     lead = z.shape[:-2]
     x = z.to(torch.float64).reshape(lead + (2, R, L // R))
     if ns > 1:   # (xr wr - xi wi, xr wi + xi wr) for points 1..R-1
-        wr, wi = _tables(L, ns, inv, str(z.device))
+        wr, wi = _tables(L, ns, inv, device_key(z.device))
         pr, pi = x[..., 1:, :] * wr, x[..., 1:, :] * wi
         turned = torch.stack([pr[..., 0, :, :] - pi[..., 1, :, :],
                               pi[..., 0, :, :] + pr[..., 1, :, :]], -3)
@@ -272,17 +273,18 @@ def solve_comb_batch_cuda(A0, gamma, alpha, beta_lin, *, dz_m: float, n_steps: i
         raise ValueError(f"solve_comb_batch_cuda needs CUDA tensors, got a tensor on {A0.device}")
     dev = A0.device
     L = kernel_length("comb_rk", N, rdt, dev)
-    tw = twiddles(L, torch.float64, str(dev))
+    tw = twiddles(L, torch.float64, device_key(dev))
     y0 = torch.cat([A0.real, A0.imag], dim=1).contiguous()        # (B, 2N)
     pmax = torch.empty((B, N), dtype=rdt, device=dev)
     y_last = torch.empty((B, 2 * N), dtype=rdt, device=dev)
     ok = torch.empty((B,), dtype=torch.uint8, device=dev)
     name = f"comb_{integrator}_{_DTYPE_SUFFIX[rdt]}"
-    err = _launcher(rdt, integrator)(
-        gamma.data_ptr(), alpha.data_ptr(), beta_lin.data_ptr(), tw.data_ptr(), y0.data_ptr(),
-        pmax.data_ptr(), y_last.data_ptr(), ok.data_ptr(), B, N, L, int(n_steps),
-        int(save_every), int(bool(check_nan)), float(dz_m),
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):   # the C side reads the current card
+        err = _launcher(rdt, integrator)(
+            gamma.data_ptr(), alpha.data_ptr(), beta_lin.data_ptr(), tw.data_ptr(), y0.data_ptr(),
+            pmax.data_ptr(), y_last.data_ptr(), ok.data_ptr(), B, N, L, int(n_steps),
+            int(save_every), int(bool(check_nan)), float(dz_m),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     _build.LAUNCHES[f"comb_rk_{_DTYPE_SUFFIX[rdt]}"] += 1

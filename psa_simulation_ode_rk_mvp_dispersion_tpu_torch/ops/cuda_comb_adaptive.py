@@ -46,6 +46,7 @@ from .cuda_adaptive import kernel_segments, rk45_reduce
 from .cuda_comb import (KERNEL_COUPLING, _DTYPE_SUFFIX, check_comb_lanes, kernel_length,
                         plain_rhs, twiddles)
 from ..models.nwave import NWaveCoeffs
+from ..utils.checks import device_key
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,7 +113,7 @@ def solve_comb_batch_rk45_cuda(A0, gamma, alpha, beta_lin, *, dz_m: float, n_ste
     dev = A0.device
     L = kernel_length("comb_rk45", N, rdt, dev)
     n_chunks, seg_len, tail_len, dt0 = kernel_segments(dz_m, n_steps, save_every)
-    tw = twiddles(L, torch.float64, str(dev))
+    tw = twiddles(L, torch.float64, device_key(dev))
     y0 = torch.cat([A0.real, A0.imag], dim=1).contiguous()        # (B, 2N)
     pmax = torch.empty((B, N), dtype=rdt, device=dev)
     y_last = torch.empty((B, 2 * N), dtype=rdt, device=dev)
@@ -120,11 +121,12 @@ def solve_comb_batch_rk45_cuda(A0, gamma, alpha, beta_lin, *, dz_m: float, n_ste
     na = torch.empty((B,), dtype=torch.int32, device=dev)
     nr = torch.empty((B,), dtype=torch.int32, device=dev)
     name = f"comb_rk45_{_DTYPE_SUFFIX[rdt]}"
-    err = _launcher(rdt)(
-        gamma.data_ptr(), alpha.data_ptr(), beta_lin.data_ptr(), tw.data_ptr(), y0.data_ptr(),
-        pmax.data_ptr(), y_last.data_ptr(), ok.data_ptr(), na.data_ptr(), nr.data_ptr(),
-        B, N, L, n_chunks, seg_len, tail_len, dt0, float(rtol), float(atol), int(max_steps),
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):   # the C side reads the current card
+        err = _launcher(rdt)(
+            gamma.data_ptr(), alpha.data_ptr(), beta_lin.data_ptr(), tw.data_ptr(), y0.data_ptr(),
+            pmax.data_ptr(), y_last.data_ptr(), ok.data_ptr(), na.data_ptr(), nr.data_ptr(),
+            B, N, L, n_chunks, seg_len, tail_len, dt0, float(rtol), float(atol), int(max_steps),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     _build.LAUNCHES[name] += 1

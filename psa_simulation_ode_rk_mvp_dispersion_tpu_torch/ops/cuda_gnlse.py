@@ -39,6 +39,7 @@ import torch
 from . import _build
 from .cuda_solver import _COMPLEX_OF, _DTYPE_SUFFIX
 from ..models.gnlse import NLTerms, _lin_factor, _scalar, gnlse_fixed
+from ..utils.checks import device_key
 
 # The widths the kernels take, those of the JAX kernels: T a multiple of 128,
 # at most 128 * 16.
@@ -190,7 +191,7 @@ def solve_gnlse_batch_cuda(A0, gamma, alpha, lin_phase, *, dz_m: float, n_steps:
         raise ValueError(why)
     dev = A0.device
     Lh, Lf, stride = factor_planes(alpha, lin_phase, dz_m, A0)
-    tw = twiddles(T, str(dev))
+    tw = twiddles(T, device_key(dev))
     if nl is not None:
         hrc = torch.complex(nl.hr_re, -nl.hr_im).to(dev).contiguous()
         omega = nl.omega.to(dev, rdt).contiguous()
@@ -201,11 +202,12 @@ def solve_gnlse_batch_cuda(A0, gamma, alpha, lin_phase, *, dz_m: float, n_steps:
     pk = torch.empty((B,), dtype=rdt, device=dev)
     y_last = torch.empty((B, T), dtype=A0.dtype, device=dev)
     ok = torch.empty((B,), dtype=torch.uint8, device=dev)
-    err = _launcher(rdt)(
-        y0.data_ptr(), Lh.data_ptr(), Lf.data_ptr(), stride, gamma.data_ptr(), tw.data_ptr(),
-        hrc.data_ptr(), omega.data_ptr(), pk.data_ptr(), y_last.data_ptr(), ok.data_ptr(), B, T,
-        int(n_steps), int(save_every), int(nl is not None), float(dz_m), f_r, inv_w0,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):   # the C side reads the current card
+        err = _launcher(rdt)(
+            y0.data_ptr(), Lh.data_ptr(), Lf.data_ptr(), stride, gamma.data_ptr(), tw.data_ptr(),
+            hrc.data_ptr(), omega.data_ptr(), pk.data_ptr(), y_last.data_ptr(), ok.data_ptr(), B, T,
+            int(n_steps), int(save_every), int(nl is not None), float(dz_m), f_r, inv_w0,
+            torch.cuda.current_stream(dev).cuda_stream)
     name = f"gnlse_ssfm{'_nl' if nl is not None else ''}_{_DTYPE_SUFFIX[rdt]}"
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")

@@ -36,6 +36,7 @@ from . import _build
 from .cuda_gnlse import GNLSEBatchResult, twiddles, width_problem
 from .cuda_solver import _COMPLEX_OF, _DTYPE_SUFFIX
 from ..models.lle import _det_phase, _drive_offset, _lle_lin_factor, _scalar, lle_fixed
+from ..utils.checks import device_key
 
 
 def check_cavities(psi0, detuning, pump, lin_phase, n_steps, save_every):
@@ -124,16 +125,17 @@ def solve_lle_batch_cuda(psi0, detuning, pump, lin_phase, *, dt: float, n_steps:
     dev = psi0.device
     Lh, Lf, stride = factor_rows(lin_phase, dt, psi0)
     aff = affine_scalars(detuning, pump, dt).to(psi0.dtype).contiguous()
-    tw = twiddles(T, str(dev))
+    tw = twiddles(T, device_key(dev))
     y0 = psi0.contiguous()
     pk = torch.empty((B,), dtype=rdt, device=dev)
     y_last = torch.empty((B, T), dtype=psi0.dtype, device=dev)
     ok = torch.empty((B,), dtype=torch.uint8, device=dev)
     name = f"lle_ssfm_{_DTYPE_SUFFIX[rdt]}"
-    err = _launcher(rdt)(
-        y0.data_ptr(), Lh.data_ptr(), Lf.data_ptr(), stride, aff.data_ptr(), tw.data_ptr(),
-        pk.data_ptr(), y_last.data_ptr(), ok.data_ptr(), B, T, int(n_steps), int(save_every),
-        float(dt), torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):   # the C side reads the current card
+        err = _launcher(rdt)(
+            y0.data_ptr(), Lh.data_ptr(), Lf.data_ptr(), stride, aff.data_ptr(), tw.data_ptr(),
+            pk.data_ptr(), y_last.data_ptr(), ok.data_ptr(), B, T, int(n_steps), int(save_every),
+            float(dt), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     _build.LAUNCHES[name] += 1

@@ -144,9 +144,10 @@ def solve_batch_cuda(A0, gamma, alpha, delta_beta, *, dz_m: float, n_steps: int,
         if not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous")
     fn = _launcher(rdt, integrator)
-    err = fn(coef.data_ptr(), y0.data_ptr(), pmax.data_ptr(), y_last.data_ptr(),
-             ok.data_ptr(), B, int(n_steps), int(save_every), int(bool(check_nan)), float(dz_m),
-             torch.cuda.current_stream(A0.device).cuda_stream)
+    with torch.cuda.device(A0.device):   # the C side reads the current card
+        err = fn(coef.data_ptr(), y0.data_ptr(), pmax.data_ptr(), y_last.data_ptr(),
+                 ok.data_ptr(), B, int(n_steps), int(save_every), int(bool(check_nan)), float(dz_m),
+                 torch.cuda.current_stream(A0.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fwm4_{integrator}_{_DTYPE_SUFFIX[rdt]} launch failed: "
                            f"cudaError {err}")

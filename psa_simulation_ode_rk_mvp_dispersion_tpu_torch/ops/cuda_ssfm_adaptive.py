@@ -44,6 +44,7 @@ from .cuda_gnlse import _DTYPE_SUFFIX, check_envelopes, twiddles, width_problem
 from .cuda_lle import check_cavities
 from ..models.gnlse import NLTerms, gnlse_adaptive, save_segments
 from ..models.lle import lle_adaptive
+from ..utils.checks import device_key
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,7 +100,7 @@ def _launch(route, y0, p0, p1, lin_phase, *, dt, n_steps, save_every, rtol, atol
     rdt = y0.real.dtype
     dev = y0.device
     n_chunks, seg, z_end, has_tail = save_segments(dt, n_steps, save_every)
-    tw = twiddles(T, str(dev))
+    tw = twiddles(T, device_key(dev))
     y0 = y0.contiguous()
     pk = torch.empty((B,), dtype=rdt, device=dev)
     y_last = torch.empty((B, T), dtype=y0.dtype, device=dev)
@@ -107,12 +108,13 @@ def _launch(route, y0, p0, p1, lin_phase, *, dt, n_steps, save_every, rtol, atol
     na = torch.empty((B,), dtype=torch.int32, device=dev)
     nr = torch.empty((B,), dtype=torch.int32, device=dev)
     name = f"{route}_{_DTYPE_SUFFIX[rdt]}"
-    err = _launcher(rdt, route)(
-        y0.data_ptr(), p0.data_ptr(), p1.data_ptr(), lin_phase.data_ptr(),
-        0 if lin_phase.ndim == 1 else T, tw.data_ptr(), pk.data_ptr(), y_last.data_ptr(),
-        ok.data_ptr(), na.data_ptr(), nr.data_ptr(), B, T, n_chunks, seg, z_end,
-        int(has_tail), float(dt), float(rtol), float(atol), int(max_steps),
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):   # the C side reads the current card
+        err = _launcher(rdt, route)(
+            y0.data_ptr(), p0.data_ptr(), p1.data_ptr(), lin_phase.data_ptr(),
+            0 if lin_phase.ndim == 1 else T, tw.data_ptr(), pk.data_ptr(), y_last.data_ptr(),
+            ok.data_ptr(), na.data_ptr(), nr.data_ptr(), B, T, n_chunks, seg, z_end,
+            int(has_tail), float(dt), float(rtol), float(atol), int(max_steps),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     _build.LAUNCHES[name] += 1

@@ -210,9 +210,10 @@ def solve_tangent_cuda(coef, y0, t0, s, *, dz_m: float, n_steps: int):
             raise ValueError("kernel inputs must be contiguous")
     y_end = torch.empty((N_STATE, B), dtype=rdt, device=coef.device)
     t_end = torch.empty((N_STATE, B * D), dtype=rdt, device=coef.device)
-    err = _launcher(rdt)(coef.data_ptr(), y0.data_ptr(), t0.data_ptr(), s.data_ptr(),
-                         y_end.data_ptr(), t_end.data_ptr(), B, D, int(n_steps), float(dz_m),
-                         torch.cuda.current_stream(coef.device).cuda_stream)
+    with torch.cuda.device(coef.device):   # the C side reads the current card
+        err = _launcher(rdt)(coef.data_ptr(), y0.data_ptr(), t0.data_ptr(), s.data_ptr(),
+                             y_end.data_ptr(), t_end.data_ptr(), B, D, int(n_steps), float(dz_m),
+                             torch.cuda.current_stream(coef.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fwm4_tangent_{_DTYPE_SUFFIX[rdt]} launch failed: cudaError {err}")
     _build.LAUNCHES[f"fwm4_tangent_{_DTYPE_SUFFIX[rdt]}"] += 1

@@ -50,6 +50,7 @@ from .cuda_gnlse import MAX_WIDTH, REDUCE_SLOTS, WIDTH_QUANTUM, twiddles
 from .cuda_solver import _COMPLEX_OF, _DTYPE_SUFFIX
 from ..models.gnlse import NLTerms, _scalar
 from ..models.vgnlse import _lin_factor_v, vgnlse_fixed
+from ..utils.checks import device_key
 
 # The nonlinear bodies of csrc/vgnlse_ssfm.cu (its Body enum), and the
 # buffers of T complex values a block of each keeps in shared memory: the
@@ -199,7 +200,7 @@ def solve_vgnlse_batch_cuda(A0, gamma, alpha, b_xpm, lin_phase, coherent: float 
         raise ValueError(why)
     dev = A0.device
     Lh, Lf, stride = factor_planes(alpha, lin_phase, dz_m, A0)
-    tw = twiddles(T, str(dev))
+    tw = twiddles(T, device_key(dev))
     if nl is not None:
         hrc = torch.complex(nl.hr_re, -nl.hr_im).to(dev).contiguous()
         omega = nl.omega.to(dev, rdt).contiguous()
@@ -210,11 +211,12 @@ def solve_vgnlse_batch_cuda(A0, gamma, alpha, b_xpm, lin_phase, coherent: float 
     pk = torch.empty((B, 2), dtype=rdt, device=dev)
     y_last = torch.empty((B, 2, T), dtype=A0.dtype, device=dev)
     ok = torch.empty((B,), dtype=torch.uint8, device=dev)
-    err = _launcher(rdt)(
-        y0.data_ptr(), Lh.data_ptr(), Lf.data_ptr(), stride, gamma.data_ptr(), tw.data_ptr(),
-        hrc.data_ptr(), omega.data_ptr(), pk.data_ptr(), y_last.data_ptr(), ok.data_ptr(), B, T,
-        int(n_steps), int(save_every), BODIES[body], float(dz_m), float(b_xpm),
-        float(coherent), f_r, inv_w0, torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):   # the C side reads the current card
+        err = _launcher(rdt)(
+            y0.data_ptr(), Lh.data_ptr(), Lf.data_ptr(), stride, gamma.data_ptr(), tw.data_ptr(),
+            hrc.data_ptr(), omega.data_ptr(), pk.data_ptr(), y_last.data_ptr(), ok.data_ptr(), B, T,
+            int(n_steps), int(save_every), BODIES[body], float(dz_m), float(b_xpm),
+            float(coherent), f_r, inv_w0, torch.cuda.current_stream(dev).cuda_stream)
     name = f"vgnlse_ssfm{'' if body == 'rotation' else '_' + body}_{_DTYPE_SUFFIX[rdt]}"
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")

@@ -110,7 +110,8 @@ def gain_ripple_monte_carlo(
     ``cfg.z_max / n_segments`` and must hold a whole number of ``cfg.dz``
     steps.  Lane 0 is the fluctuation-free fiber.  Returns per-realization
     signal gains (end-of-fiber convention) and their ensemble statistics.
-    ``device=None`` means the CUDA card; ``mesh`` must be None.
+    ``device=None`` means the CUDA card; ``mesh`` splits each segment's
+    solve over its slots (``parallel/mesh.Mesh``).
     """
     p_in = np.asarray(p_in, dtype=np.float64).reshape(4)
     if phase_in is None:

@@ -34,8 +34,8 @@ span is ONE batched solve over the whole ensemble (one
 ``csrc/gnlse_ssfm.cu`` launch on the card for the fixed-step Strang
 span); the amplifier is a host-side affine map between spans, its ASE
 drawn by the same ``np.random.default_rng`` stream as in the JAX package
-(so the ensemble is the JAX package's, draw for draw).  ``mesh`` must be
-None.
+(so the ensemble is the JAX package's, draw for draw).  ``mesh`` splits
+each span's solve over its slots (``parallel/mesh.Mesh``).
 """
 
 from __future__ import annotations

@@ -53,6 +53,7 @@ from ..ops.rhs import RHSCoeffs, rhs_yaman, rhs_yaman_autonomous, rotating_to_la
 from ..utils.checks import as_f64, resolve_device
 from ..utils.precision import dtypes_for, validate_precision
 from ..utils.units import length_scale_to_m, wavelength_scale
+from .mesh import fetch_global, mesh_device, shard_batch
 
 GainMode = str  # "end" | "max"
 VALID_GAIN_MODES = ("end", "max")
@@ -145,17 +146,14 @@ def _default_progress(done: int, total: int, elapsed: float) -> None:
 
 def _batch_inputs(cfg: SimulationConfig, coeffs: RHSCoeffs, A0, *, frame: str, mesh, device):
     """Validate a batched solve's arguments and put its inputs on its
-    device: ``(device, A0 (B, 4) complex, gamma, alpha, dbeta (B,) real)`` in
-    the dtypes of ``cfg.precision``."""
+    device (with a mesh, this process's first slot): ``(device, A0 (B, 4)
+    complex, gamma, alpha, dbeta (B,) real)`` in the dtypes of
+    ``cfg.precision``."""
     validate_config(cfg)
     reject_non_ode(cfg, "the 4-wave sweep engine")
     if frame not in VALID_FRAMES:
         raise ValueError(f"frame must be one of {VALID_FRAMES}, got {frame!r}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported: multi-device solves land with ROADMAP slice I "
-            "(torch.distributed batch split)")
-    device = resolve_device(device)
+    device = mesh_device(mesh, device)
     rdt, cdt = dtypes_for(validate_precision(cfg.precision))
     if not isinstance(A0, torch.Tensor):
         A0 = torch.from_numpy(np.array(A0))  # a writable copy of any numpy view
@@ -199,9 +197,12 @@ def solve_batch(
     ``cfg.integrator`` picks the kernel: ``fwm4_rk.cu`` for rk4/ab4/abm4,
     ``fwm4_rk45.cu`` for rk45 (with ``cfg.rtol``/``atol``/``max_steps``;
     ``check_nan`` does not apply, the adaptive solve always masks a failed
-    lane).  ``device=None`` means the CUDA card.  ``mesh`` must be None:
-    multi-device solves are not ported yet.  ``unroll`` (the JAX scan's
-    unroll factor) is accepted for API parity and has no effect.
+    lane).  ``device=None`` means the CUDA card.  ``mesh``
+    (``parallel/mesh.Mesh``) splits the batch over its slots: padded to a
+    multiple of them, one launch a slot on the slot's device, every launch
+    before any fetch, gathered and trimmed; ``device`` is then None or one
+    the mesh uses.  ``unroll`` (the JAX scan's unroll factor) is accepted
+    for API parity and has no effect.
     """
     if engine not in VALID_ENGINES:
         raise ValueError(f"engine must be one of {VALID_ENGINES}, got {engine!r}")
@@ -231,7 +232,7 @@ def solve_batch(
             sub = solve_batch(
                 cfg,
                 RHSCoeffs(gamma=padded(gamma), alpha=padded(alpha), delta_beta=padded(dbeta)),
-                padded(A0), frame=frame, engine=engine, device=device,
+                padded(A0), frame=frame, mesh=mesh, engine=engine, device=device,
             )
             parts.append((sub, e - s))
             progress(e, B, time.perf_counter() - t0)
@@ -248,29 +249,35 @@ def solve_batch(
     n_steps = int(round(cfg.z_max / cfg.dz))
     kw = dict(dz_m=float(cfg.dz), n_steps=n_steps, save_every=int(cfg.save_every))
     use_kernel = frame == "rotating" and device.type == "cuda" and engine in ("auto", "cuda")
-    t0 = time.perf_counter()
     if integrator == "rk45":
         kw.update(rtol=float(cfg.rtol), atol=float(cfg.atol), max_steps=int(cfg.max_steps))
-        if frame == "rotating":
-            solve = solve_batch_rk45_cuda if use_kernel else solve_batch_rk45_torch
-            r = solve(A0, gamma, alpha, dbeta, **kw)
-            pmax, A_end, ok = r.P_max, r.A_end, r.ok
-        else:
-            pmax, A_end, ok, _na, _nr = rk45_reduce(
-                rhs_yaman, A0, RHSCoeffs(gamma, alpha, dbeta), **kw)
     else:
         kw.update(integrator=integrator, check_nan=bool(cfg.check_nan))
+
+    def solve(_dev, A0, gamma, alpha, dbeta):
+        """One launch (or plain solve) over the rows given, not fetched."""
         if frame == "rotating":
-            solve = solve_batch_cuda if use_kernel else solve_batch_torch
-            r = solve(A0, gamma, alpha, dbeta, **kw)
+            if integrator == "rk45":
+                solver = solve_batch_rk45_cuda if use_kernel else solve_batch_rk45_torch
+            else:
+                solver = solve_batch_cuda if use_kernel else solve_batch_torch
+            r = solver(A0, gamma, alpha, dbeta, **kw)
             pmax, A_end, ok = r.P_max, r.A_end, r.ok
+        elif integrator == "rk45":
+            pmax, A_end, ok, _na, _nr = rk45_reduce(
+                rhs_yaman, A0, RHSCoeffs(gamma, alpha, dbeta), **kw)
         else:
             pmax, A_end, ok = reduce_pmax_last(
                 rhs_yaman, A0, RHSCoeffs(gamma, alpha, dbeta), **kw)
-    # host result assembly: one copy of each summary
-    pmax = pmax.to(torch.float64).cpu().numpy()
-    A_end = A_end.to(torch.complex128).cpu().numpy()
-    ok = ok.cpu().numpy()
+        return pmax.to(torch.float64), A_end.to(torch.complex128), ok
+
+    t0 = time.perf_counter()
+    # host result assembly: one copy of each summary (a mesh: each shard's,
+    # after every shard was launched)
+    if mesh is None:
+        pmax, A_end, ok = (t.cpu().numpy() for t in solve(device, A0, gamma, alpha, dbeta))
+    else:
+        pmax, A_end, ok = shard_batch(mesh, solve, (A0, gamma, alpha, dbeta))
     elapsed = time.perf_counter() - t0
     # not-ok lanes are frozen at their last finite state, which can be large
     # enough that |A|^2 overflows to inf -- fine (the ok mask governs use)
@@ -302,34 +309,43 @@ def solve_batch_trajectories(
     ``cfg.integrator`` may be 'rk4', 'ab4', 'abm4' or 'rk45'.  Plain torch
     on ``device`` (``None``: the CUDA card): neither package has a kernel
     for this mode.  ``df32`` runs in float64 (the JAX package refuses it
-    here: it has no two-float trajectory engine).  ``mesh`` must be None;
-    ``unroll`` is accepted for API parity and has no effect.
+    here: it has no two-float trajectory engine).  ``mesh`` splits the
+    batch over its slots as in :func:`solve_batch` (the trajectories gather
+    back to the host); ``unroll`` is accepted for API parity and has no
+    effect.
     """
-    _device, A0, gamma, alpha, dbeta = _batch_inputs(cfg, coeffs, A0, frame=frame, mesh=mesh,
-                                                     device=device)
-    params = RHSCoeffs(gamma, alpha, dbeta)
+    device, A0, gamma, alpha, dbeta = _batch_inputs(cfg, coeffs, A0, frame=frame, mesh=mesh,
+                                                    device=device)
     rhs = rhs_yaman if frame == "lab" else rhs_yaman_autonomous
     n_steps = int(round(cfg.z_max / cfg.dz))
     save_every = int(cfg.save_every)
-    if cfg.integrator.lower() == "rk45":
-        # the trailing n_steps % save_every span (z_final): integrated, unsaved, ok only
-        z_grid, z_final = save_grid(float(cfg.dz), n_steps, save_every)
-        res = integrate_adaptive_grid(
-            rhs, A0, params, z_grid=z_grid, z_final=z_final, rtol=float(cfg.rtol),
-            atol=float(cfg.atol), max_steps_per_segment=int(cfg.max_steps), batch_ndim=1,
-        )
-        z_out = z_grid
-    else:
-        res = integrate_fixed_grid(
-            rhs, A0, params, z0=0.0, dz=float(cfg.dz), n_steps=n_steps, save_every=save_every,
-            check_nan=bool(cfg.check_nan), method=cfg.integrator.lower(), batch_ndim=1,
-        )
-        z_out = res.z_saved.to(torch.float64).cpu().numpy()
-    y_saved = res.y_saved
-    if frame == "rotating":
-        y_saved = rotating_to_lab(res.z_saved, y_saved,
-                                  RHSCoeffs(None, None, params.delta_beta[:, None]))
-    return z_out, y_saved.to(torch.complex128).cpu().numpy(), res.ok.cpu().numpy()
+
+    def solve(_dev, A0, gamma, alpha, dbeta):
+        params = RHSCoeffs(gamma, alpha, dbeta)
+        if cfg.integrator.lower() == "rk45":
+            # the trailing n_steps % save_every span (z_final): integrated, unsaved, ok only
+            z_grid, z_final = save_grid(float(cfg.dz), n_steps, save_every)
+            res = integrate_adaptive_grid(
+                rhs, A0, params, z_grid=z_grid, z_final=z_final, rtol=float(cfg.rtol),
+                atol=float(cfg.atol), max_steps_per_segment=int(cfg.max_steps), batch_ndim=1,
+            )
+            z_out = z_grid
+        else:
+            res = integrate_fixed_grid(
+                rhs, A0, params, z0=0.0, dz=float(cfg.dz), n_steps=n_steps,
+                save_every=save_every, check_nan=bool(cfg.check_nan),
+                method=cfg.integrator.lower(), batch_ndim=1,
+            )
+            z_out = res.z_saved.to(torch.float64)
+        y_saved = res.y_saved
+        if frame == "rotating":
+            y_saved = rotating_to_lab(res.z_saved, y_saved,
+                                      RHSCoeffs(None, None, params.delta_beta[:, None]))
+        return z_out, y_saved.to(torch.complex128), res.ok
+
+    if mesh is None:
+        return tuple(fetch_global(t) for t in solve(device, A0, gamma, alpha, dbeta))
+    return shard_batch(mesh, solve, (A0, gamma, alpha, dbeta), out_axes=(None, 0, 0))
 
 
 # ---------------------------------------------------------------------------
@@ -435,7 +451,8 @@ def gain_and_dbeta_spectrum(
     (``scan_mismtach.py:588-783``).
 
     All B wavelength points integrate in one batched solve on ``device``
-    (``None``: the CUDA card); ``engine`` as in :func:`solve_batch`.
+    (``None``: the CUDA card); ``engine`` and ``mesh`` as in
+    :func:`solve_batch`.
     """
     validate_config(cfg)
     reject_non_ode(cfg, "the 4-wave sweep engine")
@@ -453,7 +470,7 @@ def gain_and_dbeta_spectrum(
         raise ValueError("p_in[2] (signal seed power) must be > 0 to define gain")
     ph0 = _to_phase_array(phase_in)
 
-    device = resolve_device(device)
+    device = mesh_device(mesh, device)
     scale_to_m = length_scale_to_m(length_unit)
 
     disp_m = dispersion.scaled(scale_to_m).to(device) if dispersion is not None else None
@@ -569,7 +586,7 @@ def mismatch_scan(
     batched realization of the reference's stale ``scan_mismatch_seeded_signal``
     (``scan_mismtach.py:43-259``).  Gs = P3_metric/P3(0), Gi = P4_metric/P3(0)
     (the idler normalized to the signal seed, since its own seed may be 0).
-    ``device`` (``None``: the CUDA card) and ``engine`` as in
+    ``device`` (``None``: the CUDA card), ``engine`` and ``mesh`` as in
     :func:`solve_batch`."""
     validate_config(cfg)
     reject_non_ode(cfg, "the 4-wave sweep engine")
@@ -645,7 +662,7 @@ def psa_phase_sweep(
     if p0[2] <= 0.0:
         raise ValueError("p_in[2] (signal seed power) must be > 0 to define gain")
     ph_base = _to_phase_array(base_phase_in)
-    device = resolve_device(device)
+    device = mesh_device(mesh, device)
 
     scale_to_m = length_scale_to_m(length_unit)
     if phase_matching_cfg is not None or dispersion is not None:
@@ -712,7 +729,8 @@ def gain_map_power_wavelength(
 ) -> GainMapResult:
     """2-D scan: (pump power) x (signal wavelength) -> gain map, every cell
     in one batched solve on ``device`` (``None``: the CUDA card) --
-    BASELINE.json config 4.  Cell ``(ip, il)`` is instance ``ip * Nl + il``.
+    BASELINE.json config 4 (``mesh`` as in :func:`solve_batch`).  Cell
+    ``(ip, il)`` is instance ``ip * Nl + il``.
     Persist it with ``io_fwm.save_gain_map_npz``."""
     validate_config(cfg)
     reject_non_ode(cfg, "the 4-wave sweep engine")
@@ -725,7 +743,7 @@ def gain_map_power_wavelength(
     if p_sig <= 0:
         raise ValueError("p_seed[0] (signal seed) must be > 0 to define gain")
     ph0 = _to_phase_array(phase_in)
-    device = resolve_device(device)
+    device = mesh_device(mesh, device)
 
     scale_to_m = length_scale_to_m(length_unit)
     disp_m = dispersion.scaled(scale_to_m).to(device) if dispersion is not None else None

@@ -26,6 +26,17 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+def device_key(device) -> str:
+    """The name of one device, for a cache keyed by device: a CUDA device
+    with its index (a bare ``cuda`` is the current card), so that ``cuda``
+    and ``cuda:0`` share an entry and no entry names whichever card is
+    current."""
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return str(d)
+
+
 def as_f64(x: Any, device=None) -> torch.Tensor:
     """A float64 tensor of ``x``.  A tensor keeps its device; anything else
     (Python or numpy scalars and arrays) lands on ``device``, where ``None``

@@ -132,8 +132,36 @@ def test_zero_arguments_are_the_spectrum_dbeta_demo_on_the_card(monkeypatch):
     assert len(calls) == 1
 
 
+def test_shard_runs_the_sweep_over_the_mesh(tmp_path, monkeypatch):
+    """``--shard`` builds ``default_mesh`` over the cards of ``--device``
+    and hands it to the experiment.  On the CPU that is one slot, so no
+    mesh (as one card is in the JAX package), and the files are the
+    unsharded run's; a mesh of 3 CPU slots writes the same gains too
+    (rtol 1e-12, the sweep's sharded-vs-unsharded bar)."""
+    from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.parallel import mesh as pm
+
+    common = ["--device", "cpu", "--no-show", "--quiet"]
+
+    def spectrum(name, *extra):
+        assert cli.main(common + ["--save-dir", str(tmp_path / name), *extra, "spectrum",
+                                  "--points", "7"]) == 0
+        return tio.load_sweep_npz(tmp_path / name / "gain_spectrum.npz")
+
+    plain = spectrum("plain")
+    made = []
+    real = pm.default_mesh
+    monkeypatch.setattr(pm, "default_mesh", lambda **kw: made.append(kw) or real(**kw))
+    one = spectrum("one-slot", "--shard")
+    monkeypatch.setattr(pm, "default_mesh", lambda **kw: made.append(kw) or real(3, **kw))
+    three = spectrum("three-slots", "--shard")
+    assert made == [{"device": "cpu"}] * 2
+    for g, p, t in zip(one[:4], plain[:4], three[:4]):
+        np.testing.assert_array_equal(g, p)
+        if p is not None:
+            np.testing.assert_allclose(t, p, rtol=1e-12)
+
+
 @pytest.mark.parametrize("argv, says", [
-    (["--shard", "spectrum"], "ROADMAP item 17"),
     (["--integrator", "rk45", "sbs"], "not honored by 'sbs'"),
     (["--integrator", "rk4", "comb"], "--comb-integrator"),
     (["--integrator", "rk4", "fit-gain", "a.npz"], "not honored by 'fit-gain'"),
@@ -196,6 +224,6 @@ except SystemExit as e:
                 "plotting", "utils.debug", "utils.observability", "parallel.sweep",
                 "parallel.noise", "parallel.fluctuations", "parallel.link",
                 "experiments.noise", "experiments.fluctuations", "parallel.calibrate",
-                "experiments.fitting", "ops.cuda_tangent"):
+                "experiments.fitting", "ops.cuda_tangent", "parallel.mesh"):
         assert f"{PKG}.{sub}" in imported, sub
     assert "usage: psa-torch" in out.stdout

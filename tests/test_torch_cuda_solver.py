@@ -134,7 +134,7 @@ def test_kernel_path_refuses_cpu_and_bad_inputs():
         tsweep.solve_batch(cfg, coeffs, A0, engine="cuda", device="cpu")
     with pytest.raises(ValueError, match="engine"):
         tsweep.solve_batch(cfg, coeffs, A0, engine="pallas", device="cpu")
-    with pytest.raises(NotImplementedError, match="slice I"):
+    with pytest.raises(TypeError, match="mesh must be"):
         tsweep.solve_batch(cfg, coeffs, A0, mesh=object(), device="cpu")
     assert dict(_build.LAUNCHES) == launches
 

@@ -178,15 +178,16 @@ def test_family_experiments_match_jax(tmp_path, name, kw, bar):
 
 
 def test_what_waits_for_a_later_slice_raises():
-    """Multi-device solves (ROADMAP item 17) raise, in the Monte-Carlo
-    experiments too; nothing is skipped silently.  The Monte-Carlo
+    """A mesh that is not the port's (``parallel/mesh.Mesh``) raises a
+    TypeError, in the Monte-Carlo experiments too; nothing is skipped
+    silently.  The Monte-Carlo
     experiments (item 15) and the calibration experiment ``fit_gain``
     (item 16) are exported with the JAX package's names."""
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh must be"):
         TE.supercontinuum(mesh=object(), n_samples=256, show=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh must be"):
         TE.gain_spectrum(n_points=2, mesh=object(), show=False, verbose=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh must be"):
         TE.squeezing(n_samples=16, z_max_m=1.0, mesh=object(), show=False, verbose=False,
                      device="cpu")
     assert hasattr(TE, "fit_gain") and "fit_gain" in TE.__all__

@@ -112,9 +112,23 @@ def test_validation_matches_jax(case):
     assert str(et.value) == str(ej.value)
 
 
+def test_sharded_ensemble_is_the_unsharded_one():
+    """A mesh of 3 CPU slots splits each segment's solve (7 lanes padded to
+    9); the draws stay on the host, in the same order, so the ensemble is
+    the unsharded one, at the bars of the comparison with the JAX package."""
+    _, ct = cfgs(**_cfg_kw())
+    kw = dict(gamma=GAMMA, alpha=1e-4, p_in=P_IN, delta_beta_mean=0.05, sigma_dbeta=0.01,
+              n_segments=8, n_realizations=7, seed=2)
+    plain = TF.gain_ripple_monte_carlo(ct, device="cpu", **kw)
+    sharded = TF.gain_ripple_monte_carlo(ct, mesh=T.mesh_utils.default_mesh(3, device="cpu"),
+                                         **kw)
+    compare(sharded, plain)
+    assert sharded.gain_db.shape == plain.gain_db.shape
+
+
 def test_mesh_is_refused():
     _, ct = cfgs(**_cfg_kw())
-    with pytest.raises(NotImplementedError, match="mesh= is not ported"):
+    with pytest.raises(TypeError, match="mesh must be"):
         TF.gain_ripple_monte_carlo(ct, gamma=GAMMA, alpha=0.0, p_in=P_IN, delta_beta_mean=0.0,
                                    sigma_dbeta=0.01, n_segments=8, n_realizations=4,
                                    mesh=object(), device="cpu")

@@ -359,7 +359,7 @@ def test_every_error_the_jax_module_raises():
         tl.solve_lle_batch(tcfg, tc, psi0[None], engine="pallas", device="cpu")
     with pytest.raises(ValueError, match="CUDA device"):
         tl.solve_lle_batch(tcfg, tc, psi0[None], engine="cuda", device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh must be"):
         tl.solve_lle_batch(tcfg, tc, psi0[None], mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="lin_phase"):
         tl.solve_lle_batch(tcfg, tc, np.zeros((2, 128), complex), device="cpu")

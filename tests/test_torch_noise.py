@@ -27,7 +27,7 @@ to the JAX package (x64) at the solvers' own tolerance, field by field:
 ``precision='df32'`` runs float64 in the port (the JAX package's two-float
 tier has no port) and is held to JAX x64 at the same bars.  The errors the
 JAX functions raise, the port raises with the same type and message; a
-``mesh`` is refused (multi-device solves are ROADMAP item 17).
+``mesh`` that is not a ``parallel/mesh.Mesh`` raises a TypeError.
 """
 
 import dataclasses
@@ -263,7 +263,7 @@ def test_validation_matches_jax(case):
 ])
 def test_mesh_is_refused(name, kw):
     _, ct = cfgs(z_max=5.0, dz=0.05, save_every=50)
-    with pytest.raises(NotImplementedError, match="mesh= is not ported"):
+    with pytest.raises(TypeError, match="mesh must be"):
         getattr(TN, name)(ct, mesh=object(), device="cpu", **kw)
 
 

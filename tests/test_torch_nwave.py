@@ -180,7 +180,7 @@ def test_solve_comb_batch_refusals():
         tn.solve_comb_batch_trajectories(df32, coeffs, A0, device="cpu")
     with pytest.raises(ValueError, match="rk4 only"):
         tn.solve_comb_batch(dataclasses.replace(df32, integrator="rk45"), coeffs, A0, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice I"):
+    with pytest.raises(TypeError, match="mesh must be"):
         tn.solve_comb_batch(cfg, coeffs, A0, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="engine"):
         tn.solve_comb_batch(cfg, coeffs, A0, engine="pallas", device="cpu")

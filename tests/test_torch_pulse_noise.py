@@ -13,7 +13,8 @@ held normwise, within 1e-9 of their largest value (``n_mean``, and
 a ratio of two near-zero moments, and a noiseless pump's a small
 variance over a large mean).  Small sizes: T = 32-128 samples, 32-160 lanes, a
 fraction of a soliton period.  Each function's errors are the JAX
-function's, and a ``mesh`` is refused.
+function's, and a ``mesh`` that is not a ``parallel/mesh.Mesh`` is
+refused with a TypeError.
 """
 
 import numpy as np
@@ -310,5 +311,5 @@ def test_validation_matches_jax(case):
 ])
 def test_mesh_is_refused(call, name):
     kw = dict(pair=(1, 2)) if name == "comb_pair_squeezing_monte_carlo" else {}
-    with pytest.raises(NotImplementedError, match="mesh= is not ported"):
+    with pytest.raises(TypeError, match="mesh must be"):
         call(T, TN, name, n_samples=16, mesh=object(), device="cpu", **kw)

@@ -238,7 +238,7 @@ def test_df32_rejected_with_clear_error():
 
 def test_mesh_raises():
     cfg = T.custom_simulation_config(z_max=1.0, dz=0.1)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh must be"):
         sbs.run_sbs_batch(cfg, gamma=1e-3, alpha=0.0, g_B=0.01, delta_beta=0.0,
                           P_in=[[0.1, 0.1, 0.0, 0.0]], P_stokes_seed=[[1e-5] * 4],
                           mesh=object(), device="cpu")

@@ -35,7 +35,7 @@ MODULES = [
     "experiments.fwm4", "experiments.comb", "experiments.lle", "experiments.pulses",
     "experiments.sbs", "models.sbs", "plotting", "utils.observability", "utils.debug",
     "parallel.noise", "parallel.fluctuations", "parallel.link", "experiments.noise",
-    "experiments.fluctuations", "parallel.calibrate", "experiments.fitting",
+    "experiments.fluctuations", "parallel.calibrate", "experiments.fitting", "parallel.mesh",
 ]
 EXTRAS = {"device"}
 MODULE_EXTRAS = {"ops.integrators": {"batch_ndim", "comp"}, "ops.adaptive": {"batch_ndim"}}

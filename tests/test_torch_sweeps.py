@@ -158,7 +158,7 @@ def test_solve_batch_trajectories_x32_and_refusals():
                                      co, A0, device="cpu")[1]
     assert z.shape == (5,) and ok.all()
     np.testing.assert_allclose(A, ref, rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh must be"):
         T.solve_batch_trajectories(cfg, co, A0, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="frame"):
         T.solve_batch_trajectories(cfg, co, A0, frame="moving", device="cpu")

@@ -431,7 +431,7 @@ def test_validation():
     A0 = np.stack([A, A])[None]
     with pytest.raises(ValueError, match="engine"):
         tv.solve_vgnlse_batch(cfg, tc, A0, engine="scan", device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh must be"):
         tv.solve_vgnlse_batch(cfg, tc, A0, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="CUDA"):
         tv.solve_vgnlse_batch(cfg, tc, A0, engine="cuda", device="cpu")
