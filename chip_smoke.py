@@ -203,7 +203,10 @@ Phases (any failure raises, and the script exits non-zero):
     the gradient, the pump-RIN and phase transfers, the pulse model and its
     spectrum fit at ``PULSE_FIT_STEPS`` adam steps), K1t against its plain
     version at ``fit-gain``'s width (200 lanes x 500 steps, 3 fit and 8
-    launch directions), and its times.
+    launch directions), each of its two designs (a lane-direction on 4
+    threads or on 1) against the plain version and the two against each
+    other bit for bit, its times, and the A/B of the designs at
+    ``TANGENT_WIDTHS`` (``tangent_designs``).
 30. the batch split over a mesh on the card (``mesh_phases``): the main
     path at full width through 2 slots of the card, one K1 and one K3
     launch a shard, held to the unsharded call (rtol 1e-10, ``ok`` equal)
@@ -2541,13 +2544,13 @@ PULSE_FIT_STEPS = 100
 TANGENT_RHS_FLOP = 238
 
 
-def tangent_lanes(rdt, dev, state):
-    """K1t's inputs at ``fit-gain``'s width: ``(coef (3, B), y0 (8, B), t0,
-    s)`` of the default ``mismatch`` sweep (delta beta +-40 1/km) with the 3
-    fit directions, or the 8 launch directions with ``state``."""
+def tangent_lanes(rdt, dev, state, B=FIT_B):
+    """K1t's inputs at ``fit-gain``'s width (or ``B`` lanes): ``(coef (3,
+    B), y0 (8, B), t0, s)`` of the default ``mismatch`` sweep (delta beta
+    +-40 1/km) with the 3 fit directions, or the 8 launch directions with
+    ``state``."""
     from psa_simulation_ode_rk_mvp_dispersion_tpu_torch.ops import cuda_tangent as ct
 
-    B = FIT_B
     coef = torch.tensor(np.stack([np.full(B, 0.01), np.zeros(B), np.linspace(-0.04, 0.04, B)]),
                         dtype=rdt, device=dev)
     a = np.sqrt([0.1, 0.1, 1e-5, 0.0])
@@ -2555,6 +2558,100 @@ def tangent_lanes(rdt, dev, state):
                       dtype=rdt, device=dev)
     t0, s = ct.directions(B, coef=not state, state=state, dtype=rdt, device=dev)
     return coef, y0, t0, s
+
+
+# K1t's A/B: (lanes, directions) -- fit-gain's width, the launch transfers',
+# and wider fits on each side of the kernel's kLaneDirsPerSM = 64 (2,800 x 3
+# is 63.6 an H100 SM, 3,000 x 3 68.2).
+TANGENT_WIDTHS = ((200, 3), (200, 8), (2_000, 3), (2_800, 3), (3_000, 3), (5_000, 3),
+                  (10_000, 3))
+
+
+def tangent_flop(rdt, B, D, steps=FIT_STEPS):
+    """What K1t's function needs: the state's RK4 once a lane and the
+    tangent's once a lane and direction (the kernel repeats the state in
+    each direction: its design, not work the function needs)."""
+    return steps * (B * RK4_STEP_FLOP[rdt] + B * D * (4 * TANGENT_RHS_FLOP + 88 + 8))
+
+
+def tangent_designs(ct, dev, card, plain=None):
+    """K1t's two designs, a lane-direction on a group of 4 threads
+    (``_g4``) and on one (``_g1``), each through its own launcher:
+
+    1. at ``fit-gain``'s width, 3 fit and 8 launch directions, each design
+       against the plain fp64 version on the card (fp64 within 1e-11 of each
+       lane's largest state value and 1e-10 normwise a tangent; fp32 within
+       1e-4; ``plain[state]`` if given, its run on ``tangent_lanes``'
+       inputs, else run here) and the group against the one thread bit for
+       bit;
+    2. the A/B: each design's time (median of 5 warm reps, host clock with
+       synchronize) at ``TANGENT_WIDTHS``, fp64 and fp32, and the design
+       ``solve_tangent_cuda`` takes there (``ct.group_size``).
+
+    Returns the A/B's readings ``{(B, D, dtype, group): ms}``; raises after
+    logging if a hold failed."""
+    failed = []
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for state in (False, True):
+        coef, y0, t0_, s = tangent_lanes(torch.float64, dev, state)
+        B = coef.shape[1]
+        D = t0_.shape[1] // B
+        y_p, t_p = plain[state] if plain else ct.solve_tangent_torch(
+            coef, y0, t0_, s, dz_m=FIT_DZ, n_steps=FIT_STEPS)
+        for rdt, bar_y, bar_t in ((torch.float64, 1e-11, 1e-10), (torch.float32, 1e-4, 1e-4)):
+            args = [x.to(rdt).contiguous() for x in (coef, y0, t0_, s)]
+            out = {g: ct.solve_tangent_design(*args, dz_m=FIT_DZ, n_steps=FIT_STEPS, group=g)
+                   for g in (1, 4)}
+            torch.cuda.synchronize()
+            same = torch.equal(out[4][0], out[1][0]) and torch.equal(out[4][1], out[1][1])
+            errs = []
+            for g, (y_k, t_k) in out.items():
+                ey = float(((y_k.double() - y_p).abs().amax(dim=0)
+                            / y_p.abs().amax(dim=0)).max())
+                tk, tp = t_k.double().reshape(8, D, B), t_p.reshape(8, D, B)
+                et = float(((tk - tp).norm(dim=0) / tp.norm(dim=0)).max())
+                errs.append(f"G={g} state {ey:.3e}, tangents {et:.3e}")
+                if not (ey <= bar_y and et <= bar_t and bool(torch.isfinite(t_k).all())):
+                    failed.append(f"G={g} {suffix(rdt)} D={D} against the plain version")
+            if not same:
+                diff = max(float((out[4][i] - out[1][i]).abs().max()) for i in (0, 1))
+                failed.append(f"G=4 against G=1 {suffix(rdt)} D={D}: max diff {diff:.3e}")
+            log(f"  K1t designs vs plain fp64 on the card, {B} lanes x {D} directions x "
+                f"{FIT_STEPS} steps, {suffix(rdt)} (bars {bar_y:g} / {bar_t:g}): "
+                f"{'; '.join(errs)}; G=4 vs G=1 {'bit for bit' if same else 'NOT bit for bit'}")
+
+    ab = {}
+    log(f"  K1t A/B on {card}, {FIT_STEPS} steps (median of {REPS} warm reps, host clock with "
+        "synchronize; ms, and the share of the bound):")
+    for B, D in TANGENT_WIDTHS:
+        for rdt in (torch.float64, torch.float32):
+            args = [x.to(rdt).contiguous() for x in tangent_lanes(rdt, dev, D == 8, B)]
+            t_bound = tangent_flop(rdt, B, D) / PEAK_FLOPS[rdt] * 1e3
+            for g in (1, 4):
+                ab[B, D, rdt, g] = 1e3 * timed(lambda: ct.solve_tangent_design(
+                    *args, dz_m=FIT_DZ, n_steps=FIT_STEPS, group=g))
+            g1, g4 = ab[B, D, rdt, 1], ab[B, D, rdt, 4]
+            log(f"    {B} x {D} ({B * D / sms:.1f} lane-directions an SM), "
+                f"{suffix(rdt)}: G=1 {g1:.4f} ms ({100 * t_bound / g1:.2f}%); "
+                f"G=4 {g4:.4f} ms ({100 * t_bound / g4:.2f}%, {g1 / g4:.3f}x G=1); "
+                f"bound {t_bound:.4f} ms; taken by width: G={ct.group_size(B * D)}")
+    if failed:
+        raise AssertionError("K1t designs: " + "; ".join(failed))
+    return ab
+
+
+def fit_gain_seconds(psa, C, delta_beta, gain_db, dev, steps):
+    """Wall time of ``C.fit_gain_curve`` at ``fit-gain``'s settings (500 m
+    in steps of 1 m, pumps of 0.1 W, a 1e-5 W signal, gamma from 8e-3) over
+    ``steps`` adam steps on ``dev``, synchronized; ``psa`` and ``C`` are the
+    package and its ``parallel.calibrate`` under test."""
+    t1 = time.perf_counter()
+    C.fit_gain_curve(psa.custom_simulation_config(z_max=FIT_STEPS * FIT_DZ, dz=FIT_DZ),
+                     delta_beta_grid=delta_beta, measured_gain_db=gain_db,
+                     p_in=[0.1, 0.1, 1e-5, 0.0], init=dict(gamma=8e-3), steps=steps,
+                     tol_db=0.0, device=dev)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t1
 
 
 def calibration_phases(psa, _build, card, t_start, rec):
@@ -2586,7 +2683,8 @@ def calibration_phases(psa, _build, card, t_start, rec):
        (200 lanes x 500 steps), 3 fit directions and 8 launch directions:
        fp64 state within 1e-11 of each lane's largest value and tangents
        within 1e-10 normwise a lane and direction, fp32 within 1e-4 of the
-       fp64 plain version;
+       fp64 plain version; then each design alone and the A/B
+       (``tangent_designs``);
     4. times: K1t at that width (median of 5 warm reps), one adam step end
        to end at ``fit-gain``'s width (a 60-step fit less a 10-step one,
        over 50), the plain version once.
@@ -2809,11 +2907,13 @@ def calibration_phases(psa, _build, card, t_start, rec):
         raise AssertionError("the pulse model or its spectrum fit misses test_calibrate's bars")
 
     # 3: K1t against its plain version at fit-gain's width
+    plain = {}
     for state in (False, True):
         coef, y0, t0_, s = tangent_lanes(torch.float64, dev, state)
         D = t0_.shape[1] // FIT_B
         t1 = time.perf_counter()
-        y_p, t_p = ct.solve_tangent_torch(coef, y0, t0_, s, dz_m=FIT_DZ, n_steps=FIT_STEPS)
+        y_p, t_p = plain[state] = ct.solve_tangent_torch(coef, y0, t0_, s, dz_m=FIT_DZ,
+                                                         n_steps=FIT_STEPS)
         torch.cuda.synchronize()
         if not state:
             plain_ms[k64] = plain_ms[k32] = 1e3 * (time.perf_counter() - t1)
@@ -2832,6 +2932,7 @@ def calibration_phases(psa, _build, card, t_start, rec):
                 f"state {ey:.3e} (bar {bar_y:g}), tangents {et:.3e} (bar {bar_t:g})")
             if not (ey <= bar_y and et <= bar_t and bool(torch.isfinite(t_k).all())):
                 raise AssertionError(f"K1t {suffix(rdt)} differs from its plain version")
+    tangent_designs(ct, dev, card, plain)
 
     # 4: times
     for rdt in (torch.float64, torch.float32):
@@ -2839,31 +2940,20 @@ def calibration_phases(psa, _build, card, t_start, rec):
         args = [x.to(rdt).contiguous() for x in tangent_lanes(rdt, dev, False)]
         ms[key] = 1e3 * timed(lambda: ct.solve_tangent_cuda(*args, dz_m=FIT_DZ,
                                                             n_steps=FIT_STEPS))
-        # the function needs the state's RK4 once a lane and the tangent's
-        # once a lane and direction (the kernel repeats the state in each
-        # direction's thread: its design, not work the function needs)
         n_thr = FIT_B * 3
-        rec["bound_flop"][key] = flop = FIT_STEPS * (
-            FIT_B * RK4_STEP_FLOP[rdt] + n_thr * (4 * TANGENT_RHS_FLOP + 88 + 8))
+        rec["bound_flop"][key] = flop = tangent_flop(rdt, FIT_B, 3)
         # inputs: coef (3), y0 (8) a lane, t0 (8), s (3) a thread; outputs
         # y_end (8) a lane, t_end (8) a thread
         rec["bound"](key, rdt, flop, (19 * FIT_B + 19 * n_thr) * rdt.itemsize)
         rec["library_ms"][key] = None
     x, gain_lin, _db, ok, _md = load_sweep_npz(archive)
     g_db = 10.0 * np.log10(gain_lin[ok])
-    fits = {}
-    for n in (10, 60):
-        t1 = time.perf_counter()
-        C.fit_gain_curve(psa.custom_simulation_config(z_max=500.0, dz=1.0),
-                         delta_beta_grid=x[ok] / 1e3, measured_gain_db=g_db,
-                         p_in=[0.1, 0.1, 1e-5, 0.0], init=dict(gamma=8e-3), steps=n,
-                         tol_db=0.0, device=dev)
-        torch.cuda.synchronize()
-        fits[n] = time.perf_counter() - t1
+    fits = {n: fit_gain_seconds(psa, C, x[ok] / 1e3, g_db, dev, n) for n in (10, 60)}
     step_ms = 1e3 * (fits[60] - fits[10]) / 50
     log(f"phase 29 times on {card} (median of {REPS} warm reps, host clock with synchronize):")
     for key in (k64, k32):
-        log(f"  {key} {FIT_B} lanes x 3 directions x {FIT_STEPS} steps: {ms[key]:.3f} ms; "
+        log(f"  {key} {FIT_B} lanes x 3 directions x {FIT_STEPS} steps, "
+            f"G={ct.group_size(FIT_B * 3)}: {ms[key]:.3f} ms; "
             f"bound {rec['bound_ms'][key]:.4f} ms ({rec['bound_by'][key]}; "
             f"{rec['bound_flop'][key]:.4g} flop; the kernel at "
             f"{100 * rec['bound_ms'][key] / ms[key]:.2f}% of it); plain fp64 version on the "

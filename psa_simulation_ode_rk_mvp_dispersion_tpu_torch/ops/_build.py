@@ -4,11 +4,12 @@ count their launches.
 Each ``csrc/<name>.cu`` is compiled by its own ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface (no PyTorch headers, so a build takes
 seconds); the compilers of all sources run at the same time.  The libraries
-land in ``build/psa_torch_kernels/`` at the root of the checkout, named by a
-hash of the source, the ``csrc/*.cuh`` headers and the flags, so an
-unchanged source is built once.  A
-missing ``nvcc`` or a failed build raises :class:`KernelBuildError` with the
-compiler's output; there is no stand-in.
+land in :data:`BUILD_DIR` (:func:`build_dir`: ``build/psa_torch_kernels/`` at
+the root of a checkout, the user's cache directory for an installed
+package), named by a hash of the source, the ``csrc/*.cuh`` headers and the
+flags, so an unchanged source is built once.  A missing ``nvcc``, a build
+directory that cannot be made or a failed build raises
+:class:`KernelBuildError` with the reason; there is no stand-in.
 
 :data:`LAUNCHES` counts kernel launches by kernel name (``fwm4_rk_f64``,
 ``fwm4_rk45_f32``, ``comb_rk_f64``, ``comb_rk45_f32``, ...; the SSFM
@@ -33,7 +34,23 @@ from pathlib import Path
 from typing import Dict
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "psa_torch_kernels"
+
+
+def build_dir(module_file=__file__) -> Path:
+    """Where the libraries go, for this module at ``module_file``: in a
+    checkout (a ``pyproject.toml`` beside the package)
+    ``<checkout>/build/psa_torch_kernels``, which ``.gitignore`` lists;
+    in an installed package, whose directory may be read-only,
+    ``$XDG_CACHE_HOME/psa_torch_kernels`` (``~/.cache`` when that is not
+    set)."""
+    root = Path(module_file).resolve().parents[2]
+    if (root / "pyproject.toml").is_file():
+        return root / "build" / "psa_torch_kernels"
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(cache) / "psa_torch_kernels"
+
+
+BUILD_DIR = build_dir()
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -55,7 +72,12 @@ NVCC_FLAGS = (
 # vgnlse_ssfm.cu, the build's longest, in 170 s instead of ~250 (its SASS
 # differs in 194 of 1.5 million lines), ssfm_rk45.cu with the same SASS
 # (chip_build_ab.py; PERF.md).
+#
+# The tangent kernel (fwm4_tangent.cu): no contraction either, its fused
+# multiply-adds written out, so that its two designs (a lane-direction on
+# one thread and on four) round alike, bit for bit.
 SOURCE_FLAGS = {"comb_rk45": ("-fmad=false",),
+                "fwm4_tangent": ("-fmad=false",),
                 "gnlse_ssfm": ("-Xptxas", "--split-compile=0"),
                 "ssfm_rk45": ("--split-compile=0",),
                 "vgnlse_ssfm": ("--split-compile=0", "-Xptxas", "--split-compile=0")}
@@ -116,7 +138,11 @@ def build() -> Dict[str, Path]:
     todo = [(src, lib) for src, lib in libs.values() if not lib.exists()]
     if todo:
         nvcc = find_nvcc()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        try:
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        except OSError as e:
+            raise KernelBuildError(
+                f"cannot make the kernel build directory {BUILD_DIR}: {e}") from e
         with concurrent.futures.ThreadPoolExecutor(max_workers=len(todo)) as pool:
             runs = [(src, lib, pool.submit(_compile, nvcc, src, lib)) for src, lib in todo]
         failed = []

@@ -34,7 +34,10 @@ lane b:
 
 - :func:`solve_tangent_cuda` checks its inputs, launches the kernel on the
   current stream and counts the launch in ``ops/_build.LAUNCHES``
-  (``fwm4_tangent_f64`` / ``_f32``).  It takes CUDA tensors only.
+  (``fwm4_tangent_f64`` / ``_f32``, whichever design the width takes).  It
+  takes CUDA tensors only.  :func:`solve_tangent_design` runs one design
+  (a (lane, direction) on 1 thread or on 4) and counts nothing: the holds
+  and the A/B of ``chip_smoke.py`` phase 29 use it.
 - :func:`solve_tangent_torch` is the plain version: the state by the
   operations of ``ops/integrators._rk4_increment`` (so it follows
   ``integrate_reduce`` to the bit), the tangent by the RK4 stages of the
@@ -189,35 +192,68 @@ def solve_tangent_torch(coef, y0, t0, s, *, dz_m: float, n_steps: int):
     return y_end.contiguous(), torch.cat([t.real.T, t.imag.T]).contiguous()
 
 
-def _launcher(rdt: torch.dtype):
-    fn = getattr(_build.load_library("fwm4_tangent"), f"fwm4_tangent_{_DTYPE_SUFFIX[rdt]}")
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_double, ctypes.c_void_p]
+@functools.lru_cache(maxsize=None)
+def _launcher(name: str):
+    """The C launcher ``name`` of ``csrc/fwm4_tangent.cu``:
+    ``fwm4_tangent_<type>`` takes the design by width; ``..._g1`` and
+    ``..._g4`` run one design."""
+    fn = getattr(_build.load_library("fwm4_tangent"), name)
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+                   + [ctypes.c_double, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def solve_tangent_cuda(coef, y0, t0, s, *, dz_m: float, n_steps: int):
-    """The state and the tangents of B lanes in D directions after
-    ``n_steps`` rotating-frame RK4 steps, by the CUDA kernel: one thread a
-    (lane, direction).  The inputs are contiguous CUDA tensors of one real
-    dtype (float64 or float32) in the layout of the module docstring.
-    Returns ``(y_end (8, B), t_end (8, B*D))`` without synchronizing."""
+def _launch(design: str, coef, y0, t0, s, dz_m, n_steps):
+    """Check the planes, launch ``fwm4_tangent_<type><design>`` on the
+    current stream and return its outputs; counts nothing."""
     B, D, rdt = _check(coef, y0, t0, s, n_steps)
     if coef.device.type != "cuda":
         raise ValueError(f"solve_tangent_cuda needs CUDA tensors, got a tensor on {coef.device}")
     for t in (coef, y0, t0, s):
         if not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous")
+    name = f"fwm4_tangent_{_DTYPE_SUFFIX[rdt]}{design}"
     y_end = torch.empty((N_STATE, B), dtype=rdt, device=coef.device)
     t_end = torch.empty((N_STATE, B * D), dtype=rdt, device=coef.device)
     with torch.cuda.device(coef.device):   # the C side reads the current card
-        err = _launcher(rdt)(coef.data_ptr(), y0.data_ptr(), t0.data_ptr(), s.data_ptr(),
-                             y_end.data_ptr(), t_end.data_ptr(), B, D, int(n_steps), float(dz_m),
-                             torch.cuda.current_stream(coef.device).cuda_stream)
+        err = _launcher(name)(coef.data_ptr(), y0.data_ptr(), t0.data_ptr(), s.data_ptr(),
+                              y_end.data_ptr(), t_end.data_ptr(), B, D, int(n_steps),
+                              float(dz_m),
+                              torch.cuda.current_stream(coef.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"fwm4_tangent_{_DTYPE_SUFFIX[rdt]} launch failed: cudaError {err}")
-    _build.LAUNCHES[f"fwm4_tangent_{_DTYPE_SUFFIX[rdt]}"] += 1
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
     return y_end, t_end
+
+
+def solve_tangent_cuda(coef, y0, t0, s, *, dz_m: float, n_steps: int):
+    """The state and the tangents of B lanes in D directions after
+    ``n_steps`` rotating-frame RK4 steps, by the CUDA kernel: a (lane,
+    direction) on a group of 4 threads below a width the kernel sets from
+    the card's SM count, on one thread from there on (:func:`group_size`).
+    The inputs are contiguous CUDA tensors of one real dtype (float64 or
+    float32) in the layout of the module docstring.  Returns ``(y_end (8,
+    B), t_end (8, B*D))`` without synchronizing."""
+    out = _launch("", coef, y0, t0, s, dz_m, n_steps)
+    _build.LAUNCHES[f"fwm4_tangent_{_DTYPE_SUFFIX[coef.dtype]}"] += 1
+    return out
+
+
+def solve_tangent_design(coef, y0, t0, s, *, dz_m: float, n_steps: int, group: int):
+    """:func:`solve_tangent_cuda` through one design of the kernel: a (lane,
+    direction) on ``group`` threads (1 or 4).  For holding the designs to
+    each other and timing them; it counts no launch."""
+    if group not in (1, 4):
+        raise ValueError(f"group must be 1 or 4, got {group}")
+    return _launch(f"_g{group}", coef, y0, t0, s, dz_m, n_steps)
+
+
+def group_size(n: int) -> int:
+    """The threads a (lane, direction) :func:`solve_tangent_cuda` gives
+    ``n = B*D`` of them on the current card."""
+    fn = _build.load_library("fwm4_tangent").fwm4_tangent_group
+    fn.argtypes, fn.restype = [ctypes.c_longlong], ctypes.c_int
+    return int(fn(int(n)))
 
 
 def solve_tangent(coef, y0, t0, s, *, dz_m: float, n_steps: int):

@@ -17,7 +17,8 @@ qualifiers away and runs each block of a ``<<<grid, block, ...>>>`` launch as
 ``block`` ``std::thread``s, one block after another: ``threadIdx`` is
 thread-local, ``__syncthreads`` waits at a C++20 ``std::barrier`` of the
 block's threads, ``__syncthreads_and`` ANDs its argument over them at that
-barrier; each group of 32 threads is a warp with a barrier of its own:
+barrier; each group of 32 threads is a warp with a barrier of its own,
+on which its threads spin:
 ``__syncwarp`` waits there, ``__all_sync`` ANDs over the warp, and
 ``__shfl_down_sync`` and ``__shfl_xor_sync`` exchange through the warp's
 array between two warp barriers, as does ``__shfl_sync`` within segments
@@ -141,11 +142,50 @@ struct WarpDone {
     HostWarp* w;
     void operator()() noexcept;
 };
+// A warp's barrier.  Its threads spin on a phase counter, yielding, since
+// a group's shuffles cross it at every coupling and a sleeping barrier's
+// wake-ups cost each crossing tens of microseconds; past kSpins yields (a
+// crowded host) they sleep on it.  The arrived and the expected threads
+// share one atomic word, so that a thread that returns (arrive_and_drop)
+// cannot race one that arrives.
+template <class Done> struct WarpBarrier {
+    static constexpr int kSpins = 64;
+    std::atomic<unsigned long long> state;  // expected << 32 | arrived
+    std::atomic<unsigned> phase{0};
+    Done done;
+    WarpBarrier(int n, Done d) : state(static_cast<unsigned long long>(n) << 32), done(d) {}
+    void complete(unsigned long long s) {
+        done();
+        state.store(s & ~0xffffffffull, std::memory_order_relaxed);
+        phase.fetch_add(1, std::memory_order_release);
+        phase.notify_all();
+    }
+    void arrive_and_wait() {
+        const unsigned ph = phase.load(std::memory_order_acquire);
+        const unsigned long long s = state.fetch_add(1, std::memory_order_acq_rel) + 1;
+        if ((s & 0xffffffffull) == (s >> 32)) {
+            complete(s);
+            return;
+        }
+        for (int i = 0; phase.load(std::memory_order_acquire) == ph; ++i) {
+            if (i < kSpins) {
+                std::this_thread::yield();
+            } else {
+                phase.wait(ph, std::memory_order_acquire);
+            }
+        }
+    }
+    void arrive_and_drop() {
+        const unsigned long long s =
+            state.fetch_sub(1ull << 32, std::memory_order_acq_rel) - (1ull << 32);
+        if ((s >> 32) > 0 && (s & 0xffffffffull) == (s >> 32)) complete(s);
+    }
+};
 struct HostWarp {
     std::atomic<int> acc{1};
     int res = 1;
     double xch[2][32];
-    std::barrier<WarpDone>* bar = nullptr;
+    WarpBarrier<WarpDone>* bar = nullptr;
 };
 inline HostWarp hwarp[32];
 inline void WarpDone::operator()() noexcept { w->res = w->acc.load(); w->acc.store(1); }
@@ -189,10 +229,10 @@ template <class F> inline void host_launch(int grid, int block, F f) {
         blockIdx.x = b;
         std::barrier<BarrierDone> bar(block);
         hbar = &bar;
-        std::vector<std::unique_ptr<std::barrier<WarpDone>>> wbar;
+        std::vector<std::unique_ptr<WarpBarrier<WarpDone>>> wbar;
         for (int w = 0; w < warps; ++w) {
             const int size = block - 32 * w < 32 ? block - 32 * w : 32;
-            wbar.emplace_back(new std::barrier<WarpDone>(size, WarpDone{&hwarp[w]}));
+            wbar.emplace_back(new WarpBarrier<WarpDone>(size, WarpDone{&hwarp[w]}));
             hwarp[w].bar = wbar.back().get();
         }
         std::vector<std::thread> ts;

@@ -52,6 +52,23 @@ def _options(parser):
             for a in parser._actions if a.option_strings and a.dest != "help"}
 
 
+def test_pyproject_installs_the_psa_torch_command(capsys):
+    """``[project.scripts]`` names ``psa-torch``; its entry point resolves to
+    the port's ``main``, which builds the parser named ``psa-torch`` and
+    exits 0 on ``--help``.  ``psa-tpu`` stays the JAX package's."""
+    import importlib
+    import tomllib
+
+    scripts = tomllib.loads((ROOT / "pyproject.toml").read_text())["project"]["scripts"]
+    assert scripts["psa-tpu"] == f"{JAX_PKG}.__main__:main"
+    module, _, attr = scripts["psa-torch"].partition(":")
+    main = getattr(importlib.import_module(module), attr)
+    assert main is cli.main and cli.build_parser().prog == "psa-torch"
+    with pytest.raises(SystemExit) as exit_:
+        main(["--help"])
+    assert exit_.value.code == 0 and "usage: psa-torch" in capsys.readouterr().out
+
+
 def test_help_lists_the_ported_subcommands():
     out = _cli("--help")
     assert out.returncode == 0, out.stderr[-2000:]

@@ -14,7 +14,9 @@ The CUDA kernel itself is compared with the plain version on the card in
 refusals and the build's failure path are tested here.
 """
 
+import re
 import stat
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -183,6 +185,56 @@ def test_build_compiles_every_source_and_logs_its_seconds(tmp_path, monkeypatch)
         assert sorted(seconds) == ["one", "two"] and all(s >= 0.0 for s in seconds.values())
         assert _build.build_log().count("Used 10 registers") == 2
         assert not list((tmp_path / "build").glob("*.tmp"))
+    finally:
+        _build.build.cache_clear()
+
+
+PKG_FILE = ("psa_simulation_ode_rk_mvp_dispersion_tpu_torch", "ops", "_build.py")
+
+
+def test_a_checkout_builds_into_its_build_directory(tmp_path):
+    """From this checkout, and from any tree with a pyproject.toml beside
+    the package, the libraries go to ``<root>/build/psa_torch_kernels``
+    (which .gitignore lists)."""
+    root = Path(__file__).resolve().parent.parent
+    assert _build.BUILD_DIR == root / "build" / "psa_torch_kernels"
+    (tmp_path / "pyproject.toml").write_text("[project]\n")
+    assert _build.build_dir(tmp_path.joinpath(*PKG_FILE)) == (
+        tmp_path.resolve() / "build" / "psa_torch_kernels")
+
+
+@pytest.mark.parametrize("xdg", [True, False], ids=["XDG_CACHE_HOME", "home-cache"])
+def test_an_installed_package_builds_into_the_user_cache(tmp_path, monkeypatch, xdg):
+    """With no checkout root above the package (site-packages), the
+    libraries go to ``$XDG_CACHE_HOME/psa_torch_kernels``, else to
+    ``~/.cache/psa_torch_kernels``, never beside the package."""
+    site = tmp_path / "lib" / "site-packages"
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    if xdg:
+        monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
+        want = tmp_path / "cache" / "psa_torch_kernels"
+    else:
+        monkeypatch.delenv("XDG_CACHE_HOME", raising=False)
+        want = tmp_path / "home" / ".cache" / "psa_torch_kernels"
+    assert _build.build_dir(site.joinpath(*PKG_FILE)) == want
+
+
+def test_a_build_directory_that_cannot_be_made_raises_a_build_error(tmp_path, monkeypatch):
+    """mkdir refused (a read-only site-packages) is a KernelBuildError that
+    names the directory, not a PermissionError."""
+    target = tmp_path / "ro" / "psa_torch_kernels"
+
+    def refuse(self, *a, **k):
+        raise PermissionError(13, "Permission denied", str(self))
+
+    monkeypatch.setattr(_build, "BUILD_DIR", target)
+    monkeypatch.setattr(_build, "find_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(Path, "mkdir", refuse)
+    _build.build.cache_clear()
+    try:
+        with pytest.raises(_build.KernelBuildError,
+                           match=re.escape(f"cannot make the kernel build directory {target}")):
+            _build.build()
     finally:
         _build.build.cache_clear()
 

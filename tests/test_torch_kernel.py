@@ -794,6 +794,36 @@ def test_tangent_kernel_matches_plain_version(card, rdt, state):
     assert float(ey.max()) <= bars[0] and float(et.max()) <= bars[1]
 
 
+@pytest.mark.parametrize("rdt", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("state", [False, True], ids=["fit", "launch"])
+@pytest.mark.parametrize("group", [1, 4], ids=["g1", "g4"])
+def test_tangent_designs_match_plain_version_and_each_other(card, rdt, state, group):
+    """Each design's own launcher (a lane-direction on ``group`` threads):
+    the bars of ``test_tangent_kernel_matches_plain_version``, no launch
+    counted, and the group of 4 equal to the one thread bit for bit."""
+    B, n = 130, 253
+    rng = np.random.default_rng(9)
+    coef = torch.tensor(np.stack([rng.uniform(5e-3, 2e-2, B), rng.uniform(0.0, 1e-3, B),
+                                  rng.uniform(-0.05, 0.05, B)]), device=card)
+    A = np.sqrt([0.5, 0.5, 1e-5, 1e-6]) * np.exp(1j * rng.uniform(0.0, 6.0, (B, 4)))
+    y0 = torch.tensor(np.concatenate([A.real.T, A.imag.T]), device=card).contiguous()
+    t0, s = ct.directions(B, coef=True, state=state, dtype=torch.float64, device=card)
+    y_p, t_p = ct.solve_tangent_torch(coef, y0, t0, s, dz_m=0.4, n_steps=n)
+    args = [x.to(rdt).contiguous() for x in (coef, y0, t0, s)]
+    launches = dict(_build.LAUNCHES)
+    y_k, t_k = ct.solve_tangent_design(*args, dz_m=0.4, n_steps=n, group=group)
+    y_1, t_1 = ct.solve_tangent_design(*args, dz_m=0.4, n_steps=n, group=1)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == launches
+    assert torch.equal(y_k, y_1) and torch.equal(t_k, t_1)
+    bars = (1e-11, 1e-10) if rdt == torch.float64 else (1e-4, 1e-4)
+    D = t0.shape[1] // B
+    ey = (y_k.double() - y_p).abs().amax(dim=0) / y_p.abs().amax(dim=0)
+    et = ((t_k.double() - t_p).reshape(8, D, B).norm(dim=0)
+          / t_p.reshape(8, D, B).norm(dim=0))
+    assert float(ey.max()) <= bars[0] and float(et.max()) <= bars[1]
+
+
 def test_fit_on_the_card_is_one_tangent_launch_a_step(card):
     """``fit_gain_curve`` on the card launches K1t once an adam step and
     once for the curve at the fitted parameters, and follows the CPU fit

@@ -12,6 +12,12 @@ version of ``csrc/fwm4_tangent.cu``) on the CPU.
   stub, one host thread a CUDA thread), against the plain version: fp64
   within 1e-13, fp32 against the fp64 plain version within 1e-4 (the chip's
   bars are 1e-11 / 1e-10 and 1e-4).
+- Its two designs, a (lane, direction) on a group of 4 threads and on one,
+  each through its own launcher of that build (130 lanes, 3 and 11
+  directions): the group gives the one thread's bits in fp64 and fp32 and
+  is held to the plain version at the bars above; the launcher by width
+  takes the group below ``kLaneDirsPerSM`` (lane, direction)s an SM of the
+  stub's card and one thread from there on, with the same bits.
 - A CPU tensor takes the plain version and counts no launch; the kernel's
   wrapper refuses CPU tensors.
 
@@ -19,6 +25,8 @@ The kernel itself runs only on the card (``tests/test_torch_kernel.py``,
 ``chip_smoke.py`` phase 29)."""
 
 import ctypes
+import functools
+import re
 import shutil
 
 import numpy as np
@@ -114,15 +122,18 @@ def host_lib(tmp_path_factory):
 @pytest.mark.parametrize("state", [False, True], ids=["fit", "launch"])
 def test_the_kernel_source_matches_the_plain_version(host_lib, rdt, state):
     """37 lanes (not a multiple of a block), 3 fit directions or 11, 120
-    steps of 1 m."""
+    steps of 1 m, through the launcher by width on a stub card of 0 SMs,
+    where it runs a (lane, direction) on one thread (the group of 4 is held
+    by ``test_a_group_of_four_matches_the_plain_version``)."""
     B, n = 37, 120
     coef, y0 = _lanes(B, seed=3, rdt=rdt)
     t0, s = ct.directions(B, coef=True, state=state, dtype=rdt, device="cpu")
     y_end = torch.empty((8, B), dtype=rdt)
     t_end = torch.empty_like(t0)
     fn = getattr(host_lib, f"fwm4_tangent_{'f64' if rdt == torch.float64 else 'f32'}")
-    err = fn(*(host.ptr(t) for t in (coef, y0, t0, s, y_end, t_end)), B, t0.shape[1] // B, n,
-             ctypes.c_double(1.0), None)
+    with host.sm_count(host_lib, 0):
+        err = fn(*(host.ptr(t) for t in (coef, y0, t0, s, y_end, t_end)), B,
+                 t0.shape[1] // B, n, ctypes.c_double(1.0), None)
     assert err == 0
     f64 = [t.double() for t in (coef, y0, t0, s)]
     y_ref, t_ref = ct.solve_tangent_torch(*f64, dz_m=1.0, n_steps=n)
@@ -131,6 +142,82 @@ def test_the_kernel_source_matches_the_plain_version(host_lib, rdt, state):
     tk, tr = t_end.double().reshape(8, -1, B), t_ref.reshape(8, -1, B)
     et = (tk - tr).norm(dim=0) / tr.norm(dim=0)
     assert float(ey.max()) <= bar and float(et.max()) <= bar
+
+
+GROUP_B, GROUP_STEPS, GROUP_DZ = 130, 8, 5.0
+LANE_DIRS_PER_SM = int(re.search(r"constexpr int kLaneDirsPerSM = (\d+);",
+                                 (_build.CSRC_DIR / "fwm4_tangent.cu").read_text()).group(1))
+
+
+def _host_call(fn, planes):
+    coef, y0, t0, s = planes
+    B = coef.shape[1]
+    y_end, t_end = torch.empty((8, B), dtype=coef.dtype), torch.empty_like(t0)
+    err = fn(*(host.ptr(t) for t in (coef, y0, t0, s, y_end, t_end)), B, t0.shape[1] // B,
+             GROUP_STEPS, ctypes.c_double(GROUP_DZ), None)
+    assert err == 0
+    return y_end, t_end
+
+
+@functools.lru_cache(maxsize=None)
+def _designs(lib, rdt, n_dir):
+    """130 lanes in ``n_dir`` directions (3 fit, or 3 fit and 8 launch):
+    the outputs of each design's launcher (``g1``, ``g4``), of the
+    launcher by width on a stub card of 0 SMs, where it takes one thread
+    (``no SMs``), and of the plain fp64 version.  A group's shuffles cost the stub a barrier of 32
+    host threads each, so the run is short: 8 steps of 5 m."""
+    coef, y0 = _lanes(GROUP_B, seed=6, rdt=rdt)
+    t0, s = ct.directions(GROUP_B, coef=True, state=n_dir == 11, dtype=rdt, device="cpu")
+    planes = (coef, y0, t0, s)
+    sfx = "f64" if rdt == torch.float64 else "f32"
+    out = {f"g{g}": _host_call(getattr(lib, f"fwm4_tangent_{sfx}_g{g}"), planes)
+           for g in (1, 4)}
+    with host.sm_count(lib, 0):
+        out["no SMs"] = _host_call(getattr(lib, f"fwm4_tangent_{sfx}"), planes)
+    out["plain"] = ct.solve_tangent_torch(*(t.double() for t in planes), dz_m=GROUP_DZ,
+                                          n_steps=GROUP_STEPS)
+    return out
+
+
+@pytest.mark.parametrize("n_dir", [3, 11])
+@pytest.mark.parametrize("rdt", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_a_group_of_four_gives_the_one_thread_bits(host_lib, rdt, n_dir):
+    """The group's shuffles move bits and its sums run in the one-thread
+    order, so every output equals the one-thread design's, and the
+    launcher by width gives those bits through either design."""
+    out = _designs(host_lib, rdt, n_dir)
+    for label in ("g4", "no SMs"):
+        assert torch.equal(out[label][0], out["g1"][0]), label
+        assert torch.equal(out[label][1], out["g1"][1]), label
+
+
+@pytest.mark.parametrize("n_dir", [3, 11])
+@pytest.mark.parametrize("rdt", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_a_group_of_four_matches_the_plain_version(host_lib, rdt, n_dir):
+    """fp64 within 1e-13 of the plain version, fp32 within 1e-4 of the fp64
+    one (state: of each lane's largest value; tangents: normwise a lane
+    and direction)."""
+    out = _designs(host_lib, rdt, n_dir)
+    (y_k, t_k), (y_ref, t_ref) = out["g4"], out["plain"]
+    bar = 1e-13 if rdt == torch.float64 else 1e-4
+    ey = (y_k.double() - y_ref).abs().amax(dim=0) / y_ref.abs().amax(dim=0)
+    tk, tr = t_k.double().reshape(8, n_dir, -1), t_ref.reshape(8, n_dir, -1)
+    et = (tk - tr).norm(dim=0) / tr.norm(dim=0)
+    assert float(ey.max()) <= bar and float(et.max()) <= bar
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+def test_group_size_takes_four_below_the_threshold_and_one_from_it(host_lib, sms):
+    """``fwm4_tangent_group(n)`` on a stub card of ``sms`` SMs: 4 threads a
+    (lane, direction) below ``kLaneDirsPerSM * sms`` of them, 1 from there
+    on; ``fit-gain``'s 200 x 3 takes the group on an H100's 132 SMs."""
+    fn = host_lib.fwm4_tangent_group
+    fn.argtypes, fn.restype = [ctypes.c_longlong], ctypes.c_int
+    edge = LANE_DIRS_PER_SM * sms
+    with host.sm_count(host_lib, sms):
+        assert [fn(n) for n in (1, edge - 1, edge, 10 * edge)] == [4, 4, 1, 1]
+        if sms == 132:
+            assert fn(200 * 3) == 4
 
 
 def test_float32_adds_the_state_compensated():
@@ -164,6 +251,15 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     t0, s = ct.directions(2, coef=True, state=False, dtype=torch.float64, device="cpu")
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         ct.solve_tangent_cuda(coef, y0, t0, s, dz_m=1.0, n_steps=5)
+
+
+def test_the_design_launchers_take_cuda_tensors_and_a_group_of_1_or_4():
+    coef, y0 = _lanes(2)
+    t0, s = ct.directions(2, coef=True, state=False, dtype=torch.float64, device="cpu")
+    with pytest.raises(ValueError, match="group must be 1 or 4"):
+        ct.solve_tangent_design(coef, y0, t0, s, dz_m=1.0, n_steps=5, group=2)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        ct.solve_tangent_design(coef, y0, t0, s, dz_m=1.0, n_steps=5, group=4)
 
 
 @pytest.mark.parametrize("bad, says", [
