@@ -5,10 +5,10 @@ the JAX package on the same relaxation.
 
 Tolerances: the golden ``solve_bvp`` oracle within 1e-6 (the JAX test's
 bar; the frozen-field RK4 interpolation limits it); the port against the
-JAX package at x64 within 1e-12 relative with the same sweep count (both
-run the same RK4 in float64; they round the FWM products and the backward
-sweep's running product differently); a batch equal to its lanes solved
-alone bit for bit.
+JAX package at x64 within 1e-12 relative, with the same sweep count where
+a ``tol`` above 0 stops the run (both run the same RK4 in float64; they
+round the FWM products and the backward sweep's running product
+differently); a batch equal to its lanes solved alone bit for bit.
 """
 
 import dataclasses
@@ -131,6 +131,38 @@ def test_convergence_residual_reported():
     assert r20.residual <= r5.residual
     assert r20.residual < 1e-10
     assert r5.n_iterations == 3 and r20.n_iterations <= 20
+
+
+def test_strong_coupling_requires_damping_and_converges_and_matches_jax():
+    """Above the SBS threshold (gB*P*L = 10) plain alternating sweeps
+    oscillate; under-relaxation restores convergence with heavy pump
+    depletion and conserved P_A - P_B; the damped run's A, B and
+    reflectivity are the JAX package's within 1e-12.  The sweep counts are
+    not held: with ``tol`` 0 a run stops early only at a residual of
+    exactly 0, which one package may reach and the other, a rounding
+    apart, may not (both then sit at the rounding's level)."""
+    common = dict(gamma=0.0, alpha=0.0, g_B=2.0, delta_beta=0.0,
+                  p_in=[0.5, 0, 0, 0], p_stokes_seed=[2e-3, 0, 0, 0], length_unit="m")
+    cfg = T.custom_simulation_config(z_max=10.0, dz=0.01, save_every=10)
+    undamped = sbs.run_sbs_simulation(cfg, n_iterations=60, **common, device="cpu")
+    assert undamped.residual > 1e-2  # oscillating, reported honestly
+
+    damped = sbs.run_sbs_simulation(cfg, n_iterations=400, damping=0.3, **common,
+                                    device="cpu")
+    assert damped.residual < 1e-10
+    assert damped.reflectivity[0] > 0.5  # strong Stokes conversion
+    P_A = np.abs(damped.A[:, 0]) ** 2
+    P_B = np.abs(damped.B[:, 0]) ** 2
+    inv = P_A - P_B
+    np.testing.assert_allclose(inv, inv[0], rtol=1e-5)
+
+    ref = jsbs.run_sbs_simulation(J.custom_simulation_config(z_max=10.0, dz=0.01, save_every=10),
+                                  n_iterations=400, damping=0.3, **common)
+    np.testing.assert_array_equal(damped.z, ref.z)
+    np.testing.assert_allclose(damped.A, ref.A, rtol=1e-12, atol=0)
+    np.testing.assert_allclose(damped.B, ref.B, rtol=1e-12, atol=0)
+    np.testing.assert_allclose(damped.reflectivity, ref.reflectivity, rtol=1e-12, atol=0)
+    assert ref.residual < 1e-12 and damped.residual < 1e-12
 
 
 def test_damping_validation():
