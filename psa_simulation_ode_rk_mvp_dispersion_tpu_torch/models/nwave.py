@@ -24,6 +24,10 @@ transform forms use ``F^2 conj(F) = F |F|^2``.
 - :func:`run_comb_simulation` and :func:`solve_comb_batch_trajectories` have
   no kernel in either package and run plain torch on their device.
 - ``device=None`` means the CUDA card; without one the solvers raise.
+- Spans (``utils/observability``): ``psa.make_comb_coeffs`` and
+  ``psa.solve_comb_batch`` around those calls, ``psa.nwave.inputs`` (a
+  batch's state and lanes on its device), ``psa.wait`` and ``psa.fetch``
+  (the summaries to the host).
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from ..ops.dispersion import DispersionParams, beta_taylor
 from ..ops.integrators import integrate_fixed_grid
 from ..parallel.mesh import mesh_device, shard_batch
 from ..utils.checks import as_f64, device_key, resolve_device
+from ..utils.observability import span, spanned, wait
 from ..utils.precision import dtypes_for, real_dtype, validate_precision
 from ..utils.units import length_scale_to_m
 from ..parallel.sweep import VALID_ENGINES   # 'torch' is JAX's 'scan', 'cuda' its 'pallas'
@@ -240,6 +245,7 @@ def comb_beta_lin(
     return beta
 
 
+@spanned("psa.make_comb_coeffs")
 def make_comb_coeffs(
     grid: CombGrid,
     dispersion: DispersionParams,
@@ -451,6 +457,7 @@ def _check_mxu_precision(mxu_precision: str) -> None:
         raise ValueError(f"mxu_precision must be 'highest', got {mxu_precision!r}")
 
 
+@spanned("psa.solve_comb_batch")
 def solve_comb_batch(
     cfg: SimulationConfig,
     coeffs: NWaveCoeffs,
@@ -512,9 +519,10 @@ def solve_comb_batch(
         raise ValueError(f"engine='cuda' needs a CUDA device, got {device}")
 
     rdt, cdt = dtypes_for(precision)
-    y0 = _batch_state(A0, cdt, device)
-    B, N = y0.shape
-    lanes = _lanes(coeffs, B, N, rdt, device)
+    with span("psa.nwave.inputs"):
+        y0 = _batch_state(A0, cdt, device)
+        B, N = y0.shape
+        lanes = _lanes(coeffs, B, N, rdt, device)
     kw = dict(dz_m=dz_m, n_steps=n_steps, save_every=int(cfg.save_every))
     use_kernel = device.type == "cuda" and engine in ("auto", "cuda")
     if integrator == "rk45":
@@ -536,5 +544,8 @@ def solve_comb_batch(
         return r.P_max.to(torch.float64), r.A_end.to(torch.complex128), r.ok
 
     if mesh is None:
-        return tuple(_host(t) for t in solve(device, y0, *lanes))
+        outs = solve(device, y0, *lanes)
+        wait(device)
+        with span("psa.fetch"):
+            return tuple(_host(t) for t in outs)
     return shard_batch(mesh, solve, (y0, *lanes))

@@ -48,6 +48,7 @@ from . import _build
 from .adaptive import integrate_adaptive_reduce
 from .cuda_solver import _DTYPE_SUFFIX, _to_lab, check_lanes
 from .rhs import RHSCoeffs, rhs_yaman_autonomous
+from ..utils.observability import spanned
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,6 +110,7 @@ def rk45_reduce(rhs, A0, coeffs: RHSCoeffs, *, dz_m: float, n_steps: int, save_e
     return r.reduction, r.y_final, r.ok, r.n_accepted, r.n_rejected
 
 
+@spanned("psa.k3.plain")
 def solve_batch_rk45_torch(A0, gamma, alpha, delta_beta, *, dz_m: float, n_steps: int,
                            save_every: int, rtol: float, atol: float,
                            max_steps: int = 1_000_000) -> AdaptiveBatchResult:
@@ -133,6 +135,7 @@ def _launcher(rdt: torch.dtype):
     return fn
 
 
+@spanned("psa.k3.launch")
 def solve_batch_rk45_cuda(A0, gamma, alpha, delta_beta, *, dz_m: float, n_steps: int,
                           save_every: int, rtol: float, atol: float,
                           max_steps: int = 1_000_000) -> AdaptiveBatchResult:

@@ -47,6 +47,7 @@ from . import _build
 from .cuda_solver import _COMPLEX_OF, _DTYPE_SUFFIX, reduce_pmax_last
 from ..models.nwave import NWaveCoeffs, _fft_len, _rhs_of, dft_roots, make_rhs_nwave
 from ..utils.checks import device_key
+from ..utils.observability import spanned
 
 METHODS = ("rk4", "ab4", "abm4")
 # The plain versions' default coupling: the comb kernels' arithmetic.
@@ -86,6 +87,7 @@ def check_comb_lanes(A0, gamma, alpha, beta_lin, n_steps, save_every):
     return B, N, rdt
 
 
+@spanned("psa.k4.plain")
 def solve_comb_batch_torch(A0, gamma, alpha, beta_lin, *, dz_m: float, n_steps: int,
                            save_every: int, integrator: str = "rk4", check_nan: bool = True,
                            coupling: str = KERNEL_COUPLING) -> CombBatchResult:
@@ -254,6 +256,7 @@ def _launcher(rdt: torch.dtype, integrator: str):
     return fn
 
 
+@spanned("psa.k4.launch")
 def solve_comb_batch_cuda(A0, gamma, alpha, beta_lin, *, dz_m: float, n_steps: int,
                           save_every: int, integrator: str = "rk4",
                           check_nan: bool = True) -> CombBatchResult:

@@ -47,6 +47,7 @@ from .cuda_comb import (KERNEL_COUPLING, _DTYPE_SUFFIX, check_comb_lanes, kernel
                         plain_rhs, twiddles)
 from ..models.nwave import NWaveCoeffs
 from ..utils.checks import device_key
+from ..utils.observability import spanned
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +69,7 @@ def _check_inputs(A0, gamma, alpha, beta_lin, n_steps, save_every, rtol, atol, m
     return B, N, rdt
 
 
+@spanned("psa.k5.plain")
 def solve_comb_batch_rk45_torch(A0, gamma, alpha, beta_lin, *, dz_m: float, n_steps: int,
                                 save_every: int, rtol: float, atol: float,
                                 max_steps: int = 10_000,
@@ -92,6 +94,7 @@ def _launcher(rdt: torch.dtype):
     return fn
 
 
+@spanned("psa.k5.launch")
 def solve_comb_batch_rk45_cuda(A0, gamma, alpha, beta_lin, *, dz_m: float, n_steps: int,
                                save_every: int, rtol: float, atol: float,
                                max_steps: int = 10_000) -> CombAdaptiveResult:

@@ -40,6 +40,7 @@ from . import _build
 from .cuda_solver import _COMPLEX_OF, _DTYPE_SUFFIX
 from ..models.gnlse import NLTerms, _lin_factor, _scalar, gnlse_fixed
 from ..utils.checks import device_key
+from ..utils.observability import spanned
 
 # The widths the kernels take, those of the JAX kernels: T a multiple of 128,
 # at most 128 * 16.
@@ -127,6 +128,7 @@ def check_envelopes(A0, gamma, alpha, lin_phase, n_steps, save_every):
     return B, T, rdt
 
 
+@spanned("psa.k6.plain")
 def solve_gnlse_batch_torch(A0, gamma, alpha, lin_phase, *, dz_m: float, n_steps: int,
                             save_every: int, nl: Optional[NLTerms] = None,
                             method: str = "strang") -> GNLSEBatchResult:
@@ -172,6 +174,7 @@ def _launcher(rdt: torch.dtype):
     return fn
 
 
+@spanned("psa.k6.launch")
 def solve_gnlse_batch_cuda(A0, gamma, alpha, lin_phase, *, dz_m: float, n_steps: int,
                            save_every: int, nl: Optional[NLTerms] = None) -> GNLSEBatchResult:
     """Solve B envelopes with the Strang split-step kernel, one thread block

@@ -37,6 +37,7 @@ from .cuda_gnlse import GNLSEBatchResult, twiddles, width_problem
 from .cuda_solver import _COMPLEX_OF, _DTYPE_SUFFIX
 from ..models.lle import _det_phase, _drive_offset, _lle_lin_factor, _scalar, lle_fixed
 from ..utils.checks import device_key
+from ..utils.observability import spanned
 
 
 def check_cavities(psi0, detuning, pump, lin_phase, n_steps, save_every):
@@ -66,6 +67,7 @@ def check_cavities(psi0, detuning, pump, lin_phase, n_steps, save_every):
     return B, T, rdt
 
 
+@spanned("psa.k7.plain")
 def solve_lle_batch_torch(psi0, detuning, pump, lin_phase, *, dt: float, n_steps: int,
                           save_every: int, method: str = "strang") -> GNLSEBatchResult:
     """Plain PyTorch version of :func:`solve_lle_batch_cuda`, on whatever
@@ -105,6 +107,7 @@ def _launcher(rdt: torch.dtype):
     return fn
 
 
+@spanned("psa.k7.launch")
 def solve_lle_batch_cuda(psi0, detuning, pump, lin_phase, *, dt: float, n_steps: int,
                          save_every: int) -> GNLSEBatchResult:
     """Solve B cavities with the affine Strang split-step kernel, one thread

@@ -30,6 +30,7 @@ import torch
 from . import _build
 from .integrators import integrate_reduce
 from .rhs import RHSCoeffs, rhs_yaman_autonomous, rotating_to_lab
+from ..utils.observability import spanned
 
 METHODS = ("rk4", "ab4", "abm4")
 _DTYPE_SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
@@ -96,6 +97,7 @@ def reduce_pmax_last(rhs, A0, coeffs: RHSCoeffs, *, dz_m: float, n_steps: int,
     return pmax, y_last, res.ok
 
 
+@spanned("psa.k1.plain")
 def solve_batch_torch(A0, gamma, alpha, delta_beta, *, dz_m: float, n_steps: int,
                       save_every: int, integrator: str = "rk4",
                       check_nan: bool = True) -> KernelBatchResult:
@@ -121,6 +123,7 @@ def _launcher(rdt: torch.dtype, integrator: str):
     return fn
 
 
+@spanned("psa.k1.launch")
 def solve_batch_cuda(A0, gamma, alpha, delta_beta, *, dz_m: float, n_steps: int,
                      save_every: int, integrator: str = "rk4",
                      check_nan: bool = True) -> KernelBatchResult:

@@ -45,6 +45,7 @@ from .cuda_lle import check_cavities
 from ..models.gnlse import NLTerms, gnlse_adaptive, save_segments
 from ..models.lle import lle_adaptive
 from ..utils.checks import device_key
+from ..utils.observability import spanned
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +71,7 @@ def _check_inputs(A0, gamma, alpha, lin_phase, n_steps, save_every, rtol, atol, 
     return B, T, rdt
 
 
+@spanned("psa.k8.plain")
 def solve_gnlse_batch_rk45_torch(A0, gamma, alpha, lin_phase, *, dz_m: float, n_steps: int,
                                  save_every: int, rtol: float, atol: float,
                                  max_steps: int = 100_000, nl: Optional[NLTerms] = None,
@@ -122,6 +124,7 @@ def _launch(route, y0, p0, p1, lin_phase, *, dt, n_steps, save_every, rtol, atol
                               n_rejected=nr)
 
 
+@spanned("psa.k8.launch")
 def solve_gnlse_batch_rk45_cuda(A0, gamma, alpha, lin_phase, *, dz_m: float, n_steps: int,
                                 save_every: int, rtol: float, atol: float,
                                 max_steps: int = 100_000) -> SSFMAdaptiveResult:
@@ -148,6 +151,7 @@ def solve_gnlse_batch_rk45_cuda(A0, gamma, alpha, lin_phase, *, dz_m: float, n_s
                    save_every=save_every, rtol=rtol, atol=atol, max_steps=max_steps)
 
 
+@spanned("psa.k8.plain")
 def solve_lle_batch_rk45_torch(psi0, detuning, pump, lin_phase, *, dt: float, n_steps: int,
                                save_every: int, rtol: float, atol: float,
                                max_steps: int = 100_000,
@@ -164,6 +168,7 @@ def solve_lle_batch_rk45_torch(psi0, detuning, pump, lin_phase, *, dt: float, n_
     return SSFMAdaptiveResult(peak_max=pk, A_end=y, ok=ok, n_accepted=na, n_rejected=nr)
 
 
+@spanned("psa.k8.launch")
 def solve_lle_batch_rk45_cuda(psi0, detuning, pump, lin_phase, *, dt: float, n_steps: int,
                               save_every: int, rtol: float, atol: float,
                               max_steps: int = 100_000) -> SSFMAdaptiveResult:

@@ -62,6 +62,7 @@ import torch
 from . import _build
 from .cuda_solver import _DTYPE_SUFFIX
 from .rhs import RHSCoeffs, rhs_yaman_autonomous
+from ..utils.observability import spanned
 
 N_COEF = 3    # gamma, alpha, delta_beta
 N_STATE = 8   # re and im of the 4 waves
@@ -168,6 +169,7 @@ def _tangent_increment(y, t, coeffs: RHSCoeffs, seeds: RHSCoeffs, dz: float):
             (dz / 6.0) * (d1 + 2.0 * d2 + 2.0 * d3 + d4))
 
 
+@spanned("psa.k1t.plain")
 def solve_tangent_torch(coef, y0, t0, s, *, dz_m: float, n_steps: int):
     """Plain PyTorch version of :func:`solve_tangent_cuda`, on whatever
     device the tensors are: ``(y_end (8, B), t_end (8, B*D))``."""
@@ -226,6 +228,7 @@ def _launch(design: str, coef, y0, t0, s, dz_m, n_steps):
     return y_end, t_end
 
 
+@spanned("psa.k1t.launch")
 def solve_tangent_cuda(coef, y0, t0, s, *, dz_m: float, n_steps: int):
     """The state and the tangents of B lanes in D directions after
     ``n_steps`` rotating-frame RK4 steps, by the CUDA kernel: a (lane,

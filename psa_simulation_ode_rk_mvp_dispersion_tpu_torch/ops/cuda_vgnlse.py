@@ -51,6 +51,7 @@ from .cuda_solver import _COMPLEX_OF, _DTYPE_SUFFIX
 from ..models.gnlse import NLTerms, _scalar
 from ..models.vgnlse import _lin_factor_v, vgnlse_fixed
 from ..utils.checks import device_key
+from ..utils.observability import spanned
 
 # The nonlinear bodies of csrc/vgnlse_ssfm.cu (its Body enum), and the
 # buffers of T complex values a block of each keeps in shared memory: the
@@ -136,6 +137,7 @@ def check_instances(A0, gamma, alpha, b_xpm, lin_phase, n_steps, save_every):
     return B, T, rdt
 
 
+@spanned("psa.k9.plain")
 def solve_vgnlse_batch_torch(A0, gamma, alpha, b_xpm, lin_phase, coherent: float = 0.0, *,
                              dz_m: float, n_steps: int, save_every: int,
                              nl: Optional[NLTerms] = None,
@@ -178,6 +180,7 @@ def _launcher(rdt: torch.dtype):
     return fn
 
 
+@spanned("psa.k9.launch")
 def solve_vgnlse_batch_cuda(A0, gamma, alpha, b_xpm, lin_phase, coherent: float = 0.0, *,
                             dz_m: float, n_steps: int, save_every: int,
                             nl: Optional[NLTerms] = None) -> VGNLSEBatchResult:

@@ -24,6 +24,10 @@ final gather of per-instance results.
   CPU, NCCL between cards).
 - The solvers launch every slot's kernel before they fetch any result, so
   shards on distinct cards run at the same time.
+- Spans (``utils/observability``): ``psa.mesh.shard`` (the padding, the
+  shared copies and every slot's rows), ``psa.wait`` (under a profiler,
+  every slot's card), ``psa.mesh.gather`` (every output back, trimmed) and,
+  inside it, ``psa.fetch`` for each block copied to the host.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import numpy as np
 import torch
 
 from ..utils.checks import resolve_device
+from ..utils.observability import span, wait
 
 BATCH_AXIS = "batch"
 
@@ -367,7 +372,7 @@ def fetch_global(x) -> np.ndarray:
     process gets the whole array).  A tensor or anything else converts as
     it is."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        return _fetch(x)
     if not isinstance(x, ShardedArray):
         return np.asarray(x)
     mesh, sh = x.sharding.mesh, x.sharding
@@ -389,8 +394,13 @@ def fetch_global(x) -> np.ndarray:
         blocks.setdefault(sh.block_of(slot), t)
     if len(blocks) != sh.n_blocks:
         raise ValueError(f"the shards hold {len(blocks)} of {sh.n_blocks} blocks")
-    out = np.concatenate([blocks[b].detach().cpu().numpy() for b in range(sh.n_blocks)])
+    out = np.concatenate([_fetch(blocks[b]) for b in range(sh.n_blocks)])
     return out.reshape(x.shape)
+
+
+def _fetch(t: torch.Tensor) -> np.ndarray:
+    with span("psa.fetch"):
+        return t.detach().cpu().numpy()
 
 
 def _all_gather_shards(local, mesh: Mesh) -> list:
@@ -493,33 +503,39 @@ def shard_batch(mesh, fn: Callable, args: Sequence, *, in_axes=0, out_axes=0) ->
                          "one batched argument")
     n = int(batched[0].shape[0])
     sharding = batch_sharding(mesh)
-    padded = [_pad_rows(a, sharding.n_blocks) if ax == 0 else a for a, ax in zip(args, in_axes)]
     slots = mesh.local_slots()
-    shared = {}
-    for _slot, dev in slots:
-        if str(dev) not in shared:
-            shared[str(dev)] = [None if ax == 0 else _to_device(a, dev)
-                                for a, ax in zip(padded, in_axes)]
+    with span("psa.mesh.shard"):
+        padded = [_pad_rows(a, sharding.n_blocks) if ax == 0 else a
+                  for a, ax in zip(args, in_axes)]
+        shared = {}
+        for _slot, dev in slots:
+            if str(dev) not in shared:
+                shared[str(dev)] = [None if ax == 0 else _to_device(a, dev)
+                                    for a, ax in zip(padded, in_axes)]
 
-    def rows(a, slot, dev):
-        part = _rows(a, sharding, slot)
-        return part.to(dev) if isinstance(part, torch.Tensor) else part
+        def rows(a, slot, dev):
+            part = _rows(a, sharding, slot)
+            return part.to(dev) if isinstance(part, torch.Tensor) else part
 
-    # Every slot's inputs reach its device before any slot launches: a copy
-    # from another card waits for the work queued on that card, so a kernel
-    # launched there first would hold the copy, and this slot, back.
-    inputs = [[rows(a, slot, dev) if ax == 0 else rep
-               for a, ax, rep in zip(padded, in_axes, shared[str(dev)])] for slot, dev in slots]
+        # Every slot's inputs reach its device before any slot launches: a
+        # copy from another card waits for the work queued on that card, so a
+        # kernel launched there first would hold the copy, and this slot, back.
+        inputs = [[rows(a, slot, dev) if ax == 0 else rep
+                   for a, ax, rep in zip(padded, in_axes, shared[str(dev)])]
+                  for slot, dev in slots]
     outs = [tuple(fn(dev, *a)) for (_slot, dev), a in zip(slots, inputs)]
+    wait(*(dev for _slot, dev in slots))
     out_axes = (out_axes,) * len(outs[0]) if not isinstance(out_axes, (list, tuple)) \
         else out_axes
     n_pad = n + (-n % sharding.n_blocks)
     result = []
-    for k, ax in enumerate(out_axes):
-        first = outs[0][k]
-        if ax is None:
-            result.append(fetch_global(first))
-            continue
-        shape = (n_pad,) + tuple(first.shape[1:])
-        result.append(fetch_global(ShardedArray(shape, sharding, tuple(o[k] for o in outs)))[:n])
+    with span("psa.mesh.gather"):
+        for k, ax in enumerate(out_axes):
+            first = outs[0][k]
+            if ax is None:
+                result.append(fetch_global(first))
+                continue
+            shape = (n_pad,) + tuple(first.shape[1:])
+            result.append(
+                fetch_global(ShardedArray(shape, sharding, tuple(o[k] for o in outs)))[:n])
     return tuple(result)

@@ -21,6 +21,12 @@ layer ``scan_mismtach.py``): :func:`solve_batch`,
   masked up front, and NaN/Inf during integration clears the per-instance
   ``ok`` flag; both surface as NaN gain.
 - Results come back to the host as numpy arrays, as in the JAX package.
+- Spans (``utils/observability``): ``psa.sweep.spectrum`` around a
+  spectrum call, ``psa.sweep.plan`` (its plan, dbeta and lanes),
+  ``psa.sweep.inputs`` (a solve's inputs on its device), ``psa.wait`` and
+  ``psa.fetch`` (the summaries to the host), ``psa.sweep.gain`` (powers and
+  gains); under a profiler an rk45 solve in the rotating frame also marks
+  ``psa.count k3 attempts= accepted= lanes=`` for each launch.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ from ..ops.integrators import integrate_fixed_grid
 from ..ops.phase_matching import PhaseMatchingConfig, PhaseMatchingMethod
 from ..ops.rhs import RHSCoeffs, rhs_yaman, rhs_yaman_autonomous, rotating_to_lab
 from ..utils.checks import as_f64, resolve_device
+from ..utils.observability import count, span, tracing, wait
 from ..utils.precision import dtypes_for, validate_precision
 from ..utils.units import length_scale_to_m, wavelength_scale
 from .mesh import fetch_global, mesh_device, shard_batch
@@ -149,23 +156,24 @@ def _batch_inputs(cfg: SimulationConfig, coeffs: RHSCoeffs, A0, *, frame: str, m
     device (with a mesh, this process's first slot): ``(device, A0 (B, 4)
     complex, gamma, alpha, dbeta (B,) real)`` in the dtypes of
     ``cfg.precision``."""
-    validate_config(cfg)
-    reject_non_ode(cfg, "the 4-wave sweep engine")
-    if frame not in VALID_FRAMES:
-        raise ValueError(f"frame must be one of {VALID_FRAMES}, got {frame!r}")
-    device = mesh_device(mesh, device)
-    rdt, cdt = dtypes_for(validate_precision(cfg.precision))
-    if not isinstance(A0, torch.Tensor):
-        A0 = torch.from_numpy(np.array(A0))  # a writable copy of any numpy view
-    A0 = A0.to(device=device, dtype=cdt)
-    if A0.ndim != 2 or A0.shape[1] != 4:
-        raise ValueError(f"A0 must have shape (B, 4), got {tuple(A0.shape)}")
-    B = A0.shape[0]
+    with span("psa.sweep.inputs"):
+        validate_config(cfg)
+        reject_non_ode(cfg, "the 4-wave sweep engine")
+        if frame not in VALID_FRAMES:
+            raise ValueError(f"frame must be one of {VALID_FRAMES}, got {frame!r}")
+        device = mesh_device(mesh, device)
+        rdt, cdt = dtypes_for(validate_precision(cfg.precision))
+        if not isinstance(A0, torch.Tensor):
+            A0 = torch.from_numpy(np.array(A0))  # a writable copy of any numpy view
+        A0 = A0.to(device=device, dtype=cdt)
+        if A0.ndim != 2 or A0.shape[1] != 4:
+            raise ValueError(f"A0 must have shape (B, 4), got {tuple(A0.shape)}")
+        B = A0.shape[0]
 
-    def lanes(v):
-        return as_f64(v, device=device).to(device).broadcast_to((B,)).to(rdt).contiguous()
+        def lanes(v):
+            return as_f64(v, device=device).to(device).broadcast_to((B,)).to(rdt).contiguous()
 
-    return device, A0, lanes(coeffs.gamma), lanes(coeffs.alpha), lanes(coeffs.delta_beta)
+        return device, A0, lanes(coeffs.gamma), lanes(coeffs.alpha), lanes(coeffs.delta_beta)
 
 
 def solve_batch(
@@ -254,6 +262,10 @@ def solve_batch(
     else:
         kw.update(integrator=integrator, check_nan=bool(cfg.check_nan))
 
+    # under a profiler, each rk45 launch's (accepted, rejected) sums on its
+    # device and its lanes, marked after the fetch
+    attempts = []
+
     def solve(_dev, A0, gamma, alpha, dbeta):
         """One launch (or plain solve) over the rows given, not fetched."""
         if frame == "rotating":
@@ -263,6 +275,9 @@ def solve_batch(
                 solver = solve_batch_cuda if use_kernel else solve_batch_torch
             r = solver(A0, gamma, alpha, dbeta, **kw)
             pmax, A_end, ok = r.P_max, r.A_end, r.ok
+            if integrator == "rk45" and tracing():
+                attempts.append((torch.stack([r.n_accepted, r.n_rejected]).sum(1),
+                                 A0.shape[0]))
         elif integrator == "rk45":
             pmax, A_end, ok, _na, _nr = rk45_reduce(
                 rhs_yaman, A0, RHSCoeffs(gamma, alpha, dbeta), **kw)
@@ -275,13 +290,20 @@ def solve_batch(
     # host result assembly: one copy of each summary (a mesh: each shard's,
     # after every shard was launched)
     if mesh is None:
-        pmax, A_end, ok = (t.cpu().numpy() for t in solve(device, A0, gamma, alpha, dbeta))
+        outs = solve(device, A0, gamma, alpha, dbeta)
+        wait(device)
+        with span("psa.fetch"):
+            pmax, A_end, ok = (t.cpu().numpy() for t in outs)
     else:
         pmax, A_end, ok = shard_batch(mesh, solve, (A0, gamma, alpha, dbeta))
+    for sums, lanes in attempts:
+        with span("psa.fetch"):
+            accepted, rejected = sums.tolist()
+        count("k3", attempts=accepted + rejected, accepted=accepted, lanes=lanes)
     elapsed = time.perf_counter() - t0
     # not-ok lanes are frozen at their last finite state, which can be large
     # enough that |A|^2 overflows to inf -- fine (the ok mask governs use)
-    with np.errstate(over="ignore"):
+    with span("psa.sweep.gain"), np.errstate(over="ignore"):
         P_end = np.abs(A_end) ** 2
     return BatchSolveResult(
         P_max=pmax, P_end=P_end, A_end=A_end, ok=ok, elapsed_s=elapsed,
@@ -454,77 +476,82 @@ def gain_and_dbeta_spectrum(
     (``None``: the CUDA card); ``engine`` and ``mesh`` as in
     :func:`solve_batch`.
     """
-    validate_config(cfg)
-    reject_non_ode(cfg, "the 4-wave sweep engine")
-    gu = _norm_gain_unit(gain_unit)
-    if gain_mode not in VALID_GAIN_MODES:
-        raise ValueError(f"Unknown gain_mode={gain_mode!r}. Use 'end' or 'max'.")
-    lam3 = np.asarray(list(lambda_signal_m), dtype=float)
-    if lam3.ndim != 1 or lam3.size == 0:
-        raise ValueError("lambda_signal_m must be a non-empty 1D sequence")
-    if not np.all(np.isfinite(lam3)) or np.any(lam3 <= 0.0):
-        raise ValueError("lambda_signal_m must contain finite positive wavelengths (m)")
+    with span("psa.sweep.spectrum"):
+        with span("psa.sweep.plan"):
+            validate_config(cfg)
+            reject_non_ode(cfg, "the 4-wave sweep engine")
+            gu = _norm_gain_unit(gain_unit)
+            if gain_mode not in VALID_GAIN_MODES:
+                raise ValueError(f"Unknown gain_mode={gain_mode!r}. Use 'end' or 'max'.")
+            lam3 = np.asarray(list(lambda_signal_m), dtype=float)
+            if lam3.ndim != 1 or lam3.size == 0:
+                raise ValueError("lambda_signal_m must be a non-empty 1D sequence")
+            if not np.all(np.isfinite(lam3)) or np.any(lam3 <= 0.0):
+                raise ValueError("lambda_signal_m must contain finite positive wavelengths (m)")
 
-    p0 = _to_power_array(p_in)
-    if p0[2] <= 0.0:
-        raise ValueError("p_in[2] (signal seed power) must be > 0 to define gain")
-    ph0 = _to_phase_array(phase_in)
+            p0 = _to_power_array(p_in)
+            if p0[2] <= 0.0:
+                raise ValueError("p_in[2] (signal seed power) must be > 0 to define gain")
+            ph0 = _to_phase_array(phase_in)
 
-    device = mesh_device(mesh, device)
-    scale_to_m = length_scale_to_m(length_unit)
+            device = mesh_device(mesh, device)
+            scale_to_m = length_scale_to_m(length_unit)
 
-    disp_m = dispersion.scaled(scale_to_m).to(device) if dispersion is not None else None
-    pm_cfg = phase_matching_cfg
-    if pm_cfg is None:
-        if disp_m is None:
-            raise ValueError("Provide dispersion or an explicit phase_matching_cfg")
-        pm_cfg = PhaseMatchingConfig(
-            method=PhaseMatchingMethod.SYMMETRIC_EVEN, max_order=4,
-            even_orders=(2, 4), atol=0.0, rtol=1e-12,
+            disp_m = dispersion.scaled(scale_to_m).to(device) if dispersion is not None else None
+            pm_cfg = phase_matching_cfg
+            if pm_cfg is None:
+                if disp_m is None:
+                    raise ValueError("Provide dispersion or an explicit phase_matching_cfg")
+                pm_cfg = PhaseMatchingConfig(
+                    method=PhaseMatchingMethod.SYMMETRIC_EVEN, max_order=4,
+                    even_orders=(2, 4), atol=0.0, rtol=1e-12,
+                )
+            pm_cfg = pm_cfg.scaled(scale_to_m)
+
+            omegas, valid = _batched_plan_from_wavelengths(
+                float(lambda_p1_m), float(lambda_p2_m), as_f64(lam3, device=device)
+            )
+            dbeta_m = _batched_delta_beta(omegas, disp_m, pm_cfg)
+
+            B = lam3.size
+            a0 = np.sqrt(p0).astype(np.complex128) * np.exp(1j * ph0)
+            A0 = torch.as_tensor(a0, device=device).expand(B, 4)
+
+            cfg_m = _cfg_in_m(cfg, scale_to_m)
+            coeffs = RHSCoeffs(
+                gamma=torch.full((B,), float(gamma) / scale_to_m, dtype=torch.float64,
+                                 device=device),
+                alpha=torch.full((B,), float(alpha) / scale_to_m, dtype=torch.float64,
+                                 device=device),
+                delta_beta=dbeta_m,
+            )
+        res = solve_batch(
+            cfg_m, coeffs, A0, frame=frame, mesh=mesh, engine=engine,
+            progress=_default_progress if verbose else None, device=device,
         )
-    pm_cfg = pm_cfg.scaled(scale_to_m)
+        with span("psa.sweep.gain"):
+            valid = valid.cpu().numpy()
+            P3_metric = res.P_max[:, 2] if gain_mode == "max" else res.P_end[:, 2]
+            ok = res.ok & valid
+            gain = _gain_from_power(P3_metric, float(p0[2]), ok, gu)
 
-    omegas, valid = _batched_plan_from_wavelengths(
-        float(lambda_p1_m), float(lambda_p2_m), as_f64(lam3, device=device)
-    )
-    dbeta_m = _batched_delta_beta(omegas, disp_m, pm_cfg)
+            dbeta_out = None
+            if compute_dbeta:
+                # report in 1/length_unit (consistent with gamma), like the reference
+                dbeta_out = np.where(valid, dbeta_m.cpu().numpy() * scale_to_m, np.nan)
 
-    B = lam3.size
-    a0 = np.sqrt(p0).astype(np.complex128) * np.exp(1j * ph0)
-    A0 = torch.as_tensor(a0, device=device).expand(B, 4)
-
-    cfg_m = _cfg_in_m(cfg, scale_to_m)
-    coeffs = RHSCoeffs(
-        gamma=torch.full((B,), float(gamma) / scale_to_m, dtype=torch.float64, device=device),
-        alpha=torch.full((B,), float(alpha) / scale_to_m, dtype=torch.float64, device=device),
-        delta_beta=dbeta_m,
-    )
-    res = solve_batch(
-        cfg_m, coeffs, A0, frame=frame, mesh=mesh, engine=engine,
-        progress=_default_progress if verbose else None, device=device,
-    )
-    valid = valid.cpu().numpy()
-    P3_metric = res.P_max[:, 2] if gain_mode == "max" else res.P_end[:, 2]
-    ok = res.ok & valid
-    gain = _gain_from_power(P3_metric, float(p0[2]), ok, gu)
-
-    dbeta_out = None
-    if compute_dbeta:
-        # report in 1/length_unit (consistent with gamma), like the reference
-        dbeta_out = np.where(valid, dbeta_m.cpu().numpy() * scale_to_m, np.nan)
-
-    x = lam3 * wavelength_scale(return_wavelength_unit)
-    pts = B / res.elapsed_s if res.elapsed_s > 0 else float("inf")
-    if verbose:
-        print(
-            f"[sweep] {B} points in {res.elapsed_s:.3f} s "
-            f"({pts:.1f} pt/s, {B * int(round(cfg.z_max / cfg.dz))} {cfg.integrator} "
-            "steps total)"
+        x = lam3 * wavelength_scale(return_wavelength_unit)
+        pts = B / res.elapsed_s if res.elapsed_s > 0 else float("inf")
+        if verbose:
+            print(
+                f"[sweep] {B} points in {res.elapsed_s:.3f} s "
+                f"({pts:.1f} pt/s, {B * int(round(cfg.z_max / cfg.dz))} {cfg.integrator} "
+                "steps total)"
+            )
+        return SweepResult(
+            x=x, gain=gain, dbeta=dbeta_out, ok=ok, gain_unit=gu,
+            elapsed_s=res.elapsed_s, points_per_s=pts,
         )
-    return SweepResult(
-        x=x, gain=gain, dbeta=dbeta_out, ok=ok, gain_unit=gu,
-        elapsed_s=res.elapsed_s, points_per_s=pts,
-    )
 
 
 def gain_spectrum(**kwargs) -> SweepResult:

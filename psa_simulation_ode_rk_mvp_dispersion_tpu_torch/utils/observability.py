@@ -13,6 +13,42 @@ throughput) plus tqdm bars.  Here:
   results; this class serves custom loops).
 - :func:`log_run`: one-line structured (JSON) run records appended to a file
   -- greppable run history with device/config provenance.
+- :func:`span`, :func:`spanned`, :func:`count`, :func:`wait`: the port's own
+  spans and counters, which a profiler (:func:`profile_trace`, or any
+  ``torch.profiler`` session) records on its own clock, beside the
+  device's kernels and copies.
+
+Spans and counters.  Every host step of a traced call sits in exactly one
+innermost span named ``psa.<layer>[.<step>]``, and the span that caused it
+is the enclosing one on the same thread:
+
+- the entries: ``psa.sweep.spectrum`` (``gain_and_dbeta_spectrum``, which
+  ``gain_spectrum`` calls), ``psa.solve_comb_batch``,
+  ``psa.make_comb_coeffs``;
+- their parameter math and inputs: ``psa.sweep.plan``, ``psa.sweep.inputs``,
+  ``psa.nwave.inputs``;
+- the kernels' wrappers: ``psa.k<N>.launch`` (the layout, the buffers and
+  the launch of kernel KN of ``ops/cuda_*``; ``k1`` for ``csrc/fwm4_rk.cu``
+  in both precisions, ``k1t`` for the tangent kernel) and
+  ``psa.k<N>.plain`` (the plain torch version of the same kernel);
+- ``psa.wait``: the host blocked on the card before the first fetch
+  (issued only while a profiler records: untraced, that wait happens inside
+  the first copy to the host);
+- the host assembly: ``psa.fetch`` (a copy of results to host numpy) and
+  ``psa.sweep.gain`` (powers and gains from the fetched summaries);
+- the mesh: ``psa.mesh.shard`` (padding and every slot's copies) and
+  ``psa.mesh.gather`` (every output back to the host, and its trim).
+
+A counter is a zero-length span whose name carries its values: ``psa.count
+<layer> <key>=<int> <key>=<int> ...``, e.g. ``psa.count k3 attempts=... accepted=...
+lanes=...`` (K3's adaptive attempts, accepted steps and lanes of one
+launch).  Names are the only channel: a span's arguments do not reach the
+Chrome trace.
+
+With no profiler recording, a span costs one check of the profiler's state
+and returns a shared null context (no formatting, allocation or clock
+read); :func:`count` returns at once, and a caller computes its values only
+under ``if tracing():``.  No span reads a clock of its own.
 
 Progress bars: deliberately NOT inside hot loops.  A batched sweep is one
 kernel launch; per-point host callbacks would serialize it.  For multi-batch
@@ -22,6 +58,7 @@ campaigns, wrap the outer Python loop in :class:`ThroughputMeter`.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import time
@@ -30,6 +67,56 @@ from pathlib import Path
 from typing import Any, Dict
 
 import torch
+
+# whether a torch profiler records (true under ``with profile()`` and after
+# ``prof.start()``): the one check an untraced span costs
+_recording = torch._C._autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
+COUNT_PREFIX = "psa.count"
+
+
+def tracing() -> bool:
+    """Whether a torch profiler is recording in this process."""
+    return _recording()
+
+
+def span(name: str):
+    """A ``torch.profiler.record_function(name)`` while a profiler records,
+    else one shared null context."""
+    return torch.profiler.record_function(name) if _recording() else _OFF
+
+
+def spanned(name: str):
+    """Decorate a function so that each call runs inside ``span(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
+
+
+def count(layer: str, **values: int) -> None:
+    """While a profiler records, one zero-length span ``psa.count <layer>
+    k=v ...`` with the integer ``values`` in the order given; else nothing."""
+    if not _recording():
+        return
+    fields = "".join(f" {k}={int(v)}" for k, v in values.items())
+    with torch.profiler.record_function(f"{COUNT_PREFIX} {layer}{fields}"):
+        pass
+
+
+def wait(*devices) -> None:
+    """While a profiler records, ``psa.wait``: block on the current stream
+    of each CUDA device given (an explicit wait before the first fetch, so
+    the trace shows it apart from the copy); else nothing."""
+    if not _recording():
+        return
+    with torch.profiler.record_function("psa.wait"):
+        for d in dict.fromkeys(torch.device(d) for d in devices):
+            if d.type == "cuda":
+                torch.cuda.current_stream(d).synchronize()
 
 
 @contextlib.contextmanager
